@@ -1,25 +1,41 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's main path once at the flagship configuration,
-Prio3Histogram(length=1024, chunk_length=316) over Field128 with
-TurboSHAKE128, 2 shares, 1 proof, at a batch of 4096 reports:
+Drives the port's paths once each, over Field128 with TurboSHAKE128,
+2 shares and 1 proof, and checks them:
 
 1. builds the CUDA kernels from ``janus_tpu_torch/csrc`` (one nvcc per
-   source, all at once);
-2. shards 64 distinct reports with the port's own oracle from ``--seed``,
-   tiles them to 4032 rows and adds 64 rows whose leader measurement share
-   is perturbed;
-3. with every kernel launch counter at 0, runs leader and helper
-   ``CudaBackend.prep_init_multi``, then ``prep_shares_to_prep_batch`` and
-   ``aggregate_batch``, and reads the counters;
-4. checks that the unsharded aggregate equals the exact histogram of the
-   valid rows, that every tampered row is rejected, that 16 sampled rows
-   match the oracle's ``prep_init`` byte for byte, and that each kernel
-   (K1 squeeze, K2 absorb, K3 wire evaluations) at the path's shapes equals
-   its plain PyTorch version on the card;
-5. prints the per-kernel JSON line, the end-to-end times, the card's name
-   and power limit, and as its last line
-   ``{"ok": true, "device": {...}}``.
+   source, all at once) and shards 64 distinct histogram reports from
+   ``--seed``, while two worker processes shard the SumVec reports with the
+   port's oracle (phase 4 needs them); every timed phase starts after the
+   workers have ended, so none runs beside them;
+2. **Histogram served path**, Prio3Histogram(length=1024, chunk_length=316)
+   at B = 4096: the 64 reports tiled to 4032 rows, plus 64 rows whose
+   leader measurement share is perturbed; leader
+   and helper ``CudaBackend.prep_init_multi``, ``prep_shares_to_prep_batch``
+   and ``aggregate_batch``; the aggregate is the exact histogram of the
+   valid rows, every tampered row is rejected and 16 sampled rows equal the
+   oracle's ``prep_init`` byte for byte;
+3. **Histogram planar combine**: helper ``prep_init_planar(keep_planar=True)``
+   and ``prep_shares_to_prep_planar`` against the leader's verifiers on the
+   same staged batch; decide and the prep-message seed equal the served
+   combine for all 4096 rows;
+4. **SumVec100k through the backend**, Prio3SumVec(length=100000, bits=1,
+   chunk_length=316) at B = 128: 2 distinct reports tiled to 120 rows plus 8
+   tampered rows; the aggregate is the exact sum of the valid vectors, the
+   tampered rows are rejected and one row per side per report equals the
+   oracle;
+5. **SumVec100k at device scale**: the staged 128 rows tiled x8 on the card
+   to B = 1024 through ``BatchedPrio3`` directly; decide and the aggregate
+   equal 8x those of phase 4; device time, profile and peak memory;
+6. each kernel (K1 squeeze, K2 absorb, K3 histogram wires, K4 combine,
+   K5 SumVec wires) at its path's shapes against its plain PyTorch version
+   on the card; K1/K2 timed at the SumVec shape, and 8 of their columns
+   there held against the plain version on the host.
+
+Every path runs with the kernel launch counters set to 0 just before it and
+read just after; a kernel of the path that was never launched fails the run.
+Prints each phase's seconds, the per-kernel JSON line, the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.  It
 exits nonzero, printing no result, without a CUDA card or when any phase
@@ -30,10 +46,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -41,6 +59,13 @@ import torch
 LENGTH, CHUNK = 1024, 316
 DISTINCT, TAMPERED, BATCH = 64, 64, 4096
 SAMPLED = 16
+#: Prio3SumVec(100000, 1, 316): BASELINE.json configs[3], the wide-vector FLP.
+SV_LENGTH, SV_CHUNK = 100000, 316
+SV_DISTINCT, SV_TAMPERED, SV_BATCH, SV_TILE = 2, 8, 128, 8
+#: Columns of K1/K2 at the SumVec shape held against the plain version on the host.
+HOST_CHECK_COLUMNS = 8
+#: Where the paths run (the card; a CPU rehearsal of the script sets "cpu").
+DEVICE = "cuda"
 #: Largest |kernel - plain| allowed over u32 words: the arithmetic is exact
 #: integer work, so every kernel must equal its plain version bit for bit.
 TOLERANCE = 0
@@ -61,6 +86,8 @@ KECCAK_P12_OPS = 12 * (40 + 20 + 50 + 48 + 150 + 2)
 #: one modular add or subtract (4 adds with carry, 4 compares, 4 selects).
 MONT_MUL_OPS = 36 * 2 + 64
 FIELD_ADD_OPS = 12
+
+KERNEL_NAMES = ("keccak_squeeze", "keccak_absorb", "flp_wire_evals", "flp_combine_decide", "flp_sumvec_wires")
 
 
 def log(msg: str) -> None:
@@ -97,6 +124,33 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def counters():
+    """The launch-counting wrapper of every kernel, by name."""
+    from janus_tpu_torch.ops import flp_kernels, keccak_kernels
+
+    return dict(zip(KERNEL_NAMES, (
+        keccak_kernels.squeeze, keccak_kernels.absorb, flp_kernels.wire_evals,
+        flp_kernels.combine_decide, flp_kernels.sumvec_wires,
+    )))
+
+
+def counted(path: str, needs, fn):
+    """Run one path with every launch counter at 0 just before it and read
+    just after; fail if a kernel the path needs was never launched."""
+    fns = counters()
+    torch.cuda.synchronize()
+    for w in fns.values():
+        w.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in fns.items()}
+    log(f"{path} launches: {json.dumps(launches)}")
+    missing = [k for k in needs if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels of the path never launched: {missing}")
+    return result, launches
+
+
 def shard_reports(vdaf, rng):
     reports, meas = [], []
     for _ in range(DISTINCT):
@@ -109,16 +163,41 @@ def shard_reports(vdaf, rng):
     return reports, meas
 
 
-def build_batch(vdaf, reports, meas, rng):
-    """4032 tiled valid rows plus 64 tampered rows, shuffled from the seed.
-    Returns (leader rows, helper rows, tampered flags, measurement per row)."""
+def sumvec_oracle_job(seed: int, index: int, verify_key: bytes):
+    """One distinct SumVec100k report sharded by the port's oracle, and the
+    oracle's prep_init of both sides (run in a worker process).  Returns
+    (measurement, (nonce, public share, input shares), [(prep share bytes,
+    out share, joint-rand seed) per side], shard seconds, prep seconds)."""
+    from janus_tpu_torch.vdaf.instances import prio3_sum_vec
+
+    vdaf = prio3_sum_vec(SV_LENGTH, 1, SV_CHUNK)
+    rng = np.random.default_rng([seed, index])
+    meas = [int(x) for x in rng.integers(0, 2, SV_LENGTH)]
+    nonce = rng.integers(0, 256, vdaf.NONCE_SIZE, dtype=np.uint8).tobytes()
+    rand = rng.integers(0, 256, vdaf.RAND_SIZE, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    public, shares = vdaf.shard(meas, nonce, rand)
+    shard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = []
+    for agg_id in (0, 1):
+        state, pshare = vdaf.prep_init(verify_key, agg_id, nonce, public, shares[agg_id])
+        oracle.append((pshare.encode(vdaf), state.out_share, state.corrected_joint_rand_seed))
+    return meas, (nonce, public, shares), oracle, shard_s, time.perf_counter() - t0
+
+
+def build_batch(vdaf, reports, rng, batch, tampered):
+    """Tiled valid rows plus ``tampered`` rows with a perturbed leader
+    measurement share, shuffled from the seed.  Returns (leader rows,
+    helper rows, tampered flags, distinct report index per row)."""
     from janus_tpu_torch.vdaf.prio3 import Prio3InputShare
 
     p = vdaf.flp.field.MODULUS
-    rows = [(i % DISTINCT, False) for i in range(BATCH - TAMPERED)]
-    rows += [(i % DISTINCT, True) for i in range(TAMPERED)]
+    distinct = len(reports)
+    rows = [(i % distinct, False) for i in range(batch - tampered)]
+    rows += [(i % distinct, True) for i in range(tampered)]
     order = rng.permutation(len(rows))
-    leader, helper, tampered, row_meas = [], [], [], []
+    leader, helper, bad_rows, src = [], [], [], []
     for j in order:
         i, bad = rows[j]
         nonce, public, shares = reports[i]
@@ -131,14 +210,15 @@ def build_batch(vdaf, reports, meas, rng):
             )
         leader.append((nonce, public, lead))
         helper.append((nonce, public, shares[1]))
-        tampered.append(bad)
-        row_meas.append(meas[i])
-    return leader, helper, np.array(tampered), row_meas
+        bad_rows.append(bad)
+        src.append(i)
+    return leader, helper, np.array(bad_rows), np.array(src)
 
 
 def run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows):
     """Leader and helper prepare, combine and aggregate, as the executor
-    drives them.  Returns (aggregate, accepted mask, results, seconds per phase)."""
+    drives them.  Returns (aggregate, accepted mask, results, prep messages,
+    seconds per phase)."""
     secs = {}
     t0 = time.perf_counter()
     lead = backend.prep_init_multi(0, [(verify_key, leader_rows)])[0]
@@ -158,27 +238,39 @@ def run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows):
         accepted[b] = True
     t0 = time.perf_counter()
     f = backend.bp.f
+    out_len = vdaf.flp.OUTPUT_LEN
     aggs = []
     for side in (lead, help_):
-        limbs = f.to_limbs([x for st, _ in side for x in st.out_share]).reshape(len(side), LENGTH, f.n)
+        limbs = f.to_limbs([x for st, _ in side for x in st.out_share]).reshape(len(side), out_len, f.n)
         aggs.append(backend.aggregate_batch(limbs, accepted))
     secs["aggregate"] = time.perf_counter() - t0
-    return aggs, accepted, (lead, help_), secs
+    return aggs, accepted, (lead, help_), msgs, secs
+
+
+def check_decisions(accepted, tampered) -> None:
+    if accepted[tampered].any():
+        raise AssertionError("a tampered row was accepted")
+    if not accepted[~tampered].all():
+        raise AssertionError("a valid row was rejected")
+
+
+def device_prep(bp, placed, agg_id, keep_planar=False):
+    """One batched prepare from staged tensors (no host marshal or readback)."""
+    kw = dict(placed)
+    vk = kw.pop("verify_key_u8")
+    return bp.prep_init_planar(agg_id, vk, kw.pop("nonces_u8"), keep_planar=keep_planar, **kw)
 
 
 def kernel_checks(backend, helper_rows, launches):
-    """Each kernel at the main path's shapes against its plain version."""
+    """K1-K3 at the histogram path's shapes against their plain versions."""
     from janus_tpu_torch.ops import flp_kernels, keccak_kernels
-    from janus_tpu_torch.ops.field import storage
     from janus_tpu_torch.vdaf.prio3 import USAGE_MEAS_SHARE, USAGE_PROOF_SHARE
 
     bp, f, flp = backend.bp, backend.bp.f, backend.vdaf.flp
     dev = backend.device
     B = len(helper_rows)
     n = f.n
-    seeds = torch.from_numpy(np.frombuffer(b"".join(r[2].share_seed for r in helper_rows), np.uint8).reshape(B, 16).copy()).to(dev)
-    nonces = torch.from_numpy(np.frombuffer(b"".join(r[0] for r in helper_rows), np.uint8).reshape(B, 16).copy()).to(dev)
-    blinds = torch.from_numpy(np.frombuffer(b"".join(r[2].joint_rand_blind for r in helper_rows), np.uint8).reshape(B, 16).copy()).to(dev)
+    seeds, nonces, blinds = helper_byte_rows(helper_rows, dev)
     binder = torch.full((B, 1), 1, dtype=torch.uint8, device=dev)
     out = []
 
@@ -222,13 +314,7 @@ def kernel_checks(backend, helper_rows, launches):
     # K3: wire evaluations over the real share streams with seeded random
     # coefficients at the path's shapes (top bit clear, so canonical).
     circ = bp.circ
-    gen = torch.Generator(device="cpu").manual_seed(7)
-
-    def rand_field(elems):
-        w = torch.randint(0, 1 << 32, (elems, n, B), generator=gen, dtype=torch.int64)
-        w[:, n - 1] >>= 1
-        return storage(w).to(dev).contiguous()
-
+    rand_field = seeded_field(B, n, dev, 7)
     coeffs = (rand_field(circ.chunk), rand_field(circ.calls), rand_field(circ.calls), rand_field(1)[0], rand_field(1)[0])
     args = (f, flp.MEAS_LEN, circ.chunk, meas_st, proofs_st) + coeffs
     ev, od = flp_kernels.wire_evals(*args)
@@ -250,6 +336,131 @@ def kernel_checks(backend, helper_rows, launches):
     return out
 
 
+def combine_check(bp, own, peer_verifiers, launches):
+    """K4 on the histogram path's real wires (chunk 316, B 4096) and the
+    leader's verifier planes, against its plain version."""
+    from janus_tpu_torch.ops import flp_kernels
+    from janus_tpu_torch.ops.field import storage
+
+    f, chunk = bp.f, bp.circ.chunk
+    he, ho = own["wire_ev_pl"], own["wire_od_pl"]
+    pv = storage(peer_verifiers.permute(1, 2, 0)).contiguous()
+    B = he.shape[-1]
+    got = flp_kernels.combine_decide(f, chunk, he, ho, pv)
+    want = flp_kernels.combine_decide_plain(f, chunk, he, ho, pv)
+    # he, ho and the peer's 2*chunk wires read once, g written once; per
+    # column 3 additions and 1 product, and chunk - 1 additions to fold.
+    bms, by = bound(4 * f.n * B * (4 * chunk + 1), B * (chunk * (3 * FIELD_ADD_OPS + MONT_MUL_OPS) + (chunk - 1) * FIELD_ADD_OPS))
+    return {
+        "name": "flp_combine_decide", "route": "cuda", "source": "janus_tpu_torch/csrc/flp_combine.cu",
+        "replaces": "janus_tpu/ops/flp_pallas.py:262", "launches": launches["flp_combine_decide"],
+        "max_abs_err": max_abs_err(got, want),
+        "ms": cuda_time_ms(lambda: flp_kernels.combine_decide(f, chunk, he, ho, pv), 20),
+        "plain_ms": cuda_time_ms(lambda: flp_kernels.combine_decide_plain(f, chunk, he, ho, pv), 1),
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "tolerance": TOLERANCE,
+        "shape": f"he/ho ({chunk}, {f.n}, {B}), peer verifier {tuple(pv.shape)} -> g ({f.n}, {B})",
+    }
+
+
+def sumvec_checks(bp, helper_rows, launches):
+    """K5 at (100000, 316, B 1024) on the real helper streams with seeded
+    random coefficients, against its plain version.  K1 and K2 timed at the
+    SumVec shape, and their outputs in 8 columns spread over the batch held
+    against the plain version on the host: the plain Keccak is launch-bound
+    (about 6 ms a block on an H100, 2-3 ms on one host CPU core at 8
+    columns), so the whole batch on the card would take minutes."""
+    from janus_tpu_torch.ops import flp_kernels, keccak_kernels
+    from janus_tpu_torch.vdaf.prio3 import USAGE_MEAS_SHARE, USAGE_PROOF_SHARE
+
+    f, flp, circ = bp.f, bp.flp, bp.circ
+    dev, n = bp.device, f.n
+    seeds, nonces, blinds = helper_byte_rows(helper_rows, dev)
+    B = seeds.shape[0]
+    binder = torch.full((B, 1), 1, dtype=torch.uint8, device=dev)
+    msg = keccak_kernels.padded_message_planes(seeds, bp._dst(USAGE_MEAS_SHARE), binder)
+    W = flp.MEAS_LEN * n
+    meas_st = keccak_kernels.squeeze(msg, W)
+    proofs_st = keccak_kernels.squeeze(
+        keccak_kernels.padded_message_planes(seeds, bp._dst(USAGE_PROOF_SHARE), binder), flp.PROOF_LEN * n
+    )
+    jmsg = bp._jr_part_message(1, blinds, nonces, meas_st)
+    jr_part = keccak_kernels.absorb(jmsg, 4)
+    nb, na = -(-W // 42), jmsg.shape[0] // 42
+    cols = torch.linspace(0, B - 1, HOST_CHECK_COLUMNS).round().long().to(dev)
+    shapes = {}
+    for name, fn, plain, inp, got, moved, perms, shape in (
+        ("keccak_squeeze", lambda: keccak_kernels.squeeze(msg, W), lambda x: keccak_kernels.squeeze_plain(x, W),
+         msg, meas_st, msg.numel() * 4 + meas_st.numel() * 4, nb, f"in (42, {B}) -> out ({W}, {B}), {nb} blocks"),
+        ("keccak_absorb", lambda: keccak_kernels.absorb(jmsg, 4), lambda x: keccak_kernels.absorb_plain(x, 4),
+         jmsg, jr_part, jmsg.numel() * 4 + 4 * 4 * B, na, f"in ({jmsg.shape[0]}, {B}) -> out (4, {B}), {na} blocks"),
+    ):
+        bms, by = bound(moved, perms * B * KECCAK_P12_OPS)
+        t0 = time.perf_counter()
+        err = max_abs_err(got[:, cols].cpu(), plain(inp[:, cols].cpu().contiguous()))
+        shapes[name] = {
+            "ms": cuda_time_ms(fn, 3), "bound_ms": bms, "bound_by": by, "shape": shape,
+            "max_abs_err_host_columns": err, "host_columns": HOST_CHECK_COLUMNS,
+            "plain_host_s": time.perf_counter() - t0,
+        }
+        log(f"{name} at the SumVec shape: {HOST_CHECK_COLUMNS} columns against the plain version on the host, "
+            f"max_abs_err {err}, {shapes[name]['plain_host_s']:.2f} s")
+    del jmsg, jr_part
+
+    rand_field = seeded_field(B, n, dev, 11)
+    coeffs = (rand_field(circ.calls), rand_field(circ.calls), rand_field(1)[0], rand_field(1)[0])
+    args = (f, flp.MEAS_LEN, circ.chunk, meas_st, proofs_st) + coeffs
+    ev, od = flp_kernels.sumvec_wires(*args)
+    pev, pod = flp_kernels.sumvec_wires_plain(*args)
+    err = max(max_abs_err(ev, pev), max_abs_err(od, pod))
+    del pev, pod
+    # m, the wire seeds, jr, lagk, lag0, ccorr read once, ev/od written
+    # once; per valid (call, column) the least a per-column recurrence of
+    # the power needs: 4 products (power step, times lag, two times m) and
+    # 2 additions; per column 2 products and 3 additions to finish.
+    valid = sum(1 for k in range(circ.calls) for u in range(circ.chunk) if k * circ.chunk + u < flp.MEAS_LEN)
+    ops = B * (valid * (4 * MONT_MUL_OPS + 2 * FIELD_ADD_OPS) + circ.chunk * (2 * MONT_MUL_OPS + 3 * FIELD_ADD_OPS))
+    moved = 4 * n * B * (flp.MEAS_LEN + 2 * circ.chunk + 2 * circ.calls + 2 + 2 * circ.chunk)
+    bms, by = bound(moved, ops)
+    entry = {
+        "name": "flp_sumvec_wires", "route": "cuda", "source": "janus_tpu_torch/csrc/flp_sumvec.cu",
+        "replaces": "janus_tpu/ops/flp_pallas.py:129", "launches": launches["flp_sumvec_wires"],
+        "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: flp_kernels.sumvec_wires(*args), 5),
+        "plain_ms": cuda_time_ms(lambda: flp_kernels.sumvec_wires_plain(*args), 1, rounds=1),
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "tolerance": TOLERANCE,
+        "shape": f"m ({W}, {B}), chunk {circ.chunk}, calls {circ.calls}",
+    }
+    return entry, shapes
+
+
+def helper_byte_rows(helper_rows, dev):
+    """(share seeds, nonces, joint-rand blinds) of helper rows, (B, 16) each."""
+    B = len(helper_rows)
+
+    def u8(rows):
+        return torch.from_numpy(np.frombuffer(b"".join(rows), np.uint8).reshape(B, 16).copy()).to(dev)
+
+    return (
+        u8([r[2].share_seed for r in helper_rows]),
+        u8([r[0] for r in helper_rows]),
+        u8([r[2].joint_rand_blind for r in helper_rows]),
+    )
+
+
+def seeded_field(B, n, dev, seed):
+    """Random canonical Field128 planes (top bit clear) from a seeded generator."""
+    from janus_tpu_torch.ops.field import storage
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rand_field(elems):
+        w = torch.randint(0, 1 << 32, (elems, n, B), generator=gen, dtype=torch.int64)
+        w[:, n - 1] >>= 1
+        return storage(w).to(dev).contiguous()
+
+    return rand_field
+
+
 def profile_device(fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, device time of
     the port's kernels and of every other device activity, and the number
@@ -264,7 +475,7 @@ def profile_device(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ours = ("squeeze_kernel", "absorb_kernel", "wire_kernel")
+    ours = ("squeeze_kernel", "absorb_kernel", "wire_kernel", "sumvec_kernel", "combine_kernel")
     port_us = other_us = 0.0
     count = 0
     for e in prof.events():
@@ -294,13 +505,189 @@ def oracle_sample(vdaf, verify_key, leader_rows, helper_rows, results, rng) -> N
         for agg_id, rows, got in ((0, leader_rows, lead), (1, helper_rows, help_)):
             nonce, public, share = rows[b]
             state, pshare = vdaf.prep_init(verify_key, agg_id, nonce, public, share)
-            gstate, gshare = got[b]
-            if gshare.encode(vdaf) != pshare.encode(vdaf):
-                raise AssertionError(f"row {b} agg {agg_id}: prepare share differs from the oracle")
-            if gstate.out_share != state.out_share:
-                raise AssertionError(f"row {b} agg {agg_id}: out share differs from the oracle")
-            if gstate.corrected_joint_rand_seed != state.corrected_joint_rand_seed:
-                raise AssertionError(f"row {b} agg {agg_id}: joint-rand seed differs from the oracle")
+            compare_row(vdaf, b, agg_id, got[b], (pshare.encode(vdaf), state.out_share, state.corrected_joint_rand_seed))
+
+
+def compare_row(vdaf, b, agg_id, got, want) -> None:
+    """One served row against the oracle's (prep share bytes, out share, seed)."""
+    gstate, gshare = got
+    if gshare.encode(vdaf) != want[0]:
+        raise AssertionError(f"row {b} agg {agg_id}: prepare share differs from the oracle")
+    if gstate.out_share != want[1]:
+        raise AssertionError(f"row {b} agg {agg_id}: out share differs from the oracle")
+    if gstate.corrected_joint_rand_seed != want[2]:
+        raise AssertionError(f"row {b} agg {agg_id}: joint-rand seed differs from the oracle")
+
+
+def histogram_phases(vdaf, reports, meas, verify_key, rng, phases):
+    """Phases 2 and 3 on the sharded histogram reports.  Returns (kernel
+    entries K1-K4, end-to-end record)."""
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+
+    leader_rows, helper_rows, tampered, src = build_batch(vdaf, reports, rng, BATCH, TAMPERED)
+    backend = CudaBackend(vdaf, device=DEVICE)
+    bp = backend.bp
+
+    # A warm-up pass settles allocator and library state; the counted run
+    # below starts from zero.
+    run_main_path(vdaf, backend, verify_key, leader_rows[:128], helper_rows[:128])
+    t0 = time.perf_counter()
+    (aggs, accepted, results, msgs, secs), launches = counted(
+        "histogram served path", KERNEL_NAMES[:3],
+        lambda: run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows),
+    )
+    e2e = time.perf_counter() - t0
+    got = vdaf.unshard(aggs, int(accepted.sum()))
+    want = np.bincount(np.array(meas)[src[~tampered]], minlength=LENGTH).tolist()
+    if got != want:
+        raise AssertionError("aggregate differs from the expected histogram")
+    check_decisions(accepted, tampered)
+    log(f"aggregate: exact over {int(accepted.sum())} accepted rows; {int(tampered.sum())} tampered rows rejected; "
+        f"oracle recomputed rows {backend.oracle_recompute_rows}")
+    oracle_sample(vdaf, verify_key, leader_rows, helper_rows, results, rng)
+    log(f"oracle: {SAMPLED} sampled rows match on both sides")
+    phases["histogram_served"] = time.perf_counter() - t0
+
+    # Device time of one batched prepare per side (no host marshal/readback).
+    t0 = time.perf_counter()
+    staged = {a: backend.stage_prep_init_multi(a, [(verify_key, rows)]) for a, rows in ((0, leader_rows), (1, helper_rows))}
+    dev_ms = {a: cuda_time_ms(lambda a=a: device_prep(bp, staged[a].placed, a), 2) for a in (0, 1)}
+    profile = {side: profile_device(lambda a=a: device_prep(bp, staged[a].placed, a)) for side, a in (("leader", 0), ("helper", 1))}
+    phases["histogram_device_timing"] = time.perf_counter() - t0
+
+    # Phase 3: the planar combine on the same staged batch (helper's view).
+    t0 = time.perf_counter()
+
+    def planar_path():
+        lead = device_prep(bp, staged[0].placed, 0)
+        own = device_prep(bp, staged[1].placed, 1, keep_planar=True)
+        parts = [lead["joint_rand_part"], own["joint_rand_part"]]
+        return lead, own, parts, bp.prep_shares_to_prep_planar(own, lead["verifiers"], parts)
+
+    (lead, own, parts, planar), planar_launches = counted("histogram planar combine", KERNEL_NAMES[:4], planar_path)
+    decide = planar["decide"].cpu().numpy()
+    if not np.array_equal(decide, accepted):
+        raise AssertionError("planar combine: decide differs from the served combine")
+    seeds = planar["prep_msg_seed"].cpu().numpy()
+    if any(seeds[b].tobytes() != msgs[b] for b in np.flatnonzero(accepted)):
+        raise AssertionError("planar combine: prep-message seed differs from the served combine")
+    help_rows = device_prep(bp, staged[1].placed, 1)
+    row = bp.prep_shares_to_prep([lead["verifiers"], help_rows["verifiers"]], parts)
+    if not torch.equal(row["prep_msg_seed"], planar["prep_msg_seed"]) or not torch.equal(row["decide"], planar["decide"]):
+        raise AssertionError("planar combine: differs from the row-major device combine")
+    combine_ms = {
+        "planar": cuda_time_ms(lambda: bp.prep_shares_to_prep_planar(own, lead["verifiers"], parts), 5),
+        "row_major": cuda_time_ms(lambda: bp.prep_shares_to_prep([lead["verifiers"], help_rows["verifiers"]], parts), 5),
+    }
+    log(f"planar combine: decide and seed equal the served combine on all {BATCH} rows "
+        f"({int((~accepted).sum())} rejected); device ms {json.dumps(combine_ms)}")
+    phases["histogram_planar_combine"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    kernels = kernel_checks(backend, helper_rows, launches)
+    kernels.append(combine_check(bp, own, lead["verifiers"], planar_launches))
+    phases["histogram_kernel_checks"] = time.perf_counter() - t0
+    record = {
+        "reports": BATCH,
+        "seconds": e2e,
+        "reports_per_s": BATCH / e2e,
+        "phases_s": secs,
+        "device_prep_init_ms": {"leader": dev_ms[0], "helper": dev_ms[1]},
+        "device_prep_init_profile": profile,
+        "device_combine_ms": combine_ms,
+    }
+    return kernels, record
+
+
+def sumvec_phases(verify_key, rng, done, phases):
+    """Phases 4 and 5 and the K5 check on the workers' results.  Returns (K5
+    entry, K1/K2 at the SumVec shape, end-to-end record)."""
+    from janus_tpu_torch.ops.field import tensor_to_u32
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+    from janus_tpu_torch.vdaf.instances import prio3_sum_vec
+
+    shard_s = [d[3] for d in done]
+    log(f"shard: {SV_DISTINCT} SumVec100k reports in {json.dumps(shard_s)} s (worker processes, in parallel); "
+        f"oracle prep_init of both sides {json.dumps([d[4] for d in done])} s")
+    meas = [d[0] for d in done]
+    reports = [d[1] for d in done]
+    oracle = [d[2] for d in done]
+    vdaf = prio3_sum_vec(SV_LENGTH, 1, SV_CHUNK)
+    p = vdaf.flp.field.MODULUS
+    leader_rows, helper_rows, tampered, src = build_batch(vdaf, reports, rng, SV_BATCH, SV_TAMPERED)
+    backend = CudaBackend(vdaf, device=DEVICE)
+    bp = backend.bp
+
+    # Phase 4: the served path at B = 128.
+    t0 = time.perf_counter()
+    (aggs, accepted, results, _msgs, secs), sv_launches = counted(
+        "sumvec served path", ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires"),
+        lambda: run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows),
+    )
+    e2e = time.perf_counter() - t0
+    valid_sum = np.sum([meas[i] for i in src[~tampered]], axis=0).tolist()
+    if vdaf.unshard(aggs, int(accepted.sum())) != valid_sum:
+        raise AssertionError("SumVec aggregate differs from the exact sum of the valid rows")
+    check_decisions(accepted, tampered)
+    for i in range(SV_DISTINCT):
+        b = int(np.flatnonzero((src == i) & ~tampered)[0])
+        for agg_id, side in ((0, results[0]), (1, results[1])):
+            compare_row(vdaf, b, agg_id, side[b], oracle[i][agg_id])
+    log(f"sumvec: exact aggregate over {int(accepted.sum())} rows; {int(tampered.sum())} tampered rows rejected; "
+        f"one row per side per report equals the oracle; oracle recomputed rows {backend.oracle_recompute_rows}")
+    phases["sumvec_served"] = time.perf_counter() - t0
+
+    # Phase 5: the staged rows tiled x8 on the card, BatchedPrio3 directly.
+    t0 = time.perf_counter()
+    staged = {a: backend.stage_prep_init_multi(a, [(verify_key, rows)]) for a, rows in ((0, leader_rows), (1, helper_rows))}
+    tiled = {a: {k: v.repeat((SV_TILE,) + (1,) * (v.dim() - 1)) for k, v in staged[a].placed.items()} for a in (0, 1)}
+    del staged
+    torch.cuda.reset_peak_memory_stats()
+
+    def device_path():
+        lead = device_prep(bp, tiled[0], 0)
+        help_ = device_prep(bp, tiled[1], 1)
+        res = bp.prep_shares_to_prep([lead["verifiers"], help_["verifiers"]], [lead["joint_rand_part"], help_["joint_rand_part"]])
+        ok = lead["ok"] & help_["ok"]
+        return ok, res["decide"], [bp.aggregate(o["out_share"], res["decide"]) for o in (lead, help_)]
+
+    (ok, decide, dev_aggs), dev_launches = counted(
+        "sumvec device path", ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires"), device_path
+    )
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(ok.all()):
+        raise AssertionError("sumvec device path: a row was flagged for the oracle")
+    if not np.array_equal(decide.cpu().numpy(), np.tile(accepted, SV_TILE)):
+        raise AssertionError("sumvec device path: decide differs from 8x the B = 128 decisions")
+    f = bp.f
+    for side, agg in enumerate(dev_aggs):
+        got = f.from_limbs(tensor_to_u32(agg))
+        if got != [SV_TILE * x % p for x in aggs[side]]:
+            raise AssertionError("sumvec device path: aggregate differs from 8x the B = 128 aggregate")
+    del ok, decide, dev_aggs
+    dev_ms = {a: cuda_time_ms(lambda a=a: device_prep(bp, tiled[a], a), 2) for a in (0, 1)}
+    profile = {side: profile_device(lambda a=a: device_prep(bp, tiled[a], a)) for side, a in (("leader", 0), ("helper", 1))}
+    log(f"sumvec device path at B = {SV_BATCH * SV_TILE}: decide and aggregate equal {SV_TILE}x the B = {SV_BATCH} results; "
+        f"peak memory {peak} bytes")
+    phases["sumvec_device"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    del tiled
+    entry, shapes = sumvec_checks(bp, helper_rows * SV_TILE, sv_launches)
+    phases["sumvec_kernel_checks"] = time.perf_counter() - t0
+    record = {
+        "reports": SV_BATCH,
+        "seconds": e2e,
+        "reports_per_s": SV_BATCH / e2e,
+        "phases_s": secs,
+        "shard_s": shard_s,
+        "device_batch": SV_BATCH * SV_TILE,
+        "device_prep_init_ms": {"leader": dev_ms[0], "helper": dev_ms[1]},
+        "device_prep_init_profile": profile,
+        "device_launches": dev_launches,
+        "device_peak_memory_bytes": peak,
+    }
+    return entry, shapes, record
 
 
 def main() -> int:
@@ -312,89 +699,49 @@ def main() -> int:
         return 2
 
     from janus_tpu_torch import _build
-    from janus_tpu_torch.ops import flp_kernels, keccak_kernels
-    from janus_tpu_torch.vdaf.backend import CudaBackend
     from janus_tpu_torch.vdaf.instances import prio3_histogram
 
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    _build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s")
-    for name, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
-
     rng = np.random.default_rng(args.seed)
-    vdaf = prio3_histogram(LENGTH, CHUNK)
     verify_key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-    t0 = time.perf_counter()
-    reports, meas = shard_reports(vdaf, rng)
-    log(f"shard: {DISTINCT} reports in {time.perf_counter() - t0:.2f} s")
-    leader_rows, helper_rows, tampered, row_meas = build_batch(vdaf, reports, meas, rng)
-    backend = CudaBackend(vdaf, device="cuda")
+    phases = {}
+    start = time.perf_counter()
 
-    counters = {
-        "keccak_squeeze": keccak_kernels.squeeze,
-        "keccak_absorb": keccak_kernels.absorb,
-        "flp_wire_evals": flp_kernels.wire_evals,
-    }
-    # A warm-up pass settles allocator and library state; the counted run
-    # below starts from zero.
-    run_main_path(vdaf, backend, verify_key, leader_rows[:128], helper_rows[:128])
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    aggs, accepted, results, secs = run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows)
-    torch.cuda.synchronize()
-    e2e = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"main path launches: {json.dumps(launches)}")
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path was never launched: {launches}")
-
-    got = vdaf.unshard(aggs, int(accepted.sum()))
-    want = np.bincount(np.array(row_meas)[~tampered], minlength=LENGTH).tolist()
-    if got != want:
-        raise AssertionError("aggregate differs from the expected histogram")
-    if accepted[tampered].any():
-        raise AssertionError("a tampered row was accepted")
-    if not accepted[~tampered].all():
-        raise AssertionError("a valid row was rejected")
-    log(f"aggregate: exact over {int(accepted.sum())} accepted rows; {int(tampered.sum())} tampered rows rejected; "
-        f"oracle recomputed rows {backend.oracle_recompute_rows}")
-
-    oracle_sample(vdaf, verify_key, leader_rows, helper_rows, results, rng)
-    log(f"oracle: {SAMPLED} sampled rows match on both sides")
-
-    # Device time of one batched prepare per side (no host marshal/readback).
-    staged = {a: backend.stage_prep_init_multi(a, [(verify_key, rows)]) for a, rows in ((0, leader_rows), (1, helper_rows))}
-
-    def device_prep(agg_id):
-        kw = dict(staged[agg_id].placed)
-        vk = kw.pop("verify_key_u8")
-        backend.bp.prep_init_planar(agg_id, vk, kw.pop("nonces_u8"), **kw)
-
-    dev_ms = {a: cuda_time_ms(lambda a=a: device_prep(a), 2) for a in (0, 1)}
-    profile = {side: profile_device(lambda a=a: device_prep(a)) for side, a in (("leader", 0), ("helper", 1))}
-    kernels = kernel_checks(backend, helper_rows, launches)
+    # The pure-Python oracle takes about a minute to shard and prove each
+    # SumVec100k report; two worker processes do it during the build and the
+    # histogram sharding, and end before any timed phase starts.
+    with ProcessPoolExecutor(max_workers=SV_DISTINCT, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(sumvec_oracle_job, args.seed, i, verify_key) for i in range(SV_DISTINCT)]
+        t0 = time.perf_counter()
+        _build.build()
+        phases["build"] = time.perf_counter() - t0
+        log(f"build: {phases['build']:.2f} s")
+        for name, text in _build.BUILD_LOGS.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"ptxas {name}: {line.strip()}")
+        hist_vdaf = prio3_histogram(LENGTH, CHUNK)
+        t0 = time.perf_counter()
+        reports, meas = shard_reports(hist_vdaf, rng)
+        phases["histogram_shard"] = time.perf_counter() - t0
+        log(f"shard: {DISTINCT} histogram reports in {phases['histogram_shard']:.2f} s (beside the workers)")
+        t0 = time.perf_counter()
+        done = [j.result() for j in jobs]
+        phases["sumvec_shard_wait"] = time.perf_counter() - t0
+    kernels, histogram = histogram_phases(hist_vdaf, reports, meas, verify_key, rng, phases)
+    torch.cuda.empty_cache()
+    sv_entry, sv_shapes, sumvec = sumvec_phases(verify_key, rng, done, phases)
+    kernels.append(sv_entry)
     bad = [k["name"] for k in kernels if k["max_abs_err"] > TOLERANCE]
+    bad += [f"{k} at the SumVec shape" for k, v in sv_shapes.items() if v["max_abs_err_host_columns"] > TOLERANCE]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    phases["total"] = time.perf_counter() - start
 
-    log(json.dumps({
-        "end_to_end": {
-            "reports": BATCH,
-            "seconds": e2e,
-            "reports_per_s": BATCH / e2e,
-            "phases_s": secs,
-            "device_prep_init_ms": {"leader": dev_ms[0], "helper": dev_ms[1]},
-            "device_prep_init_profile": profile,
-        }
-    }))
+    log(json.dumps({"phases_s": phases}))
+    log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec}}))
+    log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -247,14 +247,79 @@ class TField:
         return self._join(self.lazy_fold_limbs(self._split(slo), self._split(shi)))
 
     def cumprod_mont(self, a, axis: int):
-        """Inclusive cumulative Montgomery product along an element axis."""
+        """Inclusive cumulative Montgomery product along an element axis.
+
+        Log-depth like ``lax.associative_scan``: pass d multiplies each
+        position by the one 2^d before it, so L positions take ceil(log2 L)
+        full-width products instead of L - 1 sequential ones."""
         axis = axis % (a.dim() - 1)
-        acc = a.select(axis, 0)
-        outs = [acc]
-        for k in range(1, a.shape[axis]):
-            acc = self.mont_mul(acc, a.select(axis, k))
-            outs.append(acc)
-        return torch.stack(outs, dim=axis)
+        length = a.shape[axis]
+        d = 1
+        while d < length:
+            tail = self.mont_mul(a.narrow(axis, 0, length - d), a.narrow(axis, d, length - d))
+            a = torch.cat([a.narrow(axis, 0, d), tail], dim=axis)
+            d *= 2
+        return a
+
+    def mutual_products_mont(self, a, axis: int):
+        """For each k along the axis: prod_{j != k} a_j (Montgomery), as the
+        exclusive prefix times the exclusive suffix product."""
+        axis = axis % (a.dim() - 1)
+        length = a.shape[axis]
+        one = self.mont_one(a.device).expand_as(a.narrow(axis, 0, 1))
+        prefix = self.cumprod_mont(a, axis)
+        suffix = self.cumprod_mont(a.flip(axis), axis).flip(axis)
+        prefix_excl = torch.cat([one, prefix.narrow(axis, 0, length - 1)], dim=axis)
+        suffix_excl = torch.cat([suffix.narrow(axis, 1, length - 1), one], dim=axis)
+        return self.mont_mul(prefix_excl, suffix_excl)
+
+    def _powers_from_one(self, x, count: int):
+        """x^0..x^(count-1) (Montgomery): x (..., n) -> (..., count, n)."""
+        one = self.mont_one(x.device).expand_as(x).unsqueeze(-2)
+        if count == 1:
+            return one
+        pw = self.cumprod_mont(x.unsqueeze(-2).expand(x.shape[:-1] + (count - 1, self.n)), axis=-1)
+        return torch.cat([one, pw], dim=-2)
+
+    def poly_eval_mont(self, coeffs, x):
+        """Polynomial at x by baby-step/giant-step: coeffs (..., C, n)
+        canonical, low order first; x (..., n) Montgomery -> (..., n)
+        canonical.  The baby and giant powers come from log-depth scans."""
+        C = coeffs.shape[-2]
+        bs = max(1, math.isqrt(C))
+        gs = -(-C // bs)
+        if bs * gs > C:
+            pad = torch.zeros(coeffs.shape[:-2] + (bs * gs - C, self.n), dtype=coeffs.dtype, device=coeffs.device)
+            coeffs = torch.cat([coeffs, pad], dim=-2)
+        baby = self._powers_from_one(x, bs + 1)  # x^0..x^bs
+        giant = self._powers_from_one(baby[..., bs, :], gs)  # x^(bs*g)
+        cg = coeffs.reshape(coeffs.shape[:-2] + (gs, bs, self.n))
+        inner = self.sum(self.mont_mul(cg, baby[..., None, :bs, :]), axis=-1)  # (..., gs, n)
+        return self.sum(self.mont_mul(inner, giant), axis=-1)
+
+    def horner_mont(self, coeffs, x):
+        """Polynomial at x by Horner's rule: coeffs (..., C, n) canonical,
+        low order first; x (..., n) Montgomery -> (..., n) canonical."""
+        acc = torch.zeros_like(coeffs[..., 0, :])
+        for j in range(coeffs.shape[-2] - 1, -1, -1):
+            acc = self.add(self.mont_mul(acc, x), coeffs[..., j, :])
+        return acc
+
+    def ntt_eval_mont(self, coeffs, bitrev_idx: torch.Tensor, tw_stages: List[torch.Tensor]):
+        """A polynomial at every P-th root of unity (Cooley-Tukey DIT):
+        coeffs (..., P, n) canonical -> (..., P, n) canonical, value j at
+        w^j.  ``bitrev_idx`` (P,) is the bit-reversal permutation and
+        ``tw_stages`` the per-stage twiddles (m/2, n) in Montgomery form."""
+        P = coeffs.shape[-2]
+        x = coeffs.index_select(coeffs.dim() - 2, bitrev_idx)
+        m = 2
+        for tw in tw_stages:
+            xr = x.reshape(x.shape[:-2] + (P // m, m, self.n))
+            even, odd = xr[..., : m // 2, :], xr[..., m // 2 :, :]
+            t = self.mont_mul(odd, tw)
+            x = torch.cat([self.add(even, t), self.sub(even, t)], dim=-2).reshape(x.shape)
+            m *= 2
+        return x
 
     def pow_range_limbs(self, x: List, count: int) -> List:
         """x^1..x^count (Montgomery) by baby-step/giant-step on limb lists:

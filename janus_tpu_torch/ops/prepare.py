@@ -1,13 +1,14 @@
-"""Batched Prio3 prepare on the card — the histogram slice of the main path.
+"""Batched Prio3 prepare on the card: the Histogram and SumVec slices.
 
 Counterpart of ``janus_tpu/ops/prepare.py``'s limb-planar path
-(``BatchedPrio3.prep_init_planar`` for the histogram family, row-major
-``prep_shares_to_prep`` and ``aggregate``).  Per-report tensors keep the
-report axis last: share streams are word-major planes (W, B) straight out of
-the Keccak kernels, and field tensors are (elems, n, B), which is the same
-memory as a stream of those elements.  Three hand-written CUDA kernels carry
-the heavy work (K1 squeeze, K2 absorb, K3 wire evaluations); the small
-coefficient computations around them are plain PyTorch on the same device.
+(``BatchedPrio3.prep_init_planar`` for the chunked circuits, the row-major
+and planar ``prep_shares_to_prep`` and ``aggregate``).  Per-report tensors
+keep the report axis last: share streams are word-major planes (W, B)
+straight out of the Keccak kernels, and field tensors are (elems, n, B),
+which is the same memory as a stream of those elements.  Hand-written CUDA
+kernels carry the heavy work (K1 squeeze, K2 absorb, K3 histogram wires, K5
+SumVec wires, K4 planar combine); the small coefficient computations around
+them are plain PyTorch on the same device.
 
 Montgomery convention as in the JAX package: bulk tensors (shares, wires,
 verifiers, out shares) stay canonical; the per-report scalars that multiply
@@ -15,8 +16,8 @@ them (joint rand r, query point t, Lagrange coefficients, constants) are in
 Montgomery form, so ``mont_mul(canonical, montgomery)`` lands canonical.
 Every output is byte-identical to the oracle ``janus_tpu_torch.vdaf.prio3``.
 
-Only Prio3Histogram over TurboSHAKE128 with one proof is served; any other
-circuit raises ``NotImplementedError``.
+Served: Prio3Histogram and Prio3SumVec with bits == 1, over TurboSHAKE128
+with one proof; any other circuit raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..fields import next_power_of_2
-from ..flp.circuits import Histogram
+from ..flp.circuits import Histogram, SumVec
 from ..vdaf.prio3 import (
     USAGE_JOINT_RAND_PART,
     USAGE_JOINT_RAND_SEED,
@@ -41,7 +42,7 @@ from ..vdaf.prio3 import (
 from ..state import consts_from_numpy
 from ..xof import XofTurboShake128
 from .field import M16, M32, TField, field_words, limb_list, limb_stack, storage, words
-from .flp_kernels import wire_evals
+from .flp_kernels import combine_decide, sumvec_wires, wire_evals
 from .keccak import RATE, RATE_WORDS, bytes_to_words, words_to_bytes
 from .keccak_kernels import absorb_planes, const_word_planes, rows_to_planes, xof_planes, xof_words
 from .xof import xof_next_vec_batch
@@ -49,6 +50,9 @@ from .xof import xof_next_vec_batch
 #: The planar lazy sums (meas_sum, aggregate) add u16 halves in int64 like
 #: the JAX u32 sums they mirror, which are exact only up to this many terms.
 LAZY_SUM_MAX = 65535
+#: SumVec gadget outputs take an NTT over the P-th roots from this P up, and
+#: a Horner scan of every call below it, as the JAX package does.
+NTT_MIN_P = 64
 
 
 class _GadgetPlan:
@@ -85,6 +89,9 @@ class _DChunked(_DeviceCircuit):
     def __init__(self, valid):
         super().__init__(valid)
         self.chunk = valid.chunk_length
+        #: the circuit's zero padding of the last call (positions
+        #: MEAS_LEN..calls*chunk-1, applied inside the wire kernels)
+        self.pad_len = self.calls * self.chunk - valid.MEAS_LEN
 
     def gadget_eval_scaled(self, f: TField, x: torch.Tensor) -> torch.Tensor:
         """ParallelSum(Mul) on canonical wires (B, arity, n), scaled by R^-1."""
@@ -92,35 +99,61 @@ class _DChunked(_DeviceCircuit):
         pairs = x.reshape(B, arity // 2, 2, n)
         return f.sum(f.mont_mul(pairs[:, :, 0], pairs[:, :, 1]), axis=1)
 
+    @staticmethod
+    def truncate(meas: torch.Tensor) -> torch.Tensor:
+        """The out share of a histogram or of a one-bit SumVec is the
+        measurement share itself (the weighted bit sum over one bit is the
+        identity), so no MEAS_LEN-wide multiply runs."""
+        return meas
+
 
 class _DHistogram(_DChunked):
-    def v_from_meas_sum(self, f: TField, gk: List, meas_sum: List, jr_m: List, consts) -> List:
+    def v_from_meas_sum(self, f: TField, gk: List, meas_sum: List, jr_m: torch.Tensor, consts) -> List:
         """Circuit output v (limb lists over the report axis).
 
         gk: limb lists of (calls, B) canonical gadget outputs; meas_sum:
-        limb lists (B,) canonical; jr_m: [r, r1] Montgomery limb lists."""
+        limb lists (B,) canonical; jr_m: (2, n, B) Montgomery planes [r, r1]."""
         range_check = [g[0] for g in gk]
         for k in range(1, self.calls):
             range_check = f.add_limbs(range_check, [g[k] for g in gk])
         c = consts["shares_inv_c"]
         sum_check = f.sub_limbs(meas_sum, [c[l] for l in range(f.n)])
-        jr1 = jr_m[1]
+        jr1 = limb_list(jr_m[1])
         return f.add_limbs(
             f.mont_mul_limbs(jr1, range_check),
             f.mont_mul_limbs(f.mont_mul_limbs(jr1, jr1), sum_check),
         )
 
 
+class _DSumVec(_DChunked):
+    """SumVec: per-call joint rand, power resetting each call.  Only
+    bits == 1 is served; wider elements need the row path's weighted
+    truncate, which is not ported."""
+
+    def __init__(self, valid):
+        if valid.bits != 1:
+            raise NotImplementedError("the CUDA prepare path serves SumVec with bits == 1 only")
+        super().__init__(valid)
+
+    @staticmethod
+    def v(f: TField, gk: torch.Tensor) -> torch.Tensor:
+        """Circuit output: the sum of the gadget outputs (B, calls, n) -> (B, n)."""
+        return f.sum(gk, axis=1)
+
+
 def _device_circuit(valid) -> _DeviceCircuit:
     if isinstance(valid, Histogram):
         return _DHistogram(valid)
+    if isinstance(valid, SumVec):
+        return _DSumVec(valid)
     raise NotImplementedError(
-        f"the CUDA prepare path serves Prio3Histogram only, not {type(valid).__name__}"
+        f"the CUDA prepare path serves Prio3Histogram and Prio3SumVec, not {type(valid).__name__}"
     )
 
 
 class BatchedPrio3:
-    """Device-batched prepare for one Prio3Histogram instance (TurboSHAKE128).
+    """Device-batched prepare for one Prio3Histogram or one-bit Prio3SumVec
+    instance (TurboSHAKE128).
 
     All entry points take and return tensors on ``device`` (default the
     card); the tests pass ``device="cpu"``, where every kernel wrapper takes
@@ -139,6 +172,12 @@ class BatchedPrio3:
         self.consts_np = compute_consts(prio3, self.f, self.circ)
         self.consts = consts_from_numpy(self.consts_np, self.device)
         self.log2_P = self.circ.P.bit_length() - 1
+        #: (bit-reversal (P,), per-stage twiddles) of the NTT, or None
+        self.ntt = None
+        if self.circ.P >= NTT_MIN_P:
+            bitrev, stages = compute_ntt(self.f, self.circ.P)
+            tw = consts_from_numpy(dict(enumerate(stages)), self.device)
+            self.ntt = (torch.from_numpy(bitrev).to(self.device), list(tw.values()))
 
     # -- XOF helpers ----------------------------------------------------
     def _dst(self, usage: int) -> bytes:
@@ -155,12 +194,13 @@ class BatchedPrio3:
 
     def planar_eligible(self, agg_id: int, batch: int) -> bool:
         """True when this prep runs on the planar path (the only one here)."""
-        return (
-            isinstance(self.circ, _DHistogram)
-            and self.flp.MEAS_LEN <= LAZY_SUM_MAX
-            and self.prio3.num_proofs == 1
-            and batch <= LAZY_SUM_MAX
-        )
+        if isinstance(self.circ, _DHistogram):
+            # the lazy u16-half meas_sum is exact only up to 65535 terms
+            circuit_ok = self.flp.MEAS_LEN <= LAZY_SUM_MAX
+        else:
+            # bits > 1 would need a planar truncate (out_share != meas)
+            circuit_ok = isinstance(self.circ, _DSumVec) and self.flp.valid.bits == 1
+        return circuit_ok and self.prio3.num_proofs == 1 and batch <= LAZY_SUM_MAX
 
     def _planar_ok(self, stream: torch.Tensor, num_elems: int) -> torch.Tensor:
         """Canonicality of every element of a (W, B) stream -> ok (B,)."""
@@ -253,14 +293,14 @@ class BatchedPrio3:
         gk = [torch.stack([c[l] for c in cols], dim=0) for l in range(f.n)]
         return gk, self._gpoly_at_planes(gp, t)
 
-    def _histogram_coeff_planes(self, jr_m: List[List], lag: torch.Tensor):
+    def _histogram_coeff_planes(self, jr_m: torch.Tensor, lag: torch.Tensor):
         """Coefficient planes of the wire kernel: (rch (chunk, n, B),
         kl (calls, n, B), lagk (calls, n, B), lag0 (n, B), ccorr (n, B)).
         r^(k*chunk + u + 1) = r^(k*chunk) * r^(u+1) splits the global
         joint-rand power into the per-call kl and the per-column r_ch."""
         f, circ = self.f, self.circ
         B = lag.shape[-1]
-        r = jr_m[0]
+        r = limb_list(jr_m[0])
         rch = self._pow_range_planes(r, circ.chunk)
         rc = limb_list(rch[circ.chunk - 1])  # r^chunk
         r_call = [self._ones(B)]
@@ -275,6 +315,88 @@ class BatchedPrio3:
         c = self.consts["shares_inv_c"]
         ccorr = limb_stack(f.mont_mul_limbs([c[l].expand(B) for l in range(f.n)], lag_sum))
         return rch, kl, lagk, lag[0], ccorr
+
+    # -- row-major FLP helpers (SumVec; limb axis last, (B, K, n)) --------
+    def _lagrange_coeffs(self, t_m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Barycentric Lagrange coefficients at t over the P-th roots:
+        z/(t - w^k) = prod_{j != k} (t - w^j), the exclusive mutual products.
+        t_m (B, n) Montgomery -> (lag (B, calls+1, n) Montgomery, t_ok (B,));
+        t_ok is False where t is a P-th root of unity."""
+        f = self.f
+        t_pow = t_m
+        for _ in range(self.log2_P):
+            t_pow = f.mont_mul(t_pow, t_pow)
+        t_ok = ~f.is_zero(f.sub(t_pow, f.mont_one(t_m.device)))
+        denom = f.sub(t_m[:, None, :], self.consts["roots_all_m"][None])  # (B, P, n)
+        others = f.mutual_products_mont(denom, axis=1)
+        lag = f.mont_mul(others[:, : self.circ.calls + 1], self.consts["bary_c_m"][None])
+        return lag, t_ok
+
+    def _gpoly_at(self, gpoly: torch.Tensor, t_m: torch.Tensor) -> torch.Tensor:
+        """Gadget polynomial at t: gpoly (B, glen, n) canonical, t_m (B, n)
+        Montgomery -> (B, n) canonical.  Baby-step/giant-step for glen >= 64,
+        Horner below it."""
+        if gpoly.shape[1] >= 64:
+            return self.f.poly_eval_mont(gpoly, t_m)
+        return self.f.horner_mont(gpoly, t_m)
+
+    def _gadget_outputs(self, gpoly: torch.Tensor) -> torch.Tensor:
+        """gk (B, calls, n): the gadget polynomial at alpha^1..alpha^calls.
+        An NTT over all P roots after folding the glen = 2P - 1 coefficients
+        mod x^P - 1, or a Horner scan of every call at once below NTT_MIN_P."""
+        f, circ = self.f, self.circ
+        if self.ntt is not None:
+            P = circ.P
+            hi = gpoly[:, P:]
+            pad = torch.zeros((hi.shape[0], P - hi.shape[1], f.n), dtype=hi.dtype, device=hi.device)
+            folded = f.add(gpoly[:, :P], torch.cat([hi, pad], dim=1))
+            return f.ntt_eval_mont(folded, *self.ntt)[:, 1 : circ.calls + 1]
+        alpha = self.consts["alpha_pows_m"][None]  # (1, calls, n)
+        acc = torch.zeros((gpoly.shape[0], circ.calls, f.n), dtype=torch.int64, device=gpoly.device)
+        for j in range(gpoly.shape[1] - 1, -1, -1):
+            acc = f.add(f.mont_mul(acc, alpha), gpoly[:, j : j + 1])
+        return acc
+
+    def _histogram_parts(self, meas_st, proofs_st, jr_m, t_m):
+        """Histogram wires (K3), circuit output v and gpoly(t) ->
+        (ev, od (chunk, n, B) int32, v (B, n), gpt (B, n), t_ok (B,))."""
+        f, flp, circ, n = self.f, self.flp, self.circ, self.f.n
+        lag, t_ok = self._lagrange_planes(t_m)
+        rch, kl, lagk, lag0, ccorr = self._histogram_coeff_planes(jr_m, lag)
+        ev, od = wire_evals(
+            f, flp.MEAS_LEN, circ.chunk, meas_st, proofs_st,
+            storage(rch).contiguous(), storage(kl).contiguous(), storage(lagk).contiguous(),
+            storage(lag0).contiguous(), storage(ccorr).contiguous(),
+        )
+        proof_el = field_words(words(proofs_st), flp.PROOF_LEN, n)
+        gk, gpt = self._gadget_planes(proof_el[circ.arity : circ.arity + circ.glen], t_m)
+        # v from the lazily summed measurement (u16 halves, one fold).
+        m_el = field_words(words(meas_st), flp.MEAS_LEN, n)
+        slo = limb_list(torch.sum(m_el & M16, dim=0))
+        shi = limb_list(torch.sum(m_el >> 16, dim=0))
+        meas_sum = f.lazy_fold_limbs(slo, shi)
+        v = circ.v_from_meas_sum(f, gk, meas_sum, jr_m, self.consts)
+        return ev, od, limb_stack(v).transpose(0, 1), limb_stack(gpt).transpose(0, 1), t_ok
+
+    def _sumvec_parts(self, meas_st, proofs_st, jr_m, t_m):
+        """SumVec wires (K5), circuit output v and gpoly(t), as
+        ``_histogram_parts``.  The wire coefficients are per call (jr_k,
+        lag_{k+1}); the kernel makes jr_k^(u+1) in registers, so no
+        (calls, chunk) coefficient tensor is ever written."""
+        f, flp, circ, n = self.f, self.flp, self.circ, self.f.n
+        t_row = limb_stack(t_m).transpose(0, 1)  # (B, n)
+        lag, t_ok = self._lagrange_coeffs(t_row)  # (B, K, n)
+        ccorr = f.mont_mul(self.consts["shares_inv_c"], f.sum(lag[:, 1:], axis=1))  # (B, n)
+        lag_pl = lag.permute(1, 2, 0)  # (K, n, B)
+        ev, od = sumvec_wires(
+            f, flp.MEAS_LEN, circ.chunk, meas_st, proofs_st, storage(jr_m).contiguous(),
+            storage(lag_pl[1:]).contiguous(), storage(lag_pl[0]).contiguous(),
+            storage(ccorr.transpose(0, 1)).contiguous(),
+        )
+        proof_el = field_words(words(proofs_st), flp.PROOF_LEN, n)
+        gpoly = proof_el[circ.arity : circ.arity + circ.glen].permute(2, 0, 1)  # (B, glen, n)
+        v = circ.v(f, self._gadget_outputs(gpoly))
+        return ev, od, v, self._gpoly_at(gpoly, t_row), t_ok
 
     def _jr_part_planes(self, agg_id, blinds_u8, nonces_u8, meas_stream) -> torch.Tensor:
         """Joint-rand-part XOF: the K2 absorb of ``_jr_part_message``
@@ -339,6 +461,7 @@ class BatchedPrio3:
         proofs_limbs: Optional[torch.Tensor] = None,
         blinds_u8: Optional[torch.Tensor] = None,
         public_parts_u8: Optional[torch.Tensor] = None,
+        keep_planar: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """Prepare-init of a batch, either side.
 
@@ -351,13 +474,17 @@ class BatchedPrio3:
         ``corrected_seed`` (B, 16) uint8, and ``ok`` (B,): False marks rows
         whose XOF streams held a rejected candidate or whose query point hit
         a root of unity, which the caller recomputes with the oracle.
+
+        With ``keep_planar`` the verifier is not assembled: ``wire_ev_pl``
+        and ``wire_od_pl`` (chunk, n, B) int32 and ``v_row``/``gpt_row``
+        (B, n) take its place, for ``prep_shares_to_prep_planar``.
         """
         prio3, flp, f, circ = self.prio3, self.flp, self.f, self.circ
         n = f.n
         B = nonces_u8.shape[0]
         dev = nonces_u8.device
         if not self.planar_eligible(agg_id, B):
-            raise NotImplementedError(f"batch of {B} exceeds the planar lazy-sum bound")
+            raise NotImplementedError(f"batch of {B} or this circuit is outside the planar path's lazy-sum bounds")
 
         if agg_id == 0:
             meas_st = rows_to_planes(meas_limbs.reshape(B, flp.MEAS_LEN * n))
@@ -392,37 +519,24 @@ class BatchedPrio3:
         ok = ok & ok_j & ok_q
 
         r2 = self._const_limbs("r2")
-        jr_m = [f.mont_mul_limbs(limb_list(jr[i]), r2) for i in range(flp.JOINT_RAND_LEN)]
+        jr_m = limb_stack(f.mont_mul_limbs(limb_list(jr), r2))  # (JOINT_RAND_LEN, n, B)
         t_m = f.mont_mul_limbs(limb_list(qr[0]), r2)
 
-        lag, t_ok = self._lagrange_planes(t_m)
-        ok = ok & t_ok
-        rch, kl, lagk, lag0, ccorr = self._histogram_coeff_planes(jr_m, lag)
-        ev, od = wire_evals(
-            f, flp.MEAS_LEN, circ.chunk, meas_st, proofs_st,
-            storage(rch).contiguous(), storage(kl).contiguous(), storage(lagk).contiguous(),
-            storage(lag0).contiguous(), storage(ccorr).contiguous(),
-        )
-        proof_el = field_words(words(proofs_st), flp.PROOF_LEN, n)
-        gk, gpt = self._gadget_planes(proof_el[circ.arity : circ.arity + circ.glen], t_m)
-        # v from the lazily summed measurement (u16 halves, one fold).
-        m_el = field_words(words(meas_st), flp.MEAS_LEN, n)
-        slo = limb_list(torch.sum(m_el & M16, dim=0))
-        shi = limb_list(torch.sum(m_el >> 16, dim=0))
-        meas_sum = f.lazy_fold_limbs(slo, shi)
-        v = circ.v_from_meas_sum(f, gk, meas_sum, jr_m, self.consts)
-
-        wire = self._zip_planes_to_rows(ev, od)
-        verifiers = torch.cat(
-            [limb_stack(v).transpose(0, 1)[:, None], wire, limb_stack(gpt).transpose(0, 1)[:, None]], dim=1
-        )
-        return {
-            "verifiers": verifiers,
-            "out_share": self.planar_out_share_to_rows(field_words(meas_st, flp.MEAS_LEN, n)),
-            "ok": ok,
+        parts = self._histogram_parts if isinstance(circ, _DHistogram) else self._sumvec_parts
+        ev, od, v, gpt, t_ok = parts(meas_st, proofs_st, jr_m, t_m)
+        out = {
+            "out_share": self.planar_out_share_to_rows(circ.truncate(field_words(meas_st, flp.MEAS_LEN, n))),
+            "ok": ok & t_ok,
             "joint_rand_part": part,
             "corrected_seed": corrected,
         }
+        if keep_planar:
+            # Our wires stay in plane layout for prep_shares_to_prep_planar;
+            # only the small v and gpoly(t) rows leave it.
+            out.update(wire_ev_pl=ev, wire_od_pl=od, v_row=v, gpt_row=gpt)
+        else:
+            out["verifiers"] = torch.cat([v[:, None], self._zip_planes_to_rows(ev, od), gpt[:, None]], dim=1)
+        return out
 
     @staticmethod
     def _zip_planes_to_rows(ev: torch.Tensor, od: torch.Tensor) -> torch.Tensor:
@@ -444,7 +558,7 @@ class BatchedPrio3:
     ) -> Dict[str, torch.Tensor]:
         """Combine verifier shares (each (B, VERIFIER_LEN, n) int64
         canonical) and decide; derive the joint-rand seed from the parts."""
-        prio3, flp, f, circ = self.prio3, self.flp, self.f, self.circ
+        f, circ = self.f, self.circ
         combined = verifier_shares[0]
         for vs in verifier_shares[1:]:
             combined = f.add(combined, vs)
@@ -453,10 +567,37 @@ class BatchedPrio3:
         # g*R^-1 == y*R^-1 is the predicate g == y (R is invertible).
         y_scaled = f.from_mont(combined[:, 1 + circ.arity])
         decide = decide & f.eq(circ.gadget_eval_scaled(f, x), y_scaled)
+        return self._prep_msg(decide, joint_rand_parts_u8)
+
+    def prep_shares_to_prep_planar(
+        self,
+        own: Dict[str, torch.Tensor],
+        peer_verifiers: torch.Tensor,
+        joint_rand_parts_u8: Optional[List[torch.Tensor]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Combine and decide with our verifier still in plane layout.
+
+        ``own`` is a ``prep_init_planar(keep_planar=True)`` result;
+        ``peer_verifiers`` is the other aggregator's share, (B, VERIFIER_LEN,
+        n) int64 canonical as it arrives.  One transpose puts the peer's
+        verifier in planes, and the K4 kernel sums the gadget over the
+        combined wires; only v, gpoly(t) and the folded sum touch rows.
+        ``decide`` and ``prep_msg_seed`` equal ``prep_shares_to_prep``'s."""
+        f, circ = self.f, self.circ
+        pv = storage(peer_verifiers.permute(1, 2, 0)).contiguous()  # (VER, n, B)
+        g = words(combine_decide(f, circ.chunk, own["wire_ev_pl"], own["wire_od_pl"], pv)).transpose(0, 1)
+        v = f.add(own["v_row"], peer_verifiers[:, 0])
+        y = f.add(own["gpt_row"], peer_verifiers[:, 1 + circ.arity])
+        # g is (a*b)*R^-1-scaled; against y*R^-1 the predicate is g == y.
+        return self._prep_msg(f.is_zero(v) & f.eq(g, f.from_mont(y)), joint_rand_parts_u8)
+
+    def _prep_msg(self, decide: torch.Tensor, joint_rand_parts_u8) -> Dict[str, torch.Tensor]:
+        """The decision and, with joint randomness, the prep-message seed
+        derived from every aggregator's part."""
         out: Dict[str, torch.Tensor] = {"decide": decide}
-        if flp.JOINT_RAND_LEN > 0:
+        if self.flp.JOINT_RAND_LEN > 0:
             binder = torch.cat(list(joint_rand_parts_u8), dim=-1)
-            zero_seed = torch.zeros((combined.shape[0], prio3.xof.SEED_SIZE), dtype=torch.uint8, device=binder.device)
+            zero_seed = torch.zeros((decide.shape[0], self.prio3.xof.SEED_SIZE), dtype=torch.uint8, device=binder.device)
             out["prep_msg_seed"] = self._xof_seed(zero_seed, self._dst(USAGE_JOINT_RAND_SEED), binder)
         return out
 
@@ -481,17 +622,36 @@ def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, n
     def mont_np(x: int) -> np.ndarray:
         return f._int_to_limbs_np(f.mont_int(x))
 
-    return {
+    consts = {
         "shares_inv_c": f._int_to_limbs_np(pow(prio3.num_shares, p - 2, p)),
         "alpha_pows_m": np.stack([mont_np(pow(w, k, p)) for k in range(1, plan.calls + 1)]),
         "bary_c_m": np.stack([mont_np(pow(w, k, p) * p_inv % p) for k in range(plan.calls + 1)]),
         "roots_m": np.stack([mont_np(pow(w, k, p)) for k in range(plan.calls + 1)]),
         "roots_all_m": np.stack([mont_np(pow(w, k, p)) for k in range(plan.P)]),
-        "alpha_mat_m": np.stack(
-            [
-                np.stack([mont_np(pow(w, k * j, p)) for j in range(plan.glen)])
-                for k in range(1, plan.calls + 1)
-            ]
-        ),
         "r2": f.r2_np.copy(),
     }
+    if isinstance(circ, _DHistogram):
+        # the w^{kj} table of the histogram's direct gadget evaluation
+        # (calls * glen entries: 4 * 15 for Histogram(1024, 316), but
+        # 317 * 1023 for SumVec(100000, 1, 316), whose NTT needs none)
+        consts["alpha_mat_m"] = np.stack(
+            [np.stack([mont_np(pow(w, k * j, p)) for j in range(plan.glen)]) for k in range(1, plan.calls + 1)]
+        )
+    return consts
+
+
+def compute_ntt(f: TField, P: int) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """The NTT's bit-reversal permutation (P,) int64 and per-stage twiddles
+    w_m^j (m/2, n) uint32 in Montgomery form, for m = 2, 4, ..., P (the JAX
+    package's ``BatchedPrio3._ntt``)."""
+    p = f.p
+    w = f.oracle.root(P)
+    logp = P.bit_length() - 1
+    bitrev = np.array([int(format(i, f"0{logp}b")[::-1], 2) for i in range(P)], dtype=np.int64)
+    stages = []
+    m = 2
+    while m <= P:
+        w_m = pow(w, P // m, p)
+        stages.append(np.stack([f._int_to_limbs_np(f.mont_int(pow(w_m, j, p))) for j in range(m // 2)]))
+        m *= 2
+    return bitrev, stages

@@ -150,6 +150,51 @@ def test_oracle_backends_agree():
 
 def test_unported_circuits_raise():
     with pytest.raises(NotImplementedError):
-        CudaBackend(instances.prio3_sum_vec(4, 1, 2), device="cpu")
+        CudaBackend(instances.prio3_sum_vec(4, 2, 2), device="cpu")
     with pytest.raises(NotImplementedError):
         CudaBackend(instances.prio3_count(), device="cpu")
+
+
+def test_sumvec_backend_pair_matches_jax_oracle_backend():
+    """Prio3SumVec(10, 1, 3) served leader and helper, combined and
+    aggregated, against the JAX package's oracle backend; row 2 tampered."""
+    length, chunk = 10, 3
+    jvdaf = jax_instances.prio3_sum_vec(length, 1, chunk)
+    backend = CudaBackend(instances.prio3_sum_vec(length, 1, chunk), device="cpu")
+    rng = np.random.default_rng(8)
+    meas, leader, helper = [], [], []
+    for i in range(4):
+        m = [int(x) for x in rng.integers(0, 2, length)]
+        nonce = rng.bytes(16)
+        public, shares = jvdaf.shard(m, nonce, rng.bytes(jvdaf.RAND_SIZE))
+        lead = shares[0]
+        if i == 2:
+            bad = list(lead.meas_share)
+            bad[0] = (bad[0] + 1) % jvdaf.flp.field.MODULUS
+            lead = JaxInputShare(bad, lead.proofs_share, None, lead.joint_rand_blind)
+        meas.append(m)
+        leader.append((nonce, public, lead))
+        helper.append((nonce, public, shares[1]))
+    oracle = JaxOracleBackend(jvdaf)
+    got = {}
+    for agg_id, rows in ((0, leader), (1, helper)):
+        got[agg_id] = backend.prep_init_batch(VK, agg_id, rows)
+        for (gs, gp), (ws, wp) in zip(got[agg_id], oracle.prep_init_batch(VK, agg_id, rows)):
+            assert gp.verifiers_share == wp.verifiers_share
+            assert gp.joint_rand_part == wp.joint_rand_part
+            assert gs.corrected_joint_rand_seed == ws.corrected_joint_rand_seed
+            assert gs.out_share == ws.out_share
+    pairs = [[got[0][b][1], got[1][b][1]] for b in range(4)]
+    msgs = backend.prep_shares_to_prep_batch(pairs)
+    want = oracle.prep_shares_to_prep_batch(pairs)
+    assert isinstance(msgs[2], VdafError) and isinstance(want[2], JaxVdafError)
+    assert [m for i, m in enumerate(msgs) if i != 2] == [m for i, m in enumerate(want) if i != 2]
+    mask = np.array([i != 2 for i in range(4)])
+    f = backend.bp.f
+    aggs = [
+        backend.aggregate_batch(
+            f.to_limbs([x for st, _ in got[a] for x in st.out_share]).reshape(4, length, f.n), mask
+        )
+        for a in (0, 1)
+    ]
+    assert jvdaf.unshard(aggs, 3) == np.sum([m for i, m in enumerate(meas) if i != 2], axis=0).tolist()

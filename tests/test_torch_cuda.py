@@ -67,16 +67,75 @@ def test_wire_kernel_matches_plain(card, meas_len, chunk, batch):
     assert torch.equal(ev.cpu(), pev) and torch.equal(od.cpu(), pod)
 
 
-def test_cuda_backend_matches_oracle(card):
-    from janus_tpu_torch.vdaf.backend import CudaBackend, OracleBackend
-    from janus_tpu_torch.vdaf.instances import prio3_histogram
+@pytest.mark.parametrize("meas_len,chunk,batch", [(10, 3, 5), (100000, 316, 130)])
+def test_sumvec_kernel_matches_plain(card, meas_len, chunk, batch):
+    rng = np.random.default_rng(meas_len)
+    f = TField(Field128)
+    calls = -(-meas_len // chunk)
 
-    vdaf = prio3_histogram(10, 3)
+    def planes(elems):  # canonical elements (top bit clear), as (elems, 4, B)
+        w = _words(rng, (elems, 4, batch))
+        w[:, 3] >>= 1
+        return storage(w).contiguous()
+
+    args = (planes(meas_len).reshape(-1, batch), planes(2 * chunk).reshape(-1, batch), planes(calls),
+            planes(calls), planes(1)[0], planes(1)[0])
+    before = flp_kernels.sumvec_wires.launches
+    ev, od = flp_kernels.sumvec_wires(f, meas_len, chunk, *(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert flp_kernels.sumvec_wires.launches == before + 1
+    pev, pod = flp_kernels.sumvec_wires_plain(f, meas_len, chunk, *(a.to(card) for a in args))
+    assert torch.equal(ev, pev) and torch.equal(od, pod)
+
+
+@pytest.mark.parametrize("chunk,batch", [(3, 5), (316, 4100)])
+def test_combine_kernel_matches_plain(card, chunk, batch):
+    rng = np.random.default_rng(chunk)
+    f = TField(Field128)
+
+    def planes(*shape):
+        w = _words(rng, shape)
+        w[:, -1] >>= 1  # canonical wires
+        return storage(w).contiguous().to(card)
+
+    he, ho, pv = planes(chunk, 4, batch), planes(chunk, 4, batch), planes(2 * chunk + 2, 4, batch)
+    before = flp_kernels.combine_decide.launches
+    g = flp_kernels.combine_decide(f, chunk, he, ho, pv)
+    torch.cuda.synchronize()
+    assert flp_kernels.combine_decide.launches == before + 1
+    assert torch.equal(g, flp_kernels.combine_decide_plain(f, chunk, he, ho, pv))
+
+
+def test_wrappers_raise_for_card_tensors_without_the_library(card, monkeypatch):
+    """No fallback: with the library failing to load, a tensor on the card
+    raises and the plain version never runs."""
+    from janus_tpu_torch import _build
+
+    def no_library(name):
+        raise _build.BuildError(f"no library for {name}")
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a card tensor")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    monkeypatch.setattr(flp_kernels, "combine_decide_plain", no_plain)
+    monkeypatch.setattr(flp_kernels, "sumvec_wires_plain", no_plain)
+    f = TField(Field128)
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=card)  # noqa: E731
+    with pytest.raises(_build.BuildError):
+        flp_kernels.combine_decide(f, 3, z(3, 4, 5), z(3, 4, 5), z(8, 4, 5))
+    with pytest.raises(_build.BuildError):
+        flp_kernels.sumvec_wires(f, 10, 3, z(40, 5), z(24, 5), z(4, 4, 5), z(4, 4, 5), z(4, 5), z(4, 5))
+
+
+def _served_pairs_match_oracle(vdaf, measure):
+    from janus_tpu_torch.vdaf.backend import CudaBackend, OracleBackend
+
     rng = np.random.default_rng(0)
     reports = []
     for _ in range(6):
         nonce = rng.bytes(16)
-        public, shares = vdaf.shard(int(rng.integers(0, 10)), nonce, rng.bytes(vdaf.RAND_SIZE))
+        public, shares = vdaf.shard(measure(rng), nonce, rng.bytes(vdaf.RAND_SIZE))
         reports.append((nonce, public, shares))
     backend, oracle = CudaBackend(vdaf), OracleBackend(vdaf)
     vk = bytes(16)
@@ -86,3 +145,15 @@ def test_cuda_backend_matches_oracle(card):
         want = oracle.prep_init_batch(vk, agg_id, rows)
         assert [p.verifiers_share for _, p in got] == [p.verifiers_share for _, p in want]
         assert [s.out_share for s, _ in got] == [s.out_share for s, _ in want]
+
+
+def test_cuda_backend_matches_oracle(card):
+    from janus_tpu_torch.vdaf.instances import prio3_histogram
+
+    _served_pairs_match_oracle(prio3_histogram(10, 3), lambda rng: int(rng.integers(0, 10)))
+
+
+def test_cuda_backend_sumvec_matches_oracle(card):
+    from janus_tpu_torch.vdaf.instances import prio3_sum_vec
+
+    _served_pairs_match_oracle(prio3_sum_vec(10, 1, 3), lambda rng: [int(x) for x in rng.integers(0, 2, 10)])

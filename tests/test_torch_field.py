@@ -111,6 +111,44 @@ def test_cumprod_and_pow_range_match_oracle(field):
 
 
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.__name__)
+def test_mutual_products_poly_eval_and_ntt_match_oracle(field):
+    """mutual_products_mont, poly_eval_mont (baby-step/giant-step),
+    horner_mont and ntt_eval_mont against the oracle's integers."""
+    rng = np.random.default_rng(7)
+    tf = TField(field)
+    p = field.MODULUS
+    vals = _values(field, rng, 18)[:20]  # two rows of ten
+    x = _t(tf.to_limbs([tf.mont_int(v) for v in vals])).reshape(2, 10, tf.n)
+    got = tf.from_limbs(_np(tf.mutual_products_mont(x, axis=1)))
+    want = []
+    for row in (vals[:10], vals[10:]):
+        for k in range(10):
+            acc = 1
+            for j, v in enumerate(row):
+                acc = acc * v % p if j != k else acc
+            want.append(tf.mont_int(acc))
+    assert got == want
+
+    coeffs = _t(tf.to_limbs(vals)).reshape(2, 10, tf.n)  # canonical, low order first
+    pts = _values(field, rng, 2)[-2:]
+    pt_m = _t(tf.to_limbs([tf.mont_int(v) for v in pts]))
+    want = [sum(c * pow(pt, j, p) for j, c in enumerate(row)) % p for row, pt in ((vals[:10], pts[0]), (vals[10:], pts[1]))]
+    assert tf.from_limbs(_np(tf.poly_eval_mont(coeffs, pt_m))) == want
+    assert tf.from_limbs(_np(tf.horner_mont(coeffs, pt_m))) == want
+
+    P = 8
+    w = field.root(P)
+    bitrev = torch.tensor([int(format(i, "03b")[::-1], 2) for i in range(P)])
+    stages = []
+    m = 2
+    while m <= P:
+        stages.append(_t(tf.to_limbs([tf.mont_int(pow(w, (P // m) * j, p)) for j in range(m // 2)])))
+        m *= 2
+    got = tf.from_limbs(_np(tf.ntt_eval_mont(coeffs[:, :P], bitrev, stages)))
+    assert got == [sum(c * pow(w, k * j, p) for j, c in enumerate(row[:P])) % p for row in (vals[:10], vals[10:]) for k in range(P)]
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.__name__)
 def test_canonicality_check_matches_sbb_chain(field):
     """The rejection test: limbs >= p are flagged, exactly at the boundary."""
     tf = TField(field)
