@@ -30,7 +30,8 @@ Drives the port's paths once each, over Field128 with TurboSHAKE128,
 6. each kernel (K1 squeeze, K2 absorb, K3 histogram wires, K4 combine,
    K5 SumVec wires) at its path's shapes against its plain PyTorch version
    on the card; K1/K2 timed at the SumVec shape, and 8 of their columns
-   there held against the plain version on the host.
+   there held against the plain version on the host; K1/K2's bound takes
+   in their chain bound (``keccak_bound``).
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -45,6 +46,7 @@ fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import multiprocessing
 import statistics
@@ -81,6 +83,18 @@ CUDA_CORE_OPS_PER_S = 67e12
 #: combine) + 50 (apply), rho 48 (24 rotations, two funnel shifts each),
 #: chi 150 (25 lanes x 2 words x not/and/xor), iota 2.
 KECCAK_P12_OPS = 12 * (40 + 20 + 50 + 48 + 150 + 2)
+#: The fewest dependent ALU steps one Keccak-p round needs on u32 words with
+#: 3-input LOP3s and funnel shifts, whatever the design: two LOP3 levels for
+#: theta's 5-lane column parity C; one funnel shift, since rho distributes
+#: over theta's XORs (rot(A ^ C[x-1] ^ rotl(C[x+1], 1), r) = rot(A, r) ^
+#: rot(C[x-1], r) ^ rot(C[x+1], r + 1), and rot(A, r) is off the chain);
+#: one LOP3 joining the three; one LOP3 for chi.  Iota's constant folds into
+#: the next round's parity and theta LOP3s off the chain.  An output word of
+#: theta-rho depends on about 22 input words, more than a funnel shift and
+#: two LOP3 levels reach (18), and chi's AND needs two whole such words.
+KECCAK_ROUND_DEPTH = 5
+#: Cycles from one dependent ALU instruction's issue to the next one's.
+ALU_DEPENDENT_CYCLES = 4
 #: u32 operations of one Field128 CIOS Montgomery product on 4 u32 limbs:
 #: 36 32x32->64 products at 2 operations each, plus 64 carry adds; and of
 #: one modular add or subtract (4 adds with carry, 4 compares, 4 selects).
@@ -122,6 +136,26 @@ def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def keccak_bound(moved: float, perms: int, B: int) -> dict:
+    """The bound of a K1/K2 call whose reports each run a chain of ``perms``
+    permutations: the largest of the bytes bound, the operations bound and
+    the chain bound, perms x 12 rounds x the round's least dependent depth x
+    the ALU's dependent-issue latency at the SM clock.  ``bound_by`` keeps
+    the kernels line's two words (a chain is dependent operations);
+    ``bound_kind`` names which of the three bounds was taken."""
+    chain = perms * 12 * KECCAK_ROUND_DEPTH * ALU_DEPENDENT_CYCLES / sm_clock_hz() * 1e3
+    bms, by = bound(moved, perms * B * KECCAK_P12_OPS)
+    if chain > bms:
+        return {"bound_ms": chain, "bound_by": "operations", "bound_kind": "chain", "chain_bound_ms": chain}
+    return {"bound_ms": bms, "bound_by": by, "bound_kind": by, "chain_bound_ms": chain}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi clocks.max.sm, "1980 MHz")."""
+    return 1e6 * float(nvidia_smi("clocks.max.sm").split()[0])
 
 
 def counters():
@@ -280,14 +314,14 @@ def kernel_checks(backend, helper_rows, launches):
     got = keccak_kernels.squeeze(msg, W)
     want = keccak_kernels.squeeze_plain(msg, W)
     nb = -(-W // 42)
-    bms, by = bound(msg.numel() * 4 + got.numel() * 4, nb * B * KECCAK_P12_OPS)
+    kbound = keccak_bound(msg.numel() * 4 + got.numel() * 4, nb, B)
     out.append({
         "name": "keccak_squeeze", "route": "cuda", "source": "janus_tpu_torch/csrc/keccak.cu",
         "replaces": "janus_tpu/ops/keccak_pallas.py:126", "launches": launches["keccak_squeeze"],
         "max_abs_err": max_abs_err(got, want),
         "ms": cuda_time_ms(lambda: keccak_kernels.squeeze(msg, W), 20),
         "plain_ms": cuda_time_ms(lambda: keccak_kernels.squeeze_plain(msg, W), 1),
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "tolerance": TOLERANCE,
+        **kbound, "library_ms": None, "tolerance": TOLERANCE,
         "shape": f"in (42, {B}) -> out ({W}, {B}), {nb} blocks",
     })
     meas_st = got
@@ -300,14 +334,14 @@ def kernel_checks(backend, helper_rows, launches):
     got = keccak_kernels.absorb(jmsg, 4)
     want = keccak_kernels.absorb_plain(jmsg, 4)
     na = jmsg.shape[0] // 42
-    bms, by = bound(jmsg.numel() * 4 + got.numel() * 4, na * B * KECCAK_P12_OPS)
+    kbound = keccak_bound(jmsg.numel() * 4 + got.numel() * 4, na, B)
     out.append({
         "name": "keccak_absorb", "route": "cuda", "source": "janus_tpu_torch/csrc/keccak.cu",
         "replaces": "janus_tpu/ops/keccak_pallas.py:166", "launches": launches["keccak_absorb"],
         "max_abs_err": max_abs_err(got, want),
         "ms": cuda_time_ms(lambda: keccak_kernels.absorb(jmsg, 4), 20),
         "plain_ms": cuda_time_ms(lambda: keccak_kernels.absorb_plain(jmsg, 4), 1),
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "tolerance": TOLERANCE,
+        **kbound, "library_ms": None, "tolerance": TOLERANCE,
         "shape": f"in ({jmsg.shape[0]}, {B}) -> out (4, {B}), {na} blocks",
     })
 
@@ -394,11 +428,11 @@ def sumvec_checks(bp, helper_rows, launches):
         ("keccak_absorb", lambda: keccak_kernels.absorb(jmsg, 4), lambda x: keccak_kernels.absorb_plain(x, 4),
          jmsg, jr_part, jmsg.numel() * 4 + 4 * 4 * B, na, f"in ({jmsg.shape[0]}, {B}) -> out (4, {B}), {na} blocks"),
     ):
-        bms, by = bound(moved, perms * B * KECCAK_P12_OPS)
+        kbound = keccak_bound(moved, perms, B)
         t0 = time.perf_counter()
         err = max_abs_err(got[:, cols].cpu(), plain(inp[:, cols].cpu().contiguous()))
         shapes[name] = {
-            "ms": cuda_time_ms(fn, 3), "bound_ms": bms, "bound_by": by, "shape": shape,
+            "ms": cuda_time_ms(fn, 3), **kbound, "shape": shape,
             "max_abs_err_host_columns": err, "host_columns": HOST_CHECK_COLUMNS,
             "plain_host_s": time.perf_counter() - t0,
         }
@@ -690,6 +724,14 @@ def sumvec_phases(verify_key, rng, done, phases):
     return entry, shapes, record
 
 
+def nvidia_smi(query: str) -> str:
+    """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -702,7 +744,8 @@ def main() -> int:
     from janus_tpu_torch.vdaf.instances import prio3_histogram
 
     kind = torch.cuda.get_device_name(0)
-    log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"largest SM clock {sm_clock_hz() / 1e6:.0f} MHz")
     rng = np.random.default_rng(args.seed)
     verify_key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
     phases = {}
@@ -717,10 +760,9 @@ def main() -> int:
         _build.build()
         phases["build"] = time.perf_counter() - t0
         log(f"build: {phases['build']:.2f} s")
-        for name, text in _build.BUILD_LOGS.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"ptxas {name}: {line.strip()}")
+        for name in _build.BUILD_LOGS:
+            for line in _build.ptxas_report(name):
+                log(f"ptxas {name}: {line}")
         hist_vdaf = prio3_histogram(LENGTH, CHUNK)
         t0 = time.perf_counter()
         reports, meas = shard_reports(hist_vdaf, rng)
@@ -742,10 +784,7 @@ def main() -> int:
     log(json.dumps({"phases_s": phases}))
     log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

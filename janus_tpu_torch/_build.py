@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` compiles on its own into
 interface, no PyTorch headers), keyed by a hash of its source, the shared
 headers and the flags, so an edited source rebuilds and an unchanged one is
 reused.  ``build()`` starts one nvcc per source, all at once, and waits for
-them all.  There is no fallback: a missing nvcc or a failed build raises.
+them all.  A source is named as ``"keccak"`` (``csrc/keccak.cu``) or given
+as a path to a ``.cu`` file with the same C interface (to time one source
+against another).  There is no fallback: a missing nvcc or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "janus_tpu_torch"
@@ -50,12 +53,18 @@ def nvcc_path() -> str:
     return cand
 
 
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu``, or ``name`` itself where it is a ``.cu`` path."""
+    return Path(name).resolve() if name.endswith(".cu") else CSRC / f"{name}.cu"
+
+
 def library_path(name: str) -> Path:
+    source = source_path(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for path in sorted(CSRC.glob("*.cuh")) + [source]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> None:
@@ -67,7 +76,7 @@ def build(names: Iterable[str] = SOURCES) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs[name] = (proc, tmp, out)
     errors = []
@@ -81,6 +90,14 @@ def build(names: Iterable[str] = SOURCES) -> None:
             os.replace(tmp, out)
     if errors:
         raise BuildError("\n".join(errors))
+
+
+def ptxas_report(name: str) -> List[str]:
+    """The entry-function, register, shared-memory and spill lines of ptxas's
+    report on the build of ``name`` that this process ran (none where it
+    reused a library)."""
+    keys = ("entry function", "registers", "spill")
+    return [line.strip() for line in BUILD_LOGS.get(name, "").splitlines() if any(k in line for k in keys)]
 
 
 def load(name: str) -> ctypes.CDLL:

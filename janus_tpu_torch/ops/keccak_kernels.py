@@ -40,8 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib():
-    lib = _build.load("keccak")
+def _lib(source: str = "keccak"):
+    """The loaded Keccak library (or that of another source with its C
+    interface, see ``_build.source_path``), its entry points typed."""
+    lib = _build.load(source)
     for fn in (lib.janus_keccak_squeeze, lib.janus_keccak_absorb):
         fn.argtypes = [_P, _P, _I, _I, _I, _P]
         fn.restype = _I

@@ -27,26 +27,54 @@ def _words(rng, shape):
     return torch.from_numpy(rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.int64))
 
 
-@pytest.mark.parametrize("batch,out_words", [(1, 4), (100, 200), (1000, 4096)])
+def _message_planes(rng, rows, batch):
+    return storage(_words(rng, (rows, batch))).contiguous()
+
+
+# K1 and K2 at the edges of their layout: 6 reports a block (B = 1, 7, 33
+# leave ragged last blocks), 42-word output blocks (43 and 4096 = 97 * 42 + 22
+# end in a partial block), a 4-stage load ring (na = 7 wraps it).
+@pytest.mark.parametrize("out_words", [4, 42, 43, 4096])
+@pytest.mark.parametrize("batch", [1, 7, 33, 1000, 4096])
 def test_squeeze_kernel_matches_plain(card, batch, out_words):
-    rng = np.random.default_rng(batch)
-    seeds = torch.from_numpy(rng.integers(0, 256, (batch, 16), dtype=np.uint8))
-    msg = keccak_kernels.padded_message_planes(seeds, b"dst", seeds[:, :1]).to(card)
+    msg = _message_planes(np.random.default_rng(batch), 42, batch)
     before = keccak_kernels.squeeze.launches
-    got = keccak_kernels.squeeze(msg, out_words)
+    got = keccak_kernels.squeeze(msg.to(card), out_words)
     torch.cuda.synchronize()
     assert keccak_kernels.squeeze.launches == before + 1
-    assert torch.equal(got.cpu(), keccak_kernels.squeeze_plain(msg.cpu(), out_words))
+    assert torch.equal(got.cpu(), keccak_kernels.squeeze_plain(msg, out_words))
 
 
-@pytest.mark.parametrize("batch,blocks", [(3, 2), (257, 7)])
-def test_absorb_kernel_matches_plain(card, batch, blocks):
-    rng = np.random.default_rng(blocks)
+@pytest.mark.parametrize("out_words", [4, 42])
+@pytest.mark.parametrize("blocks", [1, 2, 7])
+@pytest.mark.parametrize("batch", [3, 8, 257, 1024])
+def test_absorb_kernel_matches_plain(card, batch, blocks, out_words):
+    rng = np.random.default_rng([batch, blocks])
     msgs = torch.from_numpy(rng.integers(0, 256, (batch, 168 * blocks - 3), dtype=np.uint8))
     planes = keccak_kernels.rows_to_planes(storage(keccak.bytes_to_words(keccak.pad_message(msgs, 1))))
-    got = keccak_kernels.absorb(planes.to(card), 4)
+    before = keccak_kernels.absorb.launches
+    got = keccak_kernels.absorb(planes.to(card), out_words)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), keccak_kernels.absorb_plain(planes, 4))
+    assert keccak_kernels.absorb.launches == before + 1
+    assert torch.equal(got.cpu(), keccak_kernels.absorb_plain(planes, out_words))
+
+
+# The SumVec100k chains at a small batch: 9,525 absorbed blocks (the ring
+# wraps 2,381 times) and 400,000 squeezed words (9,523 * 42 + 34, so the
+# last block is partial); the plain version runs on the host.
+@pytest.mark.parametrize("kernel", ["absorb", "squeeze"])
+def test_keccak_long_chain_matches_plain(card, kernel):
+    rng = np.random.default_rng(9525)
+    if kernel == "absorb":
+        msg = _message_planes(rng, 9525 * 42, 5)
+        got = keccak_kernels.absorb(msg.to(card), 4)
+        want = keccak_kernels.absorb_plain(msg, 4)
+    else:
+        msg = _message_planes(rng, 42, 5)
+        got = keccak_kernels.squeeze(msg.to(card), 400000)
+        want = keccak_kernels.squeeze_plain(msg, 400000)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("meas_len,chunk,batch", [(10, 3, 5), (1024, 316, 300)])
@@ -120,8 +148,14 @@ def test_wrappers_raise_for_card_tensors_without_the_library(card, monkeypatch):
     monkeypatch.setattr(_build, "load", no_library)
     monkeypatch.setattr(flp_kernels, "combine_decide_plain", no_plain)
     monkeypatch.setattr(flp_kernels, "sumvec_wires_plain", no_plain)
+    monkeypatch.setattr(keccak_kernels, "squeeze_plain", no_plain)
+    monkeypatch.setattr(keccak_kernels, "absorb_plain", no_plain)
     f = TField(Field128)
     z = lambda *s: torch.zeros(s, dtype=torch.int32, device=card)  # noqa: E731
+    with pytest.raises(_build.BuildError):
+        keccak_kernels.squeeze(z(42, 5), 4)
+    with pytest.raises(_build.BuildError):
+        keccak_kernels.absorb(z(84, 5), 4)
     with pytest.raises(_build.BuildError):
         flp_kernels.combine_decide(f, 3, z(3, 4, 5), z(3, 4, 5), z(8, 4, 5))
     with pytest.raises(_build.BuildError):
