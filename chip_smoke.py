@@ -30,8 +30,11 @@ Drives the port's paths once each, over Field128 with TurboSHAKE128,
 6. each kernel (K1 squeeze, K2 absorb, K3 histogram wires, K4 combine,
    K5 SumVec wires) at its path's shapes against its plain PyTorch version
    on the card; K1/K2 timed at the SumVec shape, and 8 of their columns
-   there held against the plain version on the host; K1/K2's bound takes
-   in their chain bound (``keccak_bound``).
+   there held against the plain version on the host; each kernel's bound
+   is the largest of its bytes at the HBM rate and its integer work at the
+   card's multiply, ALU and dispatch rates (``bound``), and K1/K2's also takes
+   in their chain bound (``keccak_bound``); K5 also timed and checked at the
+   served batch, B = 128.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -72,17 +75,43 @@ DEVICE = "cuda"
 #: integer work, so every kernel must equal its plain version bit for bit.
 TOLERANCE = 0
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32 rate
-#: outside the tensor cores, the data sheet's only CUDA-core rate, used for
-#: these kernels' 32-bit integer operations.
+#: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
+#: Integer rates per SM and clock: 32-bit integer multiply and multiply-add
+#: results (64) and 32-bit integer add, logic, shift and compare
+#: instructions (64), from the CUDA C++ Programming Guide's arithmetic
+#: instruction throughput table for compute capability 9.0; the four
+#: schedulers dispatch at most 128 instructions in all (Hopper architecture
+#: white paper: 64 INT32 lanes beside the 128 FP32 lanes of an SM).  Taken
+#: at the card's largest SM clock over its SMs; the operations bound is the
+#: largest of the three times.
+INT_MUL_PER_CLK = 64
+INT_ALU_PER_CLK = 64
+DISPATCH_PER_CLK = 128
 
-#: u32 ALU operations of one Keccak-p[1600,12] on 64-bit lanes held as two
-#: 32-bit words, per round: theta 40 (column parities) + 20 (rotate and
-#: combine) + 50 (apply), rho 48 (24 rotations, two funnel shifts each),
-#: chi 150 (25 lanes x 2 words x not/and/xor), iota 2.
-KECCAK_P12_OPS = 12 * (40 + 20 + 50 + 48 + 150 + 2)
+#: Counts as (32-bit multiply results, other integer instructions); a
+#: 32x32->64 product is one instruction and two multiply results.  For
+#: Field128's p = 2^128 - 7*2^66 + 1 the low word of p is 1 and n' = -1, so
+#: a word-by-word Montgomery reduction step takes m = -t_i (one negation),
+#: adds m into t_i (one add, its carry), and multiplies only m by p's two
+#: high words (2 products, 4 adds): 8 products and 24 other instructions in
+#: all.  A Field128 Montgomery product on 4 u32 limbs: the 16 products and
+#: 32 adds of the 128x128 product and that reduction.
+MONT_MUL = (48, 56)
+#: A 128x128-bit product added into an unreduced 256-bit sum: 16 products
+#: and 32 adds with carry of their words into the sum.
+WIDE_MAC = (32, 32)
+#: The Montgomery reduction of such a sum: the reduction above and 8 adds to
+#: fold the carries.
+WIDE_REDUCE = (16, 32)
+#: A modular add or subtract: 4 adds with carry, 4 compares, 4 selects.
+FIELD_ADD = (0, 12)
+#: One Keccak-p[1600,12] on 64-bit lanes held as two u32 words, per round
+#: with 3-input LOP3s and funnel shifts: theta's column parities 20 (two
+#: LOP3s a word), C rotated by one 10, the theta XOR 50 (one LOP3 a word
+#: takes both C terms), rho 48 (two funnel shifts a lane, 24 lanes), chi 50
+#: (one LOP3 a word), iota 2; pi only renames registers.
+KECCAK_P12 = (0, 12 * (20 + 10 + 50 + 48 + 50 + 2))
 #: The fewest dependent ALU steps one Keccak-p round needs on u32 words with
 #: 3-input LOP3s and funnel shifts, whatever the design: two LOP3 levels for
 #: theta's 5-lane column parity C; one funnel shift, since rho distributes
@@ -95,11 +124,6 @@ KECCAK_P12_OPS = 12 * (40 + 20 + 50 + 48 + 150 + 2)
 KECCAK_ROUND_DEPTH = 5
 #: Cycles from one dependent ALU instruction's issue to the next one's.
 ALU_DEPENDENT_CYCLES = 4
-#: u32 operations of one Field128 CIOS Montgomery product on 4 u32 limbs:
-#: 36 32x32->64 products at 2 operations each, plus 64 carry adds; and of
-#: one modular add or subtract (4 adds with carry, 4 compares, 4 selects).
-MONT_MUL_OPS = 36 * 2 + 64
-FIELD_ADD_OPS = 12
 
 KERNEL_NAMES = ("keccak_squeeze", "keccak_absorb", "flp_wire_evals", "flp_combine_decide", "flp_sumvec_wires")
 
@@ -132,24 +156,43 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(((a.to(torch.int64) & mask) - (b.to(torch.int64) & mask)).abs().max().item())
 
 
-def bound(bytes_moved: float, ops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def ops(*terms):
+    """Sum of count x (multiply results, other instructions) terms."""
+    return tuple(sum(n * c[i] for n, c in terms) for i in (0, 1))
+
+
+def bound(bytes_moved: float, count) -> dict:
+    """The least time (ms) of a call that moves ``bytes_moved`` and does
+    ``count`` = (multiply results, other integer instructions): the largest
+    of the bytes at the HBM rate, the multiplies at the integer multiply
+    rate, the other instructions at the ALU rate and all the instructions
+    (a product's two results are one) at the dispatch rate.  ``bound_by``
+    is "bytes" or "operations"; ``bound_kind`` names which of the four was
+    taken."""
+    mul, alu = count
+    per_ms = torch.cuda.get_device_properties(0).multi_processor_count * sm_clock_hz() / 1e3
+    times = {
+        "bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+        "multiplies": mul / (INT_MUL_PER_CLK * per_ms),
+        "alu": alu / (INT_ALU_PER_CLK * per_ms),
+        "dispatch": (mul / 2 + alu) / (DISPATCH_PER_CLK * per_ms),
+    }
+    kind = max(times, key=times.get)
+    return {"bound_ms": times[kind], "bound_by": "bytes" if kind == "bytes" else "operations", "bound_kind": kind}
 
 
 def keccak_bound(moved: float, perms: int, B: int) -> dict:
     """The bound of a K1/K2 call whose reports each run a chain of ``perms``
-    permutations: the largest of the bytes bound, the operations bound and
-    the chain bound, perms x 12 rounds x the round's least dependent depth x
-    the ALU's dependent-issue latency at the SM clock.  ``bound_by`` keeps
+    permutations: the larger of ``bound`` and the chain bound, perms x 12
+    rounds x the round's least dependent depth x the ALU's latency from one
+    dependent instruction to the next at the SM clock.  ``bound_by`` keeps
     the kernels line's two words (a chain is dependent operations);
-    ``bound_kind`` names which of the three bounds was taken."""
+    ``bound_kind`` is "chain" where the chain bound was taken."""
     chain = perms * 12 * KECCAK_ROUND_DEPTH * ALU_DEPENDENT_CYCLES / sm_clock_hz() * 1e3
-    bms, by = bound(moved, perms * B * KECCAK_P12_OPS)
-    if chain > bms:
-        return {"bound_ms": chain, "bound_by": "operations", "bound_kind": "chain", "chain_bound_ms": chain}
-    return {"bound_ms": bms, "bound_by": by, "bound_kind": by, "chain_bound_ms": chain}
+    b = bound(moved, ops((perms * B, KECCAK_P12)))
+    if chain > b["bound_ms"]:
+        b = {"bound_ms": chain, "bound_by": "operations", "bound_kind": "chain"}
+    return {**b, "chain_bound_ms": chain}
 
 
 @functools.lru_cache(maxsize=None)
@@ -353,18 +396,20 @@ def kernel_checks(backend, helper_rows, launches):
     args = (f, flp.MEAS_LEN, circ.chunk, meas_st, proofs_st) + coeffs
     ev, od = flp_kernels.wire_evals(*args)
     pev, pod = flp_kernels.wire_evals_plain(*args)
-    valid_calls = [sum(1 for k in range(circ.calls) if k * circ.chunk + u < flp.MEAS_LEN) for u in range(circ.chunk)]
-    ops = B * sum((2 * c + 3) * MONT_MUL_OPS + (2 * c + 2) * FIELD_ADD_OPS for c in valid_calls)
+    # Per element of m two products whose reduction waits for the column;
+    # per column the two reductions, three products (r_ch, both seeds) and
+    # three additions.
     elem = 4 * n  # bytes per field element
     moved = elem * B * (flp.MEAS_LEN + 2 * circ.chunk + circ.chunk + 2 * circ.calls + 2 + 2 * circ.chunk)
-    bms, by = bound(moved, ops)
+    kb = bound(moved, ops((B * flp.MEAS_LEN * 2, WIDE_MAC),
+                          (B * circ.chunk, ops((2, WIDE_REDUCE), (3, MONT_MUL), (3, FIELD_ADD)))))
     out.append({
         "name": "flp_wire_evals", "route": "cuda", "source": "janus_tpu_torch/csrc/flp_wire.cu",
         "replaces": "janus_tpu/ops/flp_pallas.py:68", "launches": launches["flp_wire_evals"],
         "max_abs_err": max(max_abs_err(ev, pev), max_abs_err(od, pod)),
         "ms": cuda_time_ms(lambda: flp_kernels.wire_evals(*args), 20),
         "plain_ms": cuda_time_ms(lambda: flp_kernels.wire_evals_plain(*args), 1),
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "tolerance": TOLERANCE,
+        **kb, "library_ms": None, "tolerance": TOLERANCE,
         "shape": f"m ({flp.MEAS_LEN * n}, {B}), chunk {circ.chunk}, calls {circ.calls}",
     })
     return out
@@ -384,21 +429,22 @@ def combine_check(bp, own, peer_verifiers, launches):
     want = flp_kernels.combine_decide_plain(f, chunk, he, ho, pv)
     # he, ho and the peer's 2*chunk wires read once, g written once; per
     # column 3 additions and 1 product, and chunk - 1 additions to fold.
-    bms, by = bound(4 * f.n * B * (4 * chunk + 1), B * (chunk * (3 * FIELD_ADD_OPS + MONT_MUL_OPS) + (chunk - 1) * FIELD_ADD_OPS))
+    kb = bound(4 * f.n * B * (4 * chunk + 1), ops((B * chunk, MONT_MUL), (B * (4 * chunk - 1), FIELD_ADD)))
     return {
         "name": "flp_combine_decide", "route": "cuda", "source": "janus_tpu_torch/csrc/flp_combine.cu",
         "replaces": "janus_tpu/ops/flp_pallas.py:262", "launches": launches["flp_combine_decide"],
         "max_abs_err": max_abs_err(got, want),
         "ms": cuda_time_ms(lambda: flp_kernels.combine_decide(f, chunk, he, ho, pv), 20),
         "plain_ms": cuda_time_ms(lambda: flp_kernels.combine_decide_plain(f, chunk, he, ho, pv), 1),
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "tolerance": TOLERANCE,
+        **kb, "library_ms": None, "tolerance": TOLERANCE,
         "shape": f"he/ho ({chunk}, {f.n}, {B}), peer verifier {tuple(pv.shape)} -> g ({f.n}, {B})",
     }
 
 
 def sumvec_checks(bp, helper_rows, launches):
     """K5 at (100000, 316, B 1024) on the real helper streams with seeded
-    random coefficients, against its plain version.  K1 and K2 timed at the
+    random coefficients, against its plain version, and again at the served
+    batch (the first 128 reports of the same inputs).  K1 and K2 timed at the
     SumVec shape, and their outputs in 8 columns spread over the batch held
     against the plain version on the host: the plain Keccak is launch-bound
     (about 6 ms a block on an H100, 2-3 ms on one host CPU core at 8
@@ -442,29 +488,45 @@ def sumvec_checks(bp, helper_rows, launches):
 
     rand_field = seeded_field(B, n, dev, 11)
     coeffs = (rand_field(circ.calls), rand_field(circ.calls), rand_field(1)[0], rand_field(1)[0])
+    entry = {
+        "name": "flp_sumvec_wires", "route": "cuda", "source": "janus_tpu_torch/csrc/flp_sumvec.cu",
+        "replaces": "janus_tpu/ops/flp_pallas.py:129", "launches": launches["flp_sumvec_wires"],
+        **sumvec_check(f, flp, circ, meas_st, proofs_st, coeffs),
+        "library_ms": None, "tolerance": TOLERANCE,
+    }
+    # The served path's batch: the first SV_BATCH reports of the same inputs.
+    cut = [x[..., :SV_BATCH].contiguous() for x in (meas_st, proofs_st) + coeffs]
+    entry["at_served_batch"] = sumvec_check(f, flp, circ, cut[0], cut[1], tuple(cut[2:]))
+    entry["max_abs_err"] = max(entry["max_abs_err"], entry["at_served_batch"]["max_abs_err"])
+    return entry, shapes
+
+
+def sumvec_check(f, flp, circ, meas_st, proofs_st, coeffs) -> dict:
+    """K5 on these streams and coefficients against its plain version: the
+    error, the kernel's and the plain version's times and the bound."""
+    from janus_tpu_torch.ops import flp_kernels
+
+    n, B = f.n, meas_st.shape[-1]
     args = (f, flp.MEAS_LEN, circ.chunk, meas_st, proofs_st) + coeffs
     ev, od = flp_kernels.sumvec_wires(*args)
     pev, pod = flp_kernels.sumvec_wires_plain(*args)
     err = max(max_abs_err(ev, pev), max_abs_err(od, pod))
     del pev, pod
     # m, the wire seeds, jr, lagk, lag0, ccorr read once, ev/od written
-    # once; per valid (call, column) the least a per-column recurrence of
-    # the power needs: 4 products (power step, times lag, two times m) and
-    # 2 additions; per column 2 products and 3 additions to finish.
-    valid = sum(1 for k in range(circ.calls) for u in range(circ.chunk) if k * circ.chunk + u < flp.MEAS_LEN)
-    ops = B * (valid * (4 * MONT_MUL_OPS + 2 * FIELD_ADD_OPS) + circ.chunk * (2 * MONT_MUL_OPS + 3 * FIELD_ADD_OPS))
+    # once; per valid (call, column), which is per element of m, what the
+    # function needs: the power step jr_k^(u+1) * lag_k (one Montgomery
+    # product) and m times it and times lag_k (two products whose reduction
+    # waits for the column); per column the two reductions, the seeds'
+    # two products and three additions.
     moved = 4 * n * B * (flp.MEAS_LEN + 2 * circ.chunk + 2 * circ.calls + 2 + 2 * circ.chunk)
-    bms, by = bound(moved, ops)
-    entry = {
-        "name": "flp_sumvec_wires", "route": "cuda", "source": "janus_tpu_torch/csrc/flp_sumvec.cu",
-        "replaces": "janus_tpu/ops/flp_pallas.py:129", "launches": launches["flp_sumvec_wires"],
+    kb = bound(moved, ops((B * flp.MEAS_LEN, ops((1, MONT_MUL), (2, WIDE_MAC))),
+                          (B * circ.chunk, ops((2, WIDE_REDUCE), (2, MONT_MUL), (3, FIELD_ADD)))))
+    return {
         "max_abs_err": err,
         "ms": cuda_time_ms(lambda: flp_kernels.sumvec_wires(*args), 5),
         "plain_ms": cuda_time_ms(lambda: flp_kernels.sumvec_wires_plain(*args), 1, rounds=1),
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "tolerance": TOLERANCE,
-        "shape": f"m ({W}, {B}), chunk {circ.chunk}, calls {circ.calls}",
+        **kb, "shape": f"m ({flp.MEAS_LEN * n}, {B}), chunk {circ.chunk}, calls {circ.calls}",
     }
-    return entry, shapes
 
 
 def helper_byte_rows(helper_rows, dev):

@@ -3,12 +3,12 @@
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/janus_tpu_torch/lib<name>-<hash>.so`` (``sm_90a``, a plain C
 interface, no PyTorch headers), keyed by a hash of its source, the shared
-headers and the flags, so an edited source rebuilds and an unchanged one is
-reused.  ``build()`` starts one nvcc per source, all at once, and waits for
-them all.  A source is named as ``"keccak"`` (``csrc/keccak.cu``) or given
-as a path to a ``.cu`` file with the same C interface (to time one source
-against another).  There is no fallback: a missing nvcc or a failed build
-raises.
+headers beside it and the flags, so an edited source rebuilds and an
+unchanged one is reused.  ``build()`` starts one nvcc per source, all at
+once, and waits for them all.  A source is named as ``"keccak"``
+(``csrc/keccak.cu``) or given as a path to a ``.cu`` file with the same C
+interface (to time one source against another).  There is no fallback: a
+missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def source_path(name: str) -> Path:
 def library_path(name: str) -> Path:
     source = source_path(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [source]:
+    for path in sorted(source.parent.glob("*.cuh")) + [source]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"

@@ -95,4 +95,83 @@ __device__ __forceinline__ F128 f128_mont_mul(F128 a, F128 b) {
   return f128_cond_sub(t0, t1, t2);
 }
 
+// r^e (e >= 1) by square-and-multiply, r and the result in Montgomery form.
+__device__ __forceinline__ F128 f128_pow(F128 r, unsigned e) {
+  F128 pw = r;
+  for (int i = 30 - __clz((int)e); i >= 0; --i) {
+    pw = f128_mont_mul(pw, pw);
+    if ((e >> i) & 1u) pw = f128_mont_mul(pw, r);
+  }
+  return pw;
+}
+
+// A sum of 128x128-bit products, not reduced: 256 bits in four 64-bit words
+// and the count of carries out of them.  Summing full products and reducing
+// once at the end costs 16 32x32 products a term where a Montgomery product
+// costs 24 (16 and the reduction's 8: n' = -1 and p's low word 1 cost
+// none), and gives the same residue.
+struct Wide {
+  uint64_t w0, w1, w2, w3;
+  uint32_t c;
+};
+
+// acc += a*b, exactly.
+__device__ __forceinline__ void wide_mac(Wide& acc, F128 a, F128 b) {
+  const u128 p00 = (u128)a.lo * b.lo;
+  const u128 p01 = (u128)a.lo * b.hi;
+  const u128 p10 = (u128)a.hi * b.lo;
+  const u128 p11 = (u128)a.hi * b.hi;
+  u128 t = (u128)acc.w0 + (uint64_t)p00;
+  acc.w0 = (uint64_t)t;
+  t = (t >> 64) + acc.w1 + (uint64_t)(p00 >> 64) + (uint64_t)p01 + (uint64_t)p10;
+  acc.w1 = (uint64_t)t;
+  t = (t >> 64) + acc.w2 + (uint64_t)(p01 >> 64) + (uint64_t)(p10 >> 64) + (uint64_t)p11;
+  acc.w2 = (uint64_t)t;
+  t = (t >> 64) + acc.w3 + (uint64_t)(p11 >> 64);
+  acc.w3 = (uint64_t)t;
+  acc.c += (uint32_t)(t >> 64);
+}
+
+// (ex:hi:lo) < 3p, reduced to [0, p).
+__device__ __forceinline__ F128 f128_reduce3(uint64_t lo, uint64_t hi, uint64_t ex) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint64_t dlo = lo - kPLo;
+    const uint64_t b0 = lo < kPLo;
+    const uint64_t dhi = hi - kPHi - b0;
+    const uint64_t borrow = (hi < kPHi) || (hi == kPHi && b0);
+    if (ex || !borrow) {  // (ex:hi:lo) >= p
+      lo = dlo;
+      hi = dhi;
+      ex -= borrow;
+    }
+  }
+  return F128{lo, hi};
+}
+
+// The canonical residue of acc * R^-1, so that reducing a sum of products
+// a*b gives the sum of their Montgomery products mont(a, b).  Two word-by-
+// word Montgomery steps take the low 256 bits w to (w + M*p) / R < R + p;
+// the carries fold in as c * 2^256 * R^-1 = c * R = c * (R - p) mod p, with
+// R - p = 28 * 2^64 - 1.
+__device__ __forceinline__ F128 wide_reduce(const Wide& acc) {
+  uint64_t t[5] = {acc.w0, acc.w1, acc.w2, acc.w3, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint64_t m = t[i] * kNPrime;
+    u128 x = (u128)m * kPLo + t[i];  // low word becomes zero
+    x = (u128)m * kPHi + t[i + 1] + (uint64_t)(x >> 64);
+    t[i + 1] = (uint64_t)x;
+#pragma unroll
+    for (int j = i + 2; j < 5; ++j) {
+      x = (u128)t[j] + (uint64_t)(x >> 64);
+      t[j] = (uint64_t)x;
+    }
+  }
+  const u128 fold = ((u128)(28ull * acc.c) << 64) - acc.c;
+  const u128 lo = (u128)t[2] + (uint64_t)fold;
+  const u128 hi = (u128)t[3] + (uint64_t)(fold >> 64) + (uint64_t)(lo >> 64);
+  return f128_reduce3((uint64_t)lo, (uint64_t)hi, t[4] + (uint64_t)(hi >> 64));
+}
+
 }  // namespace janus

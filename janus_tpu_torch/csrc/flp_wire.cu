@@ -12,17 +12,21 @@
 // limb l at word e*4 + l).  Positions k*chunk + u >= meas_len are the
 // circuit's zero padding; their product is zero, so the loop stops there
 // and never reads past the stream (the Pallas kernel read Mosaic edge
-// padding under a mask instead).  Montgomery products pair one canonical
-// operand with one Montgomery coefficient, so outputs are canonical.
+// padding under a mask instead).  Outputs are canonical.
 //
-// One thread per (report, column): blockIdx.y = u, reports along x, so each
-// load and store of one limb plane is contiguous across a warp.
+// What bounds it on the H100: bytes.  It moves 16 bytes per element of m,
+// the proof's wire seeds, r_ch and the two outputs, about 171 MB at the
+// flagship shape (B = 4096, 0.051 ms of HBM).  Done as Montgomery products,
+// the two sums over calls cost about as much again in 32-bit multiplies and
+// their carry adds, and a thread's loads and products do not overlap well.
 //
-// What bounds it on the H100: each thread does 2*calls + 3 Montgomery
-// products on 64-bit words and moves 16 bytes per element of m, the proof's
-// wire seeds, r_ch and the two outputs; at the flagship shape the bytes
-// (about 170 MB at B = 4096) and the 64-bit multiplies are of the same
-// order, with 1.3M threads to cover latency.
+// The design: one thread per (report, column), reports along x, so each
+// limb-plane load and store is contiguous across a warp, with 1.3M threads
+// to cover latency.  The two sums over calls stay unreduced 256-bit sums of
+// full products (janus::Wide, 16 32x32 products a term where a Montgomery
+// product takes 24), reduced once at the end.  Tiles of 2 and 4 columns a
+// thread, which read kl_k and lagk_k once a tile, ran slower on the H100:
+// their registers cost more warps than the L2 reads they save.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -31,6 +35,7 @@
 namespace {
 
 using janus::F128;
+using janus::Wide;
 
 constexpr int kThreads = 128;
 
@@ -45,16 +50,16 @@ wire_kernel(const uint32_t* __restrict__ m, const uint32_t* __restrict__ proof,
   if (b >= B) return;
   const size_t Bs = (size_t)B;
   const size_t el = 4 * Bs;  // words per element plane
-  F128 s1 = {0, 0}, s2 = {0, 0};
+  Wide s1 = {}, s2 = {};
   for (int k = 0; k < calls; ++k) {
     const int e = k * chunk + u;
     if (e >= meas_len) break;
     const F128 x = janus::f128_load(m + (size_t)e * el + b, Bs);
-    s1 = janus::f128_add(s1, janus::f128_mont_mul(x, janus::f128_load(kl + (size_t)k * el + b, Bs)));
-    s2 = janus::f128_add(s2, janus::f128_mont_mul(x, janus::f128_load(lagk + (size_t)k * el + b, Bs)));
+    janus::wide_mac(s1, x, janus::f128_load(kl + (size_t)k * el + b, Bs));
+    janus::wide_mac(s2, x, janus::f128_load(lagk + (size_t)k * el + b, Bs));
   }
-  const F128 evens = janus::f128_mont_mul(s1, janus::f128_load(rch + (size_t)u * el + b, Bs));
-  const F128 odds = janus::f128_sub(s2, janus::f128_load(ccorr + b, Bs));
+  const F128 evens = janus::f128_mont_mul(janus::wide_reduce(s1), janus::f128_load(rch + (size_t)u * el + b, Bs));
+  const F128 odds = janus::f128_sub(janus::wide_reduce(s2), janus::f128_load(ccorr + b, Bs));
   const F128 l0 = janus::f128_load(lag0 + b, Bs);
   const F128 swe = janus::f128_load(proof + (size_t)(2 * u) * el + b, Bs);
   const F128 swo = janus::f128_load(proof + (size_t)(2 * u + 1) * el + b, Bs);

@@ -52,6 +52,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 32;
@@ -202,17 +204,9 @@ squeeze_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int 
   }
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using janus::cp_async4;
+using janus::cp_async_commit;
+using janus::cp_async_wait;
 
 // A thread's share of a tile copy: tile words i = lane + 32k, at row i / 6
 // and column i % 6 of the block's planes, worked out once per kernel.

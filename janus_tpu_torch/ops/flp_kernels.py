@@ -225,8 +225,6 @@ def sumvec_wires(
         return sumvec_wires_plain(f, meas_len, chunk, m, proof, jr, lagk, lag0, ccorr)
     if n != 4:
         raise NotImplementedError("the CUDA SumVec wire kernel serves Field128 only")
-    if chunk > 65535:
-        raise NotImplementedError("chunk exceeds the kernel's grid y dimension")
     ev = torch.empty((chunk, n, B), dtype=torch.int32, device=m.device)
     od = torch.empty_like(ev)
     err = _kernel("flp_sumvec", "janus_sumvec_wires", 8, 4)(

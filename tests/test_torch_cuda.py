@@ -77,7 +77,14 @@ def test_keccak_long_chain_matches_plain(card, kernel):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("meas_len,chunk,batch", [(10, 3, 5), (1024, 316, 300)])
+# K3 and K5 at the edges of their layouts (K3: a column a thread; K5: 5
+# columns a thread, 64 tiles a block, the calls split over a cluster of
+# blocks where the batch is small): chunk below, at and one past K5's tile,
+# chunk 1, chunk 316 with a last call of 144 columns (meas_len 100000) or
+# 76 (1024), chunk 400 over two blocks of tiles, ragged batches.
+@pytest.mark.parametrize("meas_len,chunk,batch", [
+    (10, 3, 5), (1024, 316, 300), (14, 4, 33), (17, 5, 130), (6, 1, 33), (1024, 316, 1), (100000, 316, 33),
+])
 def test_wire_kernel_matches_plain(card, meas_len, chunk, batch):
     rng = np.random.default_rng(chunk)
     f = TField(Field128)
@@ -89,13 +96,18 @@ def test_wire_kernel_matches_plain(card, meas_len, chunk, batch):
 
     args = (planes(meas_len * 4, batch), planes(plen * 4, batch), planes(chunk, 4, batch),
             planes(calls, 4, batch), planes(calls, 4, batch), planes(4, batch), planes(4, batch))
+    before = flp_kernels.wire_evals.launches
     ev, od = flp_kernels.wire_evals(f, meas_len, chunk, *(a.to(card) for a in args))
     torch.cuda.synchronize()
+    assert flp_kernels.wire_evals.launches == before + 1
     pev, pod = flp_kernels.wire_evals_plain(f, meas_len, chunk, *args)
     assert torch.equal(ev.cpu(), pev) and torch.equal(od.cpu(), pod)
 
 
-@pytest.mark.parametrize("meas_len,chunk,batch", [(10, 3, 5), (100000, 316, 130)])
+@pytest.mark.parametrize("meas_len,chunk,batch", [
+    (10, 3, 5), (100000, 316, 130), (20, 4, 33), (30, 5, 1), (33, 6, 130), (7, 1, 33), (100000, 316, 1),
+    (2000, 400, 33),
+])
 def test_sumvec_kernel_matches_plain(card, meas_len, chunk, batch):
     rng = np.random.default_rng(meas_len)
     f = TField(Field128)
