@@ -16,9 +16,9 @@ Drives the port's paths once each, over Field128 with TurboSHAKE128,
    valid rows, every tampered row is rejected and 16 sampled rows equal the
    oracle's ``prep_init`` byte for byte;
 3. **Histogram planar combine**: helper ``prep_init_planar(keep_planar=True)``
-   and ``prep_shares_to_prep_planar`` against the leader's verifiers on the
-   same staged batch; decide and the prep-message seed equal the served
-   combine for all 4096 rows;
+   and ``prep_shares_to_prep_planar`` against the leader's verifier rows as
+   they arrive (K4 reads them in place) on the same staged batch; decide and
+   the prep-message seed equal the served combine for all 4096 rows;
 4. **SumVec100k through the backend**, Prio3SumVec(length=100000, bits=1,
    chunk_length=316) at B = 128: 2 distinct reports tiled to 120 rows plus 8
    tampered rows; the aggregate is the exact sum of the valid vectors, the
@@ -34,7 +34,9 @@ Drives the port's paths once each, over Field128 with TurboSHAKE128,
    is the largest of its bytes at the HBM rate and its integer work at the
    card's multiply, ALU and dispatch rates (``bound``), and K1/K2's also takes
    in their chain bound (``keccak_bound``); K5 also timed and checked at the
-   served batch, B = 128.
+   served batch, B = 128, and K4 at B = 128 and 33; K3 and K4 also with the
+   profiler's kernel time and the wrapper's host time a call, and K4 beside
+   the transpose of the peer's rows into planes that it no longer needs.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -67,6 +69,10 @@ SAMPLED = 16
 #: Prio3SumVec(100000, 1, 316): BASELINE.json configs[3], the wide-vector FLP.
 SV_LENGTH, SV_CHUNK = 100000, 316
 SV_DISTINCT, SV_TAMPERED, SV_BATCH, SV_TILE = 2, 8, 128, 8
+#: Batches besides the path's at which K4 is also checked and timed: 128
+#: fills 4 blocks; 33 is not a multiple of 4 (word-at-a-time loads) and
+#: leaves a ragged block.
+COMBINE_BATCHES = (128, 33)
 #: Columns of K1/K2 at the SumVec shape held against the plain version on the host.
 HOST_CHECK_COLUMNS = 8
 #: Where the paths run (the card; a CPU rehearsal of the script sets "cpu").
@@ -126,6 +132,22 @@ KECCAK_ROUND_DEPTH = 5
 ALU_DEPENDENT_CYCLES = 4
 
 KERNEL_NAMES = ("keccak_squeeze", "keccak_absorb", "flp_wire_evals", "flp_combine_decide", "flp_sumvec_wires")
+#: Each launch counter's kernel, as torch.profiler names its device events.
+DEVICE_KERNELS = dict(zip(KERNEL_NAMES, ("squeeze_kernel", "absorb_kernel", "wire_kernel", "combine_kernel", "sumvec_kernel")))
+#: Small kernels a trace runs before the calls it measures: late in a long
+#: process torch.profiler can miss the first few device activities of a
+#: trace (PERF.md, section 5), so these stand first and are not counted.
+PROFILE_PRIMER = 8
+#: Seconds of quiet between the primer and the measured calls, which tell
+#: their events apart, and the traces taken before a profile that keeps
+#: losing kernel events fails.
+PROFILE_MARGIN_S = 0.05
+PROFILE_ATTEMPTS = 3
+#: The profiler range around the measured calls.
+MEASURED = "chip_smoke.measured"
+#: Traces taken, primer events missing from them, and traces that lost
+#: events of the port's kernels (logged at the end of the run).
+TRACE_TALLY = {"traces": 0, "primer_events_missing": 0, "lost": 0}
 
 
 def log(msg: str) -> None:
@@ -148,6 +170,74 @@ def cuda_time_ms(fn, reps: int, rounds: int = 3) -> float:
         torch.cuda.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
+
+
+def traced(fn, reps: int = 1):
+    """Device events of ``reps`` calls of ``fn`` under torch.profiler after
+    a warm-up call: ([(name, microseconds)], wall seconds of the calls).
+
+    The primer's events are left out.  Each port kernel's events must
+    number its launches in the trace; a trace that lost some is logged and
+    taken again, and after PROFILE_ATTEMPTS such traces the run fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fns = counters()
+    primer = torch.zeros(1, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        for w in fns.values():
+            w.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PRIMER):
+                primer.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+            with record_function(MEASURED):
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        traced_events = prof.events()
+        start = min(e.time_range.start for e in traced_events if e.name == MEASURED)
+        # The range also leaves a device annotation event, which is no
+        # device work; half the quiet margin absorbs any skew of device
+        # timestamps.
+        device = [e for e in traced_events if e.device_type == DeviceType.CUDA and e.name != MEASURED]
+        events = [(e.name, e.time_range.elapsed_us()) for e in device if e.time_range.start >= start - PROFILE_MARGIN_S * 5e5]
+        launched = {k: w.launches for k, w in fns.items()}
+        seen = {k: sum(DEVICE_KERNELS[k] in name for name, _ in events) for k in fns}
+        TRACE_TALLY["traces"] += 1
+        TRACE_TALLY["primer_events_missing"] += PROFILE_PRIMER - (len(device) - len(events))
+        if seen == launched:
+            return events, wall
+        TRACE_TALLY["lost"] += 1
+        log(f"profiler: trace {attempt} holds {json.dumps(seen)} events of the port's kernels "
+            f"for launches {json.dumps(launched)}")
+    raise AssertionError(f"profiler: {PROFILE_ATTEMPTS} traces each lost events of the port's kernels")
+
+
+def profiled_kernel_ms(fn, kernel: str, reps: int = 20) -> float:
+    """The kernel's own device time a call: the median duration of the
+    device events named ``kernel`` over ``reps`` traced calls of ``fn``."""
+    events, _ = traced(fn, reps)
+    return statistics.median(us for name, us in events if kernel in name) / 1e3
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """The host's own time a call of ``fn`` (microseconds): ``reps`` calls
+    enqueued back to back on the host clock, with no synchronisation among
+    them, so the card's time hides behind the host's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    per_call = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return per_call * 1e6
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -408,6 +498,8 @@ def kernel_checks(backend, helper_rows, launches):
         "replaces": "janus_tpu/ops/flp_pallas.py:68", "launches": launches["flp_wire_evals"],
         "max_abs_err": max(max_abs_err(ev, pev), max_abs_err(od, pod)),
         "ms": cuda_time_ms(lambda: flp_kernels.wire_evals(*args), 20),
+        "kernel_ms": profiled_kernel_ms(lambda: flp_kernels.wire_evals(*args), "wire_kernel"),
+        "host_us": host_us(lambda: flp_kernels.wire_evals(*args)),
         "plain_ms": cuda_time_ms(lambda: flp_kernels.wire_evals_plain(*args), 1),
         **kb, "library_ms": None, "tolerance": TOLERANCE,
         "shape": f"m ({flp.MEAS_LEN * n}, {B}), chunk {circ.chunk}, calls {circ.calls}",
@@ -417,27 +509,51 @@ def kernel_checks(backend, helper_rows, launches):
 
 def combine_check(bp, own, peer_verifiers, launches):
     """K4 on the histogram path's real wires (chunk 316, B 4096) and the
-    leader's verifier planes, against its plain version."""
-    from janus_tpu_torch.ops import flp_kernels
+    leader's verifier rows as they arrive, against its plain version, and
+    again on the first 128 and 33 reports.  Beside it, the time of the pass
+    that put the peer's rows into planes before the kernel read them in
+    place (plain PyTorch, same rows)."""
     from janus_tpu_torch.ops.field import storage
 
     f, chunk = bp.f, bp.circ.chunk
     he, ho = own["wire_ev_pl"], own["wire_od_pl"]
-    pv = storage(peer_verifiers.permute(1, 2, 0)).contiguous()
-    B = he.shape[-1]
-    got = flp_kernels.combine_decide(f, chunk, he, ho, pv)
-    want = flp_kernels.combine_decide_plain(f, chunk, he, ho, pv)
-    # he, ho and the peer's 2*chunk wires read once, g written once; per
-    # column 3 additions and 1 product, and chunk - 1 additions to fold.
-    kb = bound(4 * f.n * B * (4 * chunk + 1), ops((B * chunk, MONT_MUL), (B * (4 * chunk - 1), FIELD_ADD)))
-    return {
+    entry = {
         "name": "flp_combine_decide", "route": "cuda", "source": "janus_tpu_torch/csrc/flp_combine.cu",
         "replaces": "janus_tpu/ops/flp_pallas.py:262", "launches": launches["flp_combine_decide"],
+        **combine_measure(f, chunk, he, ho, peer_verifiers),
+        "removed_transpose_ms": cuda_time_ms(lambda: storage(peer_verifiers.permute(1, 2, 0)).contiguous(), 20),
+        "library_ms": None, "tolerance": TOLERANCE,
+    }
+    entry["at_batches"] = {
+        str(b): combine_measure(f, chunk, he[..., :b].contiguous(), ho[..., :b].contiguous(), peer_verifiers[:b])
+        for b in COMBINE_BATCHES
+    }
+    entry["max_abs_err"] = max([entry["max_abs_err"]] + [v["max_abs_err"] for v in entry["at_batches"].values()])
+    return entry
+
+
+def combine_measure(f, chunk, he, ho, pv) -> dict:
+    """K4 on these wires and peer rows against its plain version: the error,
+    the times (events, the profiler's kernel time, the wrapper's host time)
+    and the bound."""
+    from janus_tpu_torch.ops import flp_kernels
+
+    n, B = f.n, he.shape[-1]
+    got = flp_kernels.combine_decide(f, chunk, he, ho, pv)
+    want = flp_kernels.combine_decide_plain(f, chunk, he, ho, pv)
+    # he and ho as int32 and the peer's 2*chunk wires as the int64 words
+    # the kernel reads, each once, and g written once; per column 3
+    # additions and 1 product, and chunk - 1 additions to fold.
+    moved = 2 * 4 * n * B * chunk + 8 * n * B * 2 * chunk + 4 * n * B
+    kb = bound(moved, ops((B * chunk, MONT_MUL), (B * (4 * chunk - 1), FIELD_ADD)))
+    call = lambda: flp_kernels.combine_decide(f, chunk, he, ho, pv)  # noqa: E731
+    return {
         "max_abs_err": max_abs_err(got, want),
-        "ms": cuda_time_ms(lambda: flp_kernels.combine_decide(f, chunk, he, ho, pv), 20),
+        "ms": cuda_time_ms(call, 20),
+        "kernel_ms": profiled_kernel_ms(call, "combine_kernel"),
+        "host_us": host_us(call),
         "plain_ms": cuda_time_ms(lambda: flp_kernels.combine_decide_plain(f, chunk, he, ho, pv), 1),
-        **kb, "library_ms": None, "tolerance": TOLERANCE,
-        "shape": f"he/ho ({chunk}, {f.n}, {B}), peer verifier {tuple(pv.shape)} -> g ({f.n}, {B})",
+        **kb, "shape": f"he/ho ({chunk}, {n}, {B}) int32, peer rows {tuple(pv.shape)} int64 -> g ({n}, {B})",
     }
 
 
@@ -558,38 +674,19 @@ def seeded_field(B, n, dev, seed):
 
 
 def profile_device(fn) -> dict:
-    """One call of ``fn`` under torch.profiler: wall time, device time of
-    the port's kernels and of every other device activity, and the number
-    of device activities (kernels, copies, fills)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ours = ("squeeze_kernel", "absorb_kernel", "wire_kernel", "sumvec_kernel", "combine_kernel")
-    port_us = other_us = 0.0
-    count = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        count += 1
-        if any(k in e.name for k in ours):
-            port_us += us
-        else:
-            other_us += us
-    if count == 0:
+    """One traced call of ``fn``: wall time, device time of the port's
+    kernels and of every other device activity, and the number of device
+    activities (kernels, copies, fills)."""
+    events, wall = traced(fn)
+    if not events:
         return {"wall_ms": wall * 1e3, "device": "not measured (the profiler saw no device activity)"}
+    port_us = sum(us for name, us in events if any(k in name for k in DEVICE_KERNELS.values()))
+    other_us = sum(us for _, us in events) - port_us
     return {
         "wall_ms": wall * 1e3,
         "port_kernels_ms": port_us / 1e3,
         "other_device_ms": other_us / 1e3,
-        "device_activities": count,
+        "device_activities": len(events),
         "device_idle_share": max(0.0, 1.0 - (port_us + other_us) / 1e3 / (wall * 1e3)),
     }
 
@@ -843,7 +940,7 @@ def main() -> int:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     phases["total"] = time.perf_counter() - start
 
-    log(json.dumps({"phases_s": phases}))
+    log(json.dumps({"phases_s": phases, "profiler_traces": TRACE_TALLY}))
     log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")

@@ -2,9 +2,10 @@
 and the planar combine-decide (K4).
 
 Counterparts of ``janus_tpu/ops/flp_pallas.py``.  Inputs are word-major
-planes in int32 storage: m and the proof are the raw share streams (element
-e, limb l at word e*n + l); coefficient planes are (elems, n, B); outputs
-are (elems, n, B) canonical with no pad columns past chunk.
+planes in int32 storage (all but K4's peer verifier, below): m and the
+proof are the raw share streams (element e, limb l at word e*n + l);
+coefficient planes are (elems, n, B); outputs are (elems, n, B) canonical
+with no pad columns past chunk.
 
 K3, ``wire_evals`` (Pallas ``_wire_kernel``), for every chunk column u:
 
@@ -29,8 +30,9 @@ ParallelSum(Mul) gadget over the combined wires,
 
     g = sum_u mont_mul(he[u] + pe[u], ho[u] + po[u])
 
-with he/ho our (chunk, n, B) wire planes and pe/po the peer's zipped wires
-at verifier rows 1 + 2u and 2 + 2u of its (VER, n, B) planes -> g (n, B).
+with he/ho our (chunk, n, B) wire planes and pe/po the peer's zipped wires,
+elements 1 + 2u and 2 + 2u of its verifier rows (B, VER, n) of int64 words,
+read as they arrive -> g (n, B).
 
 Each wrapper launches its ``csrc/`` kernel for tensors on the card (or
 raises) and takes its ``*_plain`` version only for tensors on the CPU;
@@ -244,11 +246,9 @@ def combine_decide_plain(
     f: TField, chunk: int, he: torch.Tensor, ho: torch.Tensor, pv: torch.Tensor
 ) -> torch.Tensor:
     """Plain version of K4 (same inputs and output as ``combine_decide``)."""
-    n = f.n
-    B = he.shape[-1]
-    pv_el = words(pv).reshape(-1, n, B)
-    xe = f.add_limbs(limb_list(words(he)), limb_list(pv_el[1 : 1 + 2 * chunk : 2]))
-    xo = f.add_limbs(limb_list(words(ho)), limb_list(pv_el[2 : 2 + 2 * chunk : 2]))
+    wires = words(pv[:, 1 : 1 + 2 * chunk]).permute(1, 2, 0)  # (2*chunk, n, B)
+    xe = f.add_limbs(limb_list(words(he)), limb_list(wires[0::2]))
+    xo = f.add_limbs(limb_list(words(ho)), limb_list(wires[1::2]))
     g = f.sum(torch.stack(f.mont_mul_limbs(xe, xo), dim=-1), axis=0)  # (B, n)
     return storage(g.transpose(0, 1)).contiguous()
 
@@ -256,23 +256,26 @@ def combine_decide_plain(
 def combine_decide(
     f: TField, chunk: int, he: torch.Tensor, ho: torch.Tensor, pv: torch.Tensor
 ) -> torch.Tensor:
-    """K4 wrapper: our wire planes he/ho (chunk, n, B) and the peer's
-    verifier planes pv (VER, n, B), all int32 canonical -> g (n, B) int32
-    canonical, scaled by R^-1."""
+    """K4 wrapper: our wire planes he/ho (chunk, n, B) int32 canonical and
+    the peer's verifier pv as it arrives, rows (B, 2*chunk + 2, n) of int64
+    canonical words (read in place: the low 32 bits of each) -> g (n, B)
+    int32 canonical, scaled by R^-1."""
     n = f.n
     B = he.shape[-1]
-    _check_planes("combine_decide", B, he, ho, pv)
+    _check_planes("combine_decide", B, he, ho)
     if he.shape != (chunk, n, B) or ho.shape != he.shape:
         raise ValueError("combine_decide: he and ho must both be (chunk, n, B)")
-    if pv.numel() % (n * B) or pv.numel() // (n * B) < 1 + 2 * chunk:
-        raise ValueError("combine_decide: the peer verifier must be (VER, n, B) with VER >= 1 + 2*chunk")
+    if pv.dtype != torch.int64 or not pv.is_contiguous() or pv.shape != (B, 2 * chunk + 2, n):
+        raise ValueError("combine_decide: the peer verifier must be contiguous int64 rows (B, 2*chunk + 2, n)")
+    if pv.device != he.device:
+        raise ValueError("combine_decide: every tensor must lie on the same device")
     if he.device.type == "cpu":
         return combine_decide_plain(f, chunk, he, ho, pv)
     if n != 4:
         raise NotImplementedError("the CUDA combine kernel serves Field128 only")
     g = torch.empty((n, B), dtype=torch.int32, device=he.device)
-    err = _kernel("flp_combine", "janus_combine_decide", 4, 2)(
-        he.data_ptr(), ho.data_ptr(), pv.data_ptr(), g.data_ptr(), B, chunk, _stream(he),
+    err = _kernel("flp_combine", "janus_combine_decide", 4, 3)(
+        he.data_ptr(), ho.data_ptr(), pv.data_ptr(), g.data_ptr(), B, chunk, pv.shape[1], _stream(he),
     )
     _build.check(err, "janus_combine_decide")
     combine_decide.launches += 1

@@ -579,13 +579,12 @@ class BatchedPrio3:
 
         ``own`` is a ``prep_init_planar(keep_planar=True)`` result;
         ``peer_verifiers`` is the other aggregator's share, (B, VERIFIER_LEN,
-        n) int64 canonical as it arrives.  One transpose puts the peer's
-        verifier in planes, and the K4 kernel sums the gadget over the
-        combined wires; only v, gpoly(t) and the folded sum touch rows.
+        n) int64 canonical as it arrives, contiguous.  The K4 kernel reads
+        the peer's wires from those rows in place and sums the gadget over
+        the combined wires; only v, gpoly(t) and the folded sum touch rows.
         ``decide`` and ``prep_msg_seed`` equal ``prep_shares_to_prep``'s."""
         f, circ = self.f, self.circ
-        pv = storage(peer_verifiers.permute(1, 2, 0)).contiguous()  # (VER, n, B)
-        g = words(combine_decide(f, circ.chunk, own["wire_ev_pl"], own["wire_od_pl"], pv)).transpose(0, 1)
+        g = words(combine_decide(f, circ.chunk, own["wire_ev_pl"], own["wire_od_pl"], peer_verifiers)).transpose(0, 1)
         v = f.add(own["v_row"], peer_verifiers[:, 0])
         y = f.add(own["gpt_row"], peer_verifiers[:, 1 + circ.arity])
         # g is (a*b)*R^-1-scaled; against y*R^-1 the predicate is g == y.

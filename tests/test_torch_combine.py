@@ -29,34 +29,43 @@ def _planes(rng, L, B):
     return x
 
 
+def _rows(rng, B, L):
+    """A peer verifier as it arrives: canonical limbs as int64 rows (B, L, n)."""
+    return torch.from_numpy(_planes(rng, L, B).transpose(2, 0, 1).astype(np.int64)).contiguous()
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
 
 
-def test_combine_plain_matches_pallas_interpret():
-    rng = np.random.default_rng(5)
+@pytest.mark.parametrize("chunk", [1, 3, 17])
+def test_combine_plain_matches_pallas_interpret(chunk):
+    rng = np.random.default_rng(5 + chunk)
     f = TField(Field128)
-    chunk, B = 3, 128
+    B = 128  # one lane tile, as the Pallas kernel needs
     cp = int(np.prod(_grid_chunk(chunk)))
-    he, ho, pv = _planes(rng, chunk, B), _planes(rng, chunk, B), _planes(rng, 2 * chunk + 2, B)
+    he, ho, pv = _planes(rng, chunk, B), _planes(rng, chunk, B), _rows(rng, B, 2 * chunk + 2)
     jhe, jho = (state.to_jax_planar(np.concatenate([x, np.zeros((cp - chunk, N, B), np.uint32)])) for x in (he, ho))
-    parts = combine_decide_planar(JField(Field128), chunk, jhe, jho, state.to_jax_planar(pv), interpret=True)
+    # Only the JAX side puts the peer's rows in planes.
+    jpv = state.to_jax_planar(np.ascontiguousarray(pv.numpy().astype(np.uint32).transpose(1, 2, 0)))
+    parts = combine_decide_planar(JField(Field128), chunk, jhe, jho, jpv, interpret=True)
     # Fold the (R, n, 8*NJ, 128) sublane partials into one sum per report.
     want = np.asarray(JField(Field128).sum(np.asarray(parts).transpose(0, 3, 2, 1).reshape(B, -1, N), axis=1))
-    g = flp_kernels.combine_decide(f, chunk, _t(he), _t(ho), _t(pv))
+    g = flp_kernels.combine_decide(f, chunk, _t(he), _t(ho), pv)
     assert g.shape == (N, B)
     np.testing.assert_array_equal(g.numpy().view(np.uint32).T, want)
 
 
+@pytest.mark.parametrize("B", [5, 37])
 @pytest.mark.parametrize("chunk", [1, 5, 20])
-def test_combine_plain_matches_field_formula(chunk):
-    rng = np.random.default_rng(chunk)
+def test_combine_plain_matches_field_formula(chunk, B):
+    rng = np.random.default_rng([chunk, B])
     f = TField(Field128)
-    B = 4
-    he, ho, pv = _planes(rng, chunk, B), _planes(rng, chunk, B), _planes(rng, 2 * chunk + 2, B)
-    g = flp_kernels.combine_decide(f, chunk, _t(he), _t(ho), _t(pv))
+    he, ho, pv = _planes(rng, chunk, B), _planes(rng, chunk, B), _rows(rng, B, 2 * chunk + 2)
+    g = flp_kernels.combine_decide(f, chunk, _t(he), _t(ho), pv)
     ints = lambda x: np.array(f.from_limbs(x.transpose(0, 2, 1)), dtype=object).reshape(x.shape[0], B)  # noqa: E731
-    he_i, ho_i, pv_i = ints(he), ints(ho), ints(pv)
+    he_i, ho_i = ints(he), ints(ho)
+    pv_i = ints(pv.numpy().astype(np.uint32).transpose(1, 2, 0))
     for b in range(B):
         want = sum((he_i[u, b] + pv_i[1 + 2 * u, b]) * (ho_i[u, b] + pv_i[2 + 2 * u, b]) for u in range(chunk)) * R_INV % P
         assert f.from_limbs(g[:, b].numpy().view(np.uint32))[0] == want, b
@@ -65,13 +74,24 @@ def test_combine_plain_matches_field_formula(chunk):
 def test_combine_wrapper_rejects_bad_inputs_and_never_falls_back(monkeypatch):
     f = TField(Field128)
     z = lambda *s, device="cpu": torch.zeros(s, dtype=torch.int32, device=device)  # noqa: E731
-    flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), z(8, N, 5))
+    rows = lambda *s, device="cpu": torch.zeros(s, dtype=torch.int64, device=device)  # noqa: E731
+    flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), rows(5, 8, N))
     with pytest.raises(ValueError):  # ho of the wrong width
-        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(4, N, 5), z(8, N, 5))
+        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(4, N, 5), rows(5, 8, N))
+    with pytest.raises(ValueError):  # int64 storage of our wires
+        flp_kernels.combine_decide(f, 3, z(3, N, 5).long(), z(3, N, 5), rows(5, 8, N))
     with pytest.raises(ValueError):  # peer verifier too short for chunk 3
-        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), z(6, N, 5))
-    with pytest.raises(ValueError):  # int64 storage
-        flp_kernels.combine_decide(f, 3, z(3, N, 5).long(), z(3, N, 5), z(8, N, 5))
+        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), rows(5, 6, N))
+    with pytest.raises(ValueError):  # peer verifier longer than chunk 3's
+        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), rows(5, 9, N))
+    with pytest.raises(ValueError):  # peer verifier narrowed to int32 words
+        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), z(5, 8, N))
+    with pytest.raises(ValueError):  # peer verifier in planes, not rows
+        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), rows(8, N, 5))
+    with pytest.raises(ValueError):  # peer verifier rows that are not contiguous
+        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), rows(8, 5, N).transpose(0, 1))
+    with pytest.raises(ValueError):  # peer rows for another batch
+        flp_kernels.combine_decide(f, 3, z(3, N, 5), z(3, N, 5), rows(6, 8, N))
 
     def no_library(name):
         raise _build.BuildError(f"no library for {name}")
@@ -81,8 +101,12 @@ def test_combine_wrapper_rejects_bad_inputs_and_never_falls_back(monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_library)
     monkeypatch.setattr(flp_kernels, "combine_decide_plain", no_plain)
+    with pytest.raises(ValueError):  # our wires and the peer's rows on different devices
+        flp_kernels.combine_decide(f, 3, z(3, N, 5, device="meta"), z(3, N, 5, device="meta"), rows(5, 8, N))
     with pytest.raises(_build.BuildError):
-        flp_kernels.combine_decide(f, 3, z(3, N, 5, device="meta"), z(3, N, 5, device="meta"), z(8, N, 5, device="meta"))
+        flp_kernels.combine_decide(
+            f, 3, z(3, N, 5, device="meta"), z(3, N, 5, device="meta"), rows(5, 8, N, device="meta")
+        )
 
 
 def _sharded(jvdaf, count, seed, vector):

@@ -128,17 +128,34 @@ def test_sumvec_kernel_matches_plain(card, meas_len, chunk, batch):
     assert torch.equal(ev, pev) and torch.equal(od, pod)
 
 
-@pytest.mark.parametrize("chunk,batch", [(3, 5), (316, 4100)])
-def test_combine_kernel_matches_plain(card, chunk, batch):
-    rng = np.random.default_rng(chunk)
+# K4 at the edges of its layout: a lane a report, 32 reports a block, our
+# wires read 16 bytes at a time and shared within a group of 4 lanes.
+# B = 1, 5 and 33 are not multiples of 4 and take the word-at-a-time loads;
+# 33 and 4100 leave a ragged block (4100 in the 16-byte path); chunk 316
+# fills the 32 column slices of a block nearly ten times; the misaligned
+# case covers peer rows that are not 16-byte aligned.
+@pytest.mark.parametrize(
+    "chunk,batch,misaligned",
+    [(3, 1, False), (3, 5, False), (17, 33, False), (17, 128, False), (316, 128, False),
+     (316, 4096, False), (316, 4100, False), (316, 4096, True)],
+)
+def test_combine_kernel_matches_plain(card, chunk, batch, misaligned):
+    rng = np.random.default_rng([chunk, batch])
     f = TField(Field128)
 
-    def planes(*shape):
+    def canonical(*shape):
         w = _words(rng, shape)
-        w[:, -1] >>= 1  # canonical wires
-        return storage(w).contiguous().to(card)
+        w[..., -1, :] >>= 1  # canonical wires
+        return w
 
-    he, ho, pv = planes(chunk, 4, batch), planes(chunk, 4, batch), planes(2 * chunk + 2, 4, batch)
+    he, ho = (storage(canonical(chunk, 4, batch)).contiguous().to(card) for _ in range(2))
+    pv = canonical(batch, 4, 2 * chunk + 2).transpose(1, 2).contiguous()  # rows (B, VER, 4)
+    if misaligned:
+        flat = torch.zeros(pv.numel() + 1, dtype=torch.int64, device=card)
+        flat[1:] = pv.reshape(-1).to(card)
+        pv = flat[1:].view(pv.shape)
+        assert pv.data_ptr() % 16 == 8
+    pv = pv.to(card)
     before = flp_kernels.combine_decide.launches
     g = flp_kernels.combine_decide(f, chunk, he, ho, pv)
     torch.cuda.synchronize()
@@ -169,7 +186,7 @@ def test_wrappers_raise_for_card_tensors_without_the_library(card, monkeypatch):
     with pytest.raises(_build.BuildError):
         keccak_kernels.absorb(z(84, 5), 4)
     with pytest.raises(_build.BuildError):
-        flp_kernels.combine_decide(f, 3, z(3, 4, 5), z(3, 4, 5), z(8, 4, 5))
+        flp_kernels.combine_decide(f, 3, z(3, 4, 5), z(3, 4, 5), z(5, 8, 4).long())
     with pytest.raises(_build.BuildError):
         flp_kernels.sumvec_wires(f, 10, 3, z(40, 5), z(24, 5), z(4, 4, 5), z(4, 4, 5), z(4, 5), z(4, 5))
 
