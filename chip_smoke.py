@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's paths once each, over Field128 with TurboSHAKE128,
-2 shares and 1 proof, and checks them:
+Drives the port's paths once each, over TurboSHAKE128 with 2 shares and
+1 proof (Field128, and Field64 for Count), and checks them:
 
 1. builds the CUDA kernels from ``janus_tpu_torch/csrc`` (one nvcc per
    source, all at once) and shards 64 distinct histogram reports from
@@ -36,7 +36,24 @@ Drives the port's paths once each, over Field128 with TurboSHAKE128,
    in their chain bound (``keccak_bound``); K5 also timed and checked at the
    served batch, B = 128, and K4 at B = 128 and 33; K3 and K4 also with the
    profiler's kernel time and the wrapper's host time a call, and K4 beside
-   the transpose of the peer's rows into planes that it no longer needs.
+   the transpose of the peer's rows into planes that it no longer needs;
+7. **Histogram row path at full width**: ``BatchedPrio3.prep_init`` on
+   phase 2's staged B = 4096 inputs, both sides; every output equals
+   ``prep_init_planar``'s, and both paths' device times are taken;
+8. **Count served**, Prio3Count (Field64) at 10,000 reports in one flush
+   (padded to 16,384) on the row path: 64 distinct reports tiled to 9,936
+   rows plus 64 tampered; checks as in phase 2; K1 at the flush's
+   proof-share squeeze against its plain version;
+9. **Sum served**, Prio3Sum(bits=32) at 100,000 reports in one flush
+   (padded to 131,072) on the row path, built and checked the same way;
+   then the first 4,096 of them as their own flush, whose every row equals
+   the large flush's; K1 and K2 at the large flush's shapes against their
+   plain versions;
+10. **SumVec with bits > 1**, Prio3SumVec(1000, 8, 89) at 64 reports (one
+    tampered) through the backend's row path, sharded by worker processes
+    during the build; the aggregate is exact and sampled rows equal the
+    oracle; K1 at its measurement-share squeeze (762 blocks a report) and
+    K2 at its joint-rand-part absorb against their plain versions.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -75,6 +92,21 @@ SV_DISTINCT, SV_TAMPERED, SV_BATCH, SV_TILE = 2, 8, 128, 8
 COMBINE_BATCHES = (128, 33)
 #: Columns of K1/K2 at the SumVec shape held against the plain version on the host.
 HOST_CHECK_COLUMNS = 8
+#: Prio3Count, BASELINE.json configs[0] ("10k reports, single aggregation
+#: job"): one flush, padded to 16,384, on the row path.
+COUNT_REPORTS = 10000
+#: Prio3Sum(bits=32), BASELINE.json configs[1] ("100k reports"): one flush,
+#: padded to 131,072, on the row path; its first SUM_SMALL_FLUSH reports
+#: also run as their own flush.
+SUM_BITS, SUM_REPORTS, SUM_SMALL_FLUSH = 32, 100000, 4096
+#: The Sum row path timed at the large flush's padded size, the staged
+#: small flush tiled on the card.
+SUM_TILE = 32
+#: Prio3SumVec with bits > 1 at a test size (a routing check, not a
+#: published width): (length, bits, chunk_length), reports, worker processes
+#: that shard them.
+SV8 = (1000, 8, 89)
+SV8_REPORTS, SV8_WORKERS, SV8_SAMPLED = 64, 2, 4
 #: Where the paths run (the card; a CPU rehearsal of the script sets "cpu").
 DEVICE = "cuda"
 #: Largest |kernel - plain| allowed over u32 words: the arithmetic is exact
@@ -148,6 +180,10 @@ MEASURED = "chip_smoke.measured"
 #: Traces taken, primer events missing from them, and traces that lost
 #: events of the port's kernels (logged at the end of the run).
 TRACE_TALLY = {"traces": 0, "primer_events_missing": 0, "lost": 0}
+#: Each counted path's kernel launches, by path.
+PATH_LAUNCHES = {}
+#: The FLP kernels (Field128 only): no Count, Sum or row-path run reaches them.
+FLP_KERNELS = KERNEL_NAMES[2:]
 
 
 def log(msg: str) -> None:
@@ -312,16 +348,34 @@ def counted(path: str, needs, fn):
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in fns.items()}
     log(f"{path} launches: {json.dumps(launches)}")
+    PATH_LAUNCHES[path] = launches
     missing = [k for k in needs if launches[k] == 0]
     if missing:
         raise AssertionError(f"{path}: kernels of the path never launched: {missing}")
     return result, launches
 
 
-def shard_reports(vdaf, rng):
+def no_flp_kernels(path: str, launches) -> None:
+    """Fail if a path that must not reach the FLP kernels launched one."""
+    reached = [k for k in FLP_KERNELS if launches[k]]
+    if reached:
+        raise AssertionError(f"{path}: launched {reached}, which this path must not reach")
+
+
+def require_route(backend, batch: int, route: str) -> None:
+    """Fail unless the backend's chooser sends a flush of ``batch`` reports
+    to ``route``."""
+    got = backend._prep_fn(0, backend._pad_to(batch)).__name__
+    if got != route:
+        raise AssertionError(f"a flush of {batch} reports takes {got}, not {route}")
+
+
+def shard_reports(vdaf, rng, measure, count=DISTINCT):
+    """``count`` distinct reports sharded by the oracle from ``rng``:
+    (reports, measurements)."""
     reports, meas = [], []
-    for _ in range(DISTINCT):
-        m = int(rng.integers(0, LENGTH))
+    for _ in range(count):
+        m = measure(rng)
         nonce = rng.integers(0, 256, vdaf.NONCE_SIZE, dtype=np.uint8).tobytes()
         rand = rng.integers(0, 256, vdaf.RAND_SIZE, dtype=np.uint8).tobytes()
         public, shares = vdaf.shard(m, nonce, rand)
@@ -351,6 +405,18 @@ def sumvec_oracle_job(seed: int, index: int, verify_key: bytes):
         state, pshare = vdaf.prep_init(verify_key, agg_id, nonce, public, shares[agg_id])
         oracle.append((pshare.encode(vdaf), state.out_share, state.corrected_joint_rand_seed))
     return meas, (nonce, public, shares), oracle, shard_s, time.perf_counter() - t0
+
+
+def sumvec_bits_shard_job(seed: int, worker: int, count: int):
+    """``count`` distinct Prio3SumVec(1000, 8, 89) reports sharded by the
+    port's oracle (run in a worker process): [(measurement, (nonce, public
+    share, input shares))]."""
+    from janus_tpu_torch.vdaf.instances import prio3_sum_vec
+
+    vdaf = prio3_sum_vec(*SV8)
+    rng = np.random.default_rng([seed, 100 + worker])
+    reports, meas = shard_reports(vdaf, rng, lambda r: [int(x) for x in r.integers(0, 1 << SV8[1], SV8[0])], count)
+    return list(zip(meas, reports))
 
 
 def build_batch(vdaf, reports, rng, batch, tampered):
@@ -421,11 +487,24 @@ def check_decisions(accepted, tampered) -> None:
         raise AssertionError("a valid row was rejected")
 
 
-def device_prep(bp, placed, agg_id, keep_planar=False):
-    """One batched prepare from staged tensors (no host marshal or readback)."""
+def device_prep(bp, placed, agg_id, route="prep_init_planar", **extra):
+    """One batched prepare (``route`` names the BatchedPrio3 method) from
+    staged tensors (no host marshal or readback)."""
     kw = dict(placed)
     vk = kw.pop("verify_key_u8")
-    return bp.prep_init_planar(agg_id, vk, kw.pop("nonces_u8"), keep_planar=keep_planar, **kw)
+    return getattr(bp, route)(agg_id, vk, kw.pop("nonces_u8"), **kw, **extra)
+
+
+def equal_outputs(what: str, got: dict, want: dict, rows=None) -> None:
+    """Every output tensor of two prepares equal (on their first ``rows``)."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} against {sorted(want)}")
+    for k in got:
+        a, b = got[k], want[k]
+        if rows is not None:
+            a, b = a[:rows], b[:rows]
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{what}: {k} differs")
 
 
 def kernel_checks(backend, helper_rows, launches):
@@ -691,10 +770,10 @@ def profile_device(fn) -> dict:
     }
 
 
-def oracle_sample(vdaf, verify_key, leader_rows, helper_rows, results, rng) -> None:
+def oracle_sample(vdaf, verify_key, leader_rows, helper_rows, results, rng, count=SAMPLED) -> None:
     """Sampled rows, both sides, against the oracle's prep_init, byte for byte."""
     lead, help_ = results
-    for b in rng.choice(len(leader_rows), SAMPLED, replace=False):
+    for b in rng.choice(len(leader_rows), count, replace=False):
         for agg_id, rows, got in ((0, leader_rows, lead), (1, helper_rows, help_)):
             nonce, public, share = rows[b]
             state, pshare = vdaf.prep_init(verify_key, agg_id, nonce, public, share)
@@ -777,6 +856,10 @@ def histogram_phases(vdaf, reports, meas, verify_key, rng, phases):
     phases["histogram_planar_combine"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    row_ms = histogram_row_phase(bp, staged)
+    phases["histogram_row_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     kernels = kernel_checks(backend, helper_rows, launches)
     kernels.append(combine_check(bp, own, lead["verifiers"], planar_launches))
     phases["histogram_kernel_checks"] = time.perf_counter() - t0
@@ -788,8 +871,200 @@ def histogram_phases(vdaf, reports, meas, verify_key, rng, phases):
         "device_prep_init_ms": {"leader": dev_ms[0], "helper": dev_ms[1]},
         "device_prep_init_profile": profile,
         "device_combine_ms": combine_ms,
+        "device_prep_init_row_path_ms": row_ms,
     }
     return kernels, record
+
+
+def histogram_row_phase(bp, staged) -> dict:
+    """Phase 7: the row path on phase 2's staged B = 4096 inputs, both
+    sides, against the planar path's every output; both paths' device ms."""
+    def row_path():
+        return {a: device_prep(bp, staged[a].placed, a, "prep_init") for a in (0, 1)}
+
+    row, launches = counted("histogram row path", KERNEL_NAMES[:2], row_path)
+    no_flp_kernels("histogram row path", launches)
+    for a in (0, 1):
+        equal_outputs(f"histogram row path, agg {a}", row[a], device_prep(bp, staged[a].placed, a))
+    del row
+    ms = {
+        route: {side: cuda_time_ms(lambda a=a, route=route: device_prep(bp, staged[a].placed, a, route), 2)
+                for side, a in (("leader", 0), ("helper", 1))}
+        for route in ("prep_init_planar", "prep_init")
+    }
+    log(f"histogram row path at B = {BATCH}: every output equals the planar path's on both sides; "
+        f"device ms {json.dumps(ms)}")
+    return ms
+
+
+def served_phase(name, vdaf, reports, meas, verify_key, rng, batch, tampered, route, needs, expect, sampled=SAMPLED):
+    """One served flush of ``batch`` rows built from ``reports`` (``tampered``
+    of them perturbed) through CudaBackend, both sides, combined and
+    aggregated: the route is the chooser's, the aggregate equals
+    ``expect(valid measurements)``, every tampered row is rejected and
+    ``sampled`` rows equal the oracle.  Returns (backend, (leader rows,
+    helper rows), results, record)."""
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+
+    leader_rows, helper_rows, bad, src = build_batch(vdaf, reports, rng, batch, tampered)
+    backend = CudaBackend(vdaf, device=DEVICE)
+    require_route(backend, batch, route)
+    t0 = time.perf_counter()
+    (aggs, accepted, results, _msgs, secs), launches = counted(
+        f"{name} served path", needs, lambda: run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows)
+    )
+    e2e = time.perf_counter() - t0
+    no_flp_kernels(name, launches)
+    if vdaf.unshard(aggs, int(accepted.sum())) != expect([meas[i] for i in src[~bad]]):
+        raise AssertionError(f"{name}: aggregate differs from the exact aggregate of the valid rows")
+    check_decisions(accepted, bad)
+    oracle_sample(vdaf, verify_key, leader_rows, helper_rows, results, rng, sampled)
+    log(f"{name}: {batch} reports through {route}; exact aggregate over {int(accepted.sum())} rows; "
+        f"{int(bad.sum())} tampered rows rejected; {sampled} sampled rows equal the oracle on both sides; "
+        f"oracle recomputed rows {backend.oracle_recompute_rows}")
+    record = {"reports": batch, "route": route, "seconds": e2e, "reports_per_s": batch / e2e, "phases_s": secs}
+    return backend, (leader_rows, helper_rows), results, record
+
+
+def staged_ms(bp, staged, route, reps) -> dict:
+    """Device ms of one prepare a side on staged tensors (CUDA events)."""
+    return {side: cuda_time_ms(lambda a=a: device_prep(bp, staged[a], a, route), reps)
+            for side, a in (("leader", 0), ("helper", 1))}
+
+
+def keccak_path_checks(bp, lead, helper, usage: int, elems: int, plain_rounds: int = 3) -> dict:
+    """K1 at a path's helper share squeeze (``elems`` field elements of the
+    stream ``usage`` names) and, where the circuit has joint randomness, K2
+    at its leader's joint-rand-part absorb of agg_id || nonce || enc(meas),
+    on the path's staged inputs, the whole batch, against their plain
+    versions on the card; timed, with their bounds.  Returns {kernel: entry}."""
+    from janus_tpu_torch.ops import keccak_kernels
+    from janus_tpu_torch.ops.field import words
+    from janus_tpu_torch.ops.keccak import words_to_bytes
+    from janus_tpu_torch.vdaf.prio3 import USAGE_JOINT_RAND_PART
+
+    B = helper["share_seeds_u8"].shape[0]
+    W = elems * bp.f.n
+    binder = torch.ones((B, 1), dtype=torch.uint8, device=DEVICE)
+    msg = keccak_kernels.padded_message_planes(helper["share_seeds_u8"], bp._dst(usage), binder)
+    nb = -(-W // 42)
+    checks = [("keccak_squeeze", keccak_kernels.squeeze, keccak_kernels.squeeze_plain, msg, W, nb,
+               f"in (42, {B}) -> out ({W}, {B}), {nb} blocks")]
+    if bp.flp.JOINT_RAND_LEN:
+        part_binder = torch.cat([torch.zeros((B, 1), dtype=torch.uint8, device=DEVICE), lead["nonces_u8"],
+                                 words_to_bytes(words(lead["meas_limbs"]).reshape(B, -1))], dim=-1)
+        jmsg = keccak_kernels.padded_message_planes(lead["blinds_u8"], bp._dst(USAGE_JOINT_RAND_PART), part_binder)
+        na = jmsg.shape[0] // 42
+        checks.append(("keccak_absorb", keccak_kernels.absorb, keccak_kernels.absorb_plain, jmsg, 4, na,
+                       f"in ({jmsg.shape[0]}, {B}) -> out (4, {B}), {na} blocks"))
+    shapes = {}
+    for name, fn, plain, inp, out_words, perms, shape in checks:
+        got = fn(inp, out_words)
+        shapes[name] = {
+            "max_abs_err": max_abs_err(got, plain(inp, out_words)),
+            "ms": cuda_time_ms(lambda fn=fn, inp=inp, w=out_words: fn(inp, w), 10),
+            "plain_ms": cuda_time_ms(lambda plain=plain, inp=inp, w=out_words: plain(inp, w), 1, rounds=plain_rounds),
+            **keccak_bound(inp.numel() * 4 + got.numel() * 4, perms, B), "shape": shape,
+        }
+    return shapes
+
+
+def count_phase(verify_key, rng, phases):
+    """Phase 8: Prio3Count at 10,000 reports, one flush (row path); K1 at
+    the flush's proof-share squeeze.  Returns (record, K1 entry at the flush)."""
+    from janus_tpu_torch.vdaf.instances import prio3_count
+    from janus_tpu_torch.vdaf.prio3 import USAGE_PROOF_SHARE
+
+    vdaf = prio3_count()
+    t0 = time.perf_counter()
+    reports, meas = shard_reports(vdaf, rng, lambda r: int(r.integers(0, 2)))
+    shard_s = time.perf_counter() - t0
+    backend, rows, _results, record = served_phase(
+        "count", vdaf, reports, meas, verify_key, rng, COUNT_REPORTS, TAMPERED, "prep_init", ("keccak_squeeze",), sum,
+    )
+    bp = backend.bp
+    staged = {a: backend.stage_prep_init_multi(a, [(verify_key, rows[a])]).placed for a in (0, 1)}
+    record.update(shard_s=shard_s, device_batch=backend._pad_to(COUNT_REPORTS),
+                  device_prep_init_ms=staged_ms(bp, staged, "prep_init", 2))
+    shapes = keccak_path_checks(bp, staged[0], staged[1], USAGE_PROOF_SHARE, vdaf.flp.PROOF_LEN)
+    log(f"count: device ms at B = {record['device_batch']} {json.dumps(record['device_prep_init_ms'])}")
+    phases["count"] = time.perf_counter() - t0
+    return record, shapes
+
+
+def sum_phase(verify_key, rng, phases):
+    """Phase 9: Prio3Sum(32) at 100,000 reports, one flush (row path); its
+    first 4,096 reports as their own flush, row for row equal; the row path
+    on the card at both sizes; K1 and K2 at the large flush's shapes.
+    Returns (record, K1/K2 entries at the flush)."""
+    from janus_tpu_torch.vdaf.instances import prio3_sum
+    from janus_tpu_torch.vdaf.prio3 import USAGE_PROOF_SHARE
+
+    vdaf = prio3_sum(SUM_BITS)
+    t0 = time.perf_counter()
+    reports, meas = shard_reports(vdaf, rng, lambda r: int(r.integers(0, 1 << SUM_BITS)))
+    shard_s = time.perf_counter() - t0
+    needs = ("keccak_squeeze", "keccak_absorb")
+    backend, (leader_rows, helper_rows), results, record = served_phase(
+        "sum", vdaf, reports, meas, verify_key, rng, SUM_REPORTS, TAMPERED, "prep_init", needs, sum,
+    )
+    bp = backend.bp
+
+    # The first SUM_SMALL_FLUSH reports as their own flush.
+    t1 = time.perf_counter()
+    small_rows = (leader_rows[:SUM_SMALL_FLUSH], helper_rows[:SUM_SMALL_FLUSH])
+    require_route(backend, SUM_SMALL_FLUSH, "prep_init")
+    small, small_launches = counted(
+        "sum small flush", needs,
+        lambda: [backend.prep_init_multi(a, [(verify_key, small_rows[a])])[0] for a in (0, 1)],
+    )
+    no_flp_kernels("sum small flush", small_launches)
+    for a in (0, 1):
+        for b in range(SUM_SMALL_FLUSH):
+            st, ps = results[a][b]
+            compare_row(vdaf, b, a, small[a][b], (ps.encode(vdaf), st.out_share, st.corrected_joint_rand_seed))
+    record["small_flush_seconds"] = time.perf_counter() - t1
+    log(f"sum: the first {SUM_SMALL_FLUSH} reports as their own flush equal the {SUM_REPORTS}-report flush "
+        f"row for row on both sides")
+
+    # On the card: the small flush's staged inputs, and those tiled to the
+    # large flush's padded size.
+    staged = {a: backend.stage_prep_init_multi(a, [(verify_key, small_rows[a])]).placed for a in (0, 1)}
+    tiled = {a: {k: v.repeat((SUM_TILE,) + (1,) * (v.dim() - 1)) for k, v in staged[a].items()} for a in (0, 1)}
+    B = SUM_SMALL_FLUSH * SUM_TILE
+    record.update(
+        shard_s=shard_s,
+        device_prep_init_ms={
+            f"prep_init at B = {SUM_SMALL_FLUSH}": staged_ms(bp, staged, "prep_init", 2),
+            f"prep_init at B = {B}": staged_ms(bp, tiled, "prep_init", 1),
+        },
+    )
+    log(f"sum: device ms {json.dumps(record['device_prep_init_ms'])}")
+    shapes = keccak_path_checks(bp, tiled[0], tiled[1], USAGE_PROOF_SHARE, vdaf.flp.PROOF_LEN)
+    phases["sum"] = time.perf_counter() - t0
+    return record, shapes
+
+
+def sumvec_bits_phase(verify_key, rng, shards, phases):
+    """Phase 10: Prio3SumVec(1000, 8, 89) at 64 reports through the row
+    path; K1 at its measurement-share squeeze and K2 at its joint-rand-part
+    absorb.  Returns (record, K1/K2 entries at its shapes)."""
+    from janus_tpu_torch.vdaf.instances import prio3_sum_vec
+    from janus_tpu_torch.vdaf.prio3 import USAGE_MEAS_SHARE
+
+    t0 = time.perf_counter()
+    meas = [m for m, _ in shards]
+    reports = [r for _, r in shards]
+    vdaf = prio3_sum_vec(*SV8)
+    backend, rows, _results, record = served_phase(
+        "sumvec bits=8", vdaf, reports, meas, verify_key, rng, SV8_REPORTS, 1, "prep_init",
+        ("keccak_squeeze", "keccak_absorb"), lambda valid: np.sum(valid, axis=0).tolist(), sampled=SV8_SAMPLED,
+    )
+    staged = {a: backend.stage_prep_init_multi(a, [(verify_key, rows[a])]).placed for a in (0, 1)}
+    # The plain Keccak takes some milliseconds a block, so one timed round.
+    shapes = keccak_path_checks(backend.bp, staged[0], staged[1], USAGE_MEAS_SHARE, vdaf.flp.MEAS_LEN, plain_rounds=1)
+    phases["sumvec_bits8"] = time.perf_counter() - t0
+    return record, shapes
 
 
 def sumvec_phases(verify_key, rng, done, phases):
@@ -913,8 +1188,9 @@ def main() -> int:
     # The pure-Python oracle takes about a minute to shard and prove each
     # SumVec100k report; two worker processes do it during the build and the
     # histogram sharding, and end before any timed phase starts.
-    with ProcessPoolExecutor(max_workers=SV_DISTINCT, mp_context=multiprocessing.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(max_workers=SV_DISTINCT + SV8_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
         jobs = [pool.submit(sumvec_oracle_job, args.seed, i, verify_key) for i in range(SV_DISTINCT)]
+        sv8_jobs = [pool.submit(sumvec_bits_shard_job, args.seed, w, SV8_REPORTS // SV8_WORKERS) for w in range(SV8_WORKERS)]
         t0 = time.perf_counter()
         _build.build()
         phases["build"] = time.perf_counter() - t0
@@ -924,24 +1200,39 @@ def main() -> int:
                 log(f"ptxas {name}: {line}")
         hist_vdaf = prio3_histogram(LENGTH, CHUNK)
         t0 = time.perf_counter()
-        reports, meas = shard_reports(hist_vdaf, rng)
+        reports, meas = shard_reports(hist_vdaf, rng, lambda r: int(r.integers(0, LENGTH)))
         phases["histogram_shard"] = time.perf_counter() - t0
         log(f"shard: {DISTINCT} histogram reports in {phases['histogram_shard']:.2f} s (beside the workers)")
         t0 = time.perf_counter()
         done = [j.result() for j in jobs]
+        sv8_shards = [x for j in sv8_jobs for x in j.result()]
         phases["sumvec_shard_wait"] = time.perf_counter() - t0
     kernels, histogram = histogram_phases(hist_vdaf, reports, meas, verify_key, rng, phases)
     torch.cuda.empty_cache()
     sv_entry, sv_shapes, sumvec = sumvec_phases(verify_key, rng, done, phases)
     kernels.append(sv_entry)
+    torch.cuda.empty_cache()
+    path_shapes = {}
+    count, path_shapes["count_flush"] = count_phase(verify_key, rng, phases)
+    sum_record, path_shapes["sum_flush"] = sum_phase(verify_key, rng, phases)
+    torch.cuda.empty_cache()
+    sumvec_bits, path_shapes["sumvec_bits8"] = sumvec_bits_phase(verify_key, rng, sv8_shards, phases)
+    for k in kernels:
+        k["launches_by_path"] = {path: launches[k["name"]] for path, launches in PATH_LAUNCHES.items()}
+        for path, shapes in path_shapes.items():
+            if k["name"] in shapes:
+                k[f"at_{path}"] = shapes[k["name"]]
     bad = [k["name"] for k in kernels if k["max_abs_err"] > TOLERANCE]
     bad += [f"{k} at the SumVec shape" for k, v in sv_shapes.items() if v["max_abs_err_host_columns"] > TOLERANCE]
+    bad += [f"{k} at {path}" for path, shapes in path_shapes.items() for k, v in shapes.items()
+            if v["max_abs_err"] > TOLERANCE]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     phases["total"] = time.perf_counter() - start
 
     log(json.dumps({"phases_s": phases, "profiler_traces": TRACE_TALLY}))
-    log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec}}))
+    log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec, "count": count, "sum": sum_record,
+                                   "sumvec_bits8": sumvec_bits}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

@@ -1,23 +1,31 @@
-"""Batched Prio3 prepare on the card: the Histogram and SumVec slices.
+"""Batched Prio3 prepare on the card: Count, Sum, SumVec and Histogram.
 
-Counterpart of ``janus_tpu/ops/prepare.py``'s limb-planar path
-(``BatchedPrio3.prep_init_planar`` for the chunked circuits, the row-major
-and planar ``prep_shares_to_prep`` and ``aggregate``).  Per-report tensors
-keep the report axis last: share streams are word-major planes (W, B)
-straight out of the Keccak kernels, and field tensors are (elems, n, B),
-which is the same memory as a stream of those elements.  Hand-written CUDA
-kernels carry the heavy work (K1 squeeze, K2 absorb, K3 histogram wires, K5
-SumVec wires, K4 planar combine); the small coefficient computations around
-them are plain PyTorch on the same device.
+Counterpart of ``janus_tpu/ops/prepare.py``.  Two prepares, each
+byte-identical to the oracle ``janus_tpu_torch.vdaf.prio3``:
+
+- ``prep_init_planar`` (Histogram, SumVec with bits == 1): per-report tensors
+  keep the report axis last; share streams are word-major planes (W, B)
+  straight out of the Keccak kernels and field tensors are (elems, n, B),
+  the same memory as a stream of those elements.  The wire kernels (K3
+  histogram, K5 SumVec) and the planar combine (K4) carry the heavy work.
+- ``prep_init`` (every circuit; the one path for Count, Sum, SumVec with
+  bits > 1, Histogram with MEAS_LEN > 65535 and any batch past 65535):
+  row-major (B, elems, n) tensors with the limb axis last.  The JAX
+  package's limb-planar Count/Sum path exists for the TPU's lane layout;
+  on the card the row path is the faster of the two (PERF.md), so the port
+  has no such path.
+
+Every path expands shares and randomness through the K1 squeeze and absorbs
+multi-block joint-rand messages through the K2 absorb; the small
+coefficient work around the kernels is plain PyTorch on the same device.
 
 Montgomery convention as in the JAX package: bulk tensors (shares, wires,
 verifiers, out shares) stay canonical; the per-report scalars that multiply
 them (joint rand r, query point t, Lagrange coefficients, constants) are in
 Montgomery form, so ``mont_mul(canonical, montgomery)`` lands canonical.
-Every output is byte-identical to the oracle ``janus_tpu_torch.vdaf.prio3``.
 
-Served: Prio3Histogram and Prio3SumVec with bits == 1, over TurboSHAKE128
-with one proof; any other circuit raises ``NotImplementedError``.
+Served: over TurboSHAKE128 with one proof; any other XOF, proof count or
+circuit raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import numpy as np
 import torch
 
 from ..fields import next_power_of_2
-from ..flp.circuits import Histogram, SumVec
+from ..flp.circuits import Count, Histogram, Sum, SumVec
 from ..vdaf.prio3 import (
     USAGE_JOINT_RAND_PART,
     USAGE_JOINT_RAND_SEED,
@@ -50,9 +58,29 @@ from .xof import xof_next_vec_batch
 #: The planar lazy sums (meas_sum, aggregate) add u16 halves in int64 like
 #: the JAX u32 sums they mirror, which are exact only up to this many terms.
 LAZY_SUM_MAX = 65535
-#: SumVec gadget outputs take an NTT over the P-th roots from this P up, and
-#: a Horner scan of every call below it, as the JAX package does.
+#: Gadget outputs on the row path and the SumVec planar path take an NTT
+#: over the P-th roots from this P up, and a Horner scan below it, as the
+#: JAX package does.
 NTT_MIN_P = 64
+
+
+def _ones(f: TField, B: int, device) -> List[torch.Tensor]:
+    """Montgomery one as a limb list of (B,) planes."""
+    return [torch.full((B,), int(v), dtype=torch.int64, device=device) for v in f.mont_one_np]
+
+
+def _pow_range_planes(f: TField, x: List, count: int) -> torch.Tensor:
+    """x^1..x^count (Montgomery), x limb lists (B,) -> (count, n, B)."""
+    out = f.pow_range_limbs(x, count)  # n tensors (B, count)
+    return torch.stack(out, dim=0).permute(2, 0, 1)
+
+
+def _sum_limbs(f: TField, x: List) -> List:
+    """Modular sum over the leading axis of limb lists (K, B) -> (B,), by
+    u16 halves and one fold (exact for K <= LAZY_SUM_MAX)."""
+    slo = [torch.sum(t & M16, dim=0) for t in x]
+    shi = [torch.sum(t >> 16, dim=0) for t in x]
+    return f.lazy_fold_limbs(slo, shi)
 
 
 class _GadgetPlan:
@@ -70,7 +98,11 @@ class _GadgetPlan:
 
 
 class _DeviceCircuit:
-    """Device twin of one FLP validity circuit (single-gadget plans)."""
+    """Device twin of one FLP validity circuit (single-gadget plans).
+
+    Subclasses give ``inputs``, ``v``, ``truncate`` and
+    ``gadget_eval_scaled`` on row-major tensors (B, ..., n): meas, gk and
+    wires canonical, jr_m Montgomery (None without joint randomness)."""
 
     def __init__(self, valid):
         self.valid = valid
@@ -81,6 +113,52 @@ class _DeviceCircuit:
         p0 = self.plans[0]
         self.calls, self.arity, self.degree = p0.calls, p0.arity, p0.degree
         self.P, self.glen = p0.P, p0.glen
+
+    def wire_evals(self, f: TField, meas, jr_m, lag, seeds, consts) -> torch.Tensor:
+        """Wire-polynomial evaluations at t, (B, arity, n) canonical, from
+        the gadget-input tensor.  lag (B, K, n) Montgomery barycentric
+        coefficients, seeds (B, arity, n) canonical."""
+        inp = self.inputs(f, meas, jr_m, consts)  # (B, calls, arity, n)
+        wires = torch.cat([seeds[:, None], inp], dim=1)  # (B, K, arity, n)
+        return f.sum(f.mont_mul(wires, lag[:, :, None, :]), axis=1)
+
+
+class _DCount(_DeviceCircuit):
+    """Count: one Mul call on [m0, m0]; Field64, no joint randomness."""
+
+    def inputs(self, f, meas, jr_m, consts):
+        m0 = meas[:, 0:1]  # (B, 1, n)
+        return torch.stack([m0, m0], dim=2)  # (B, 1, 2, n)
+
+    def v(self, f, gk, meas, jr_m, consts):
+        return f.sub(gk[:, 0], meas[:, 0])
+
+    def truncate(self, f, meas, consts):
+        return meas
+
+    def gadget_eval_scaled(self, f, x):
+        """Mul on canonical wires (B, 2, n), scaled by R^-1."""
+        return f.mont_mul(x[:, 0], x[:, 1])
+
+
+class _DSum(_DeviceCircuit):
+    """Sum: one Range2 call a bit, weighted by r^(k+1) into v."""
+
+    def inputs(self, f, meas, jr_m, consts):
+        return meas[:, :, None, :]  # (B, bits, 1, n)
+
+    def v(self, f, gk, meas, jr_m, consts):
+        r = jr_m[:, 0]  # (B, n) Montgomery
+        r_pows = f.cumprod_mont(r[:, None, :].expand(gk.shape), axis=1)  # r^(k+1) at call k
+        return f.sum(f.mont_mul(r_pows, gk), axis=1)
+
+    def truncate(self, f, meas, consts):
+        return f.sum(f.mont_mul(meas, consts["pow2_m"][None]), axis=1)[:, None, :]
+
+    def gadget_eval_scaled(self, f, x):
+        """(x^2 - x) R^-1 from canonical x: x*x*R^-1 - x*1*R^-1."""
+        x0 = x[:, 0]
+        return f.sub(f.mont_mul(x0, x0), f.from_mont(x0))
 
 
 class _DChunked(_DeviceCircuit):
@@ -93,14 +171,32 @@ class _DChunked(_DeviceCircuit):
         #: MEAS_LEN..calls*chunk-1, applied inside the wire kernels)
         self.pad_len = self.calls * self.chunk - valid.MEAS_LEN
 
+    def _blocks(self, f, meas):
+        """(B, MEAS_LEN, n) -> zero-padded (B, calls, chunk, n)."""
+        B = meas.shape[0]
+        if self.pad_len:
+            zeros = torch.zeros((B, self.pad_len, f.n), dtype=meas.dtype, device=meas.device)
+            meas = torch.cat([meas, zeros], dim=1)
+        return meas.reshape(B, self.calls, self.chunk, f.n)
+
+    def _zip_wires(self, f, m, evens, lagk, lag0, ccorr, seeds):
+        """The row wires [seed_i lag_0 + (evens|odds)[u]] from the even
+        evaluations, with odds[u] = sum_k m[k,u] lag_{k+1} - ccorr, where
+        ccorr = (1/shares) sum_k lag_{k+1} canonical (B, n) (mont_mul
+        distributes over mod-p addition)."""
+        B = evens.shape[0]
+        s2 = f.sum(f.mont_mul(m, lagk[:, :, None, :]), axis=1)  # (B, chunk, n)
+        odds = f.sub(s2, ccorr[:, None, :])
+        pair = torch.stack([evens, odds], dim=2).reshape(B, 2 * self.chunk, f.n)
+        return f.add(f.mont_mul(seeds, lag0[:, None, :]), pair)
+
     def gadget_eval_scaled(self, f: TField, x: torch.Tensor) -> torch.Tensor:
         """ParallelSum(Mul) on canonical wires (B, arity, n), scaled by R^-1."""
         B, arity, n = x.shape
         pairs = x.reshape(B, arity // 2, 2, n)
         return f.sum(f.mont_mul(pairs[:, :, 0], pairs[:, :, 1]), axis=1)
 
-    @staticmethod
-    def truncate(meas: torch.Tensor) -> torch.Tensor:
+    def truncate(self, f, meas, consts):
         """The out share of a histogram or of a one-bit SumVec is the
         measurement share itself (the weighted bit sum over one bit is the
         identity), so no MEAS_LEN-wide multiply runs."""
@@ -108,14 +204,29 @@ class _DChunked(_DeviceCircuit):
 
 
 class _DHistogram(_DChunked):
+    def wire_evals(self, f, meas, jr_m, lag, seeds, consts):
+        """The K3 formula on rows, with the coefficients of
+        ``planar_coeffs`` (the same code that feeds the kernel, so the two
+        paths cannot drift):
+        evens[u] = (sum_k m[k,u] kl[k]) r_ch[u], odds[u] = sum_k m[k,u]
+        lag_{k+1} - ccorr."""
+        m = self._blocks(f, meas)
+        rch, kl, lagk, lag0, ccorr = self.planar_coeffs(f, jr_m.permute(1, 2, 0), lag.permute(1, 2, 0), consts)
+        rch, kl, lagk = (x.permute(2, 0, 1) for x in (rch, kl, lagk))
+        s1 = f.sum(f.mont_mul(m, kl[:, :, None, :]), axis=1)  # (B, chunk, n)
+        return self._zip_wires(f, m, f.mont_mul(s1, rch), lagk, lag0.T, ccorr.T, seeds)
+
+    def v(self, f, gk, meas, jr_m, consts):
+        meas_sum = f.sum(meas, axis=1)  # (B, n)
+        v = self.v_from_meas_sum(f, limb_list(gk.permute(1, 2, 0)), limb_list(meas_sum.T), jr_m.permute(1, 2, 0), consts)
+        return limb_stack(v).T
+
     def v_from_meas_sum(self, f: TField, gk: List, meas_sum: List, jr_m: torch.Tensor, consts) -> List:
         """Circuit output v (limb lists over the report axis).
 
         gk: limb lists of (calls, B) canonical gadget outputs; meas_sum:
         limb lists (B,) canonical; jr_m: (2, n, B) Montgomery planes [r, r1]."""
-        range_check = [g[0] for g in gk]
-        for k in range(1, self.calls):
-            range_check = f.add_limbs(range_check, [g[k] for g in gk])
+        range_check = _sum_limbs(f, gk)
         c = consts["shares_inv_c"]
         sum_check = f.sub_limbs(meas_sum, [c[l] for l in range(f.n)])
         jr1 = limb_list(jr_m[1])
@@ -124,36 +235,70 @@ class _DHistogram(_DChunked):
             f.mont_mul_limbs(f.mont_mul_limbs(jr1, jr1), sum_check),
         )
 
+    def planar_coeffs(self, f: TField, jr_m: torch.Tensor, lag: torch.Tensor, consts):
+        """Coefficient planes of the wire kernel from jr_m (2, n, B) and lag
+        (K, n, B): (rch (chunk, n, B), kl (calls, n, B), lagk (calls, n, B),
+        lag0 (n, B), ccorr (n, B)).  r^(k*chunk + u + 1) = r^(k*chunk) *
+        r^(u+1) splits the global joint-rand power into the per-call kl and
+        the per-column r_ch."""
+        B = lag.shape[-1]
+        r = limb_list(jr_m[0])
+        rch = _pow_range_planes(f, r, self.chunk)
+        rc = limb_list(rch[self.chunk - 1])  # r^chunk
+        r_call = [_ones(f, B, lag.device)]
+        for _ in range(self.calls - 1):
+            r_call.append(f.mont_mul_limbs(r_call[-1], rc))
+        r_call_t = torch.stack([limb_stack(x) for x in r_call], dim=0)  # (calls, n, B)
+        lagk = lag[1 : 1 + self.calls]
+        kl = limb_stack(f.mont_mul_limbs(limb_list(r_call_t), limb_list(lagk)))
+        c = consts["shares_inv_c"]
+        ccorr = limb_stack(f.mont_mul_limbs([c[l].expand(B) for l in range(f.n)], _sum_limbs(f, limb_list(lagk))))
+        return rch, kl, lagk, lag[0], ccorr
+
 
 class _DSumVec(_DChunked):
-    """SumVec: per-call joint rand, power resetting each call.  Only
-    bits == 1 is served; wider elements need the row path's weighted
-    truncate, which is not ported."""
+    """SumVec: per-call joint rand, power resetting each call."""
 
-    def __init__(self, valid):
-        if valid.bits != 1:
-            raise NotImplementedError("the CUDA prepare path serves SumVec with bits == 1 only")
-        super().__init__(valid)
+    def wire_evals(self, f, meas, jr_m, lag, seeds, consts):
+        """evens[u] = sum_k m[k,u] jr_k^(u+1) lag_{k+1}: lag folds into the
+        per-(k, u) power table, so no (B, calls, arity, n) tensor is made."""
+        m = self._blocks(f, meas)
+        lag0, lagk = lag[:, 0], lag[:, 1:]
+        r_pows = f.cumprod_mont(jr_m[:, :, None, :].expand(m.shape), axis=2)
+        rl = f.mont_mul(r_pows, lagk[:, :, None, :])
+        evens = f.sum(f.mont_mul(m, rl), axis=1)  # (B, chunk, n)
+        ccorr = f.mont_mul(consts["shares_inv_c"], f.sum(lagk, axis=1))  # (B, n) canonical
+        return self._zip_wires(f, m, evens, lagk, lag0, ccorr, seeds)
 
-    @staticmethod
-    def v(f: TField, gk: torch.Tensor) -> torch.Tensor:
+    def v(self, f, gk, meas, jr_m, consts):
         """Circuit output: the sum of the gadget outputs (B, calls, n) -> (B, n)."""
         return f.sum(gk, axis=1)
 
+    def truncate(self, f, meas, consts):
+        if self.valid.bits == 1:
+            return meas
+        B = meas.shape[0]
+        m = meas.reshape(B, self.valid.length, self.valid.bits, f.n)
+        return f.sum(f.mont_mul(m, consts["pow2_m"][None, None]), axis=2)
+
 
 def _device_circuit(valid) -> _DeviceCircuit:
-    if isinstance(valid, Histogram):
-        return _DHistogram(valid)
+    if isinstance(valid, Count):
+        return _DCount(valid)
+    if isinstance(valid, Sum):
+        return _DSum(valid)
     if isinstance(valid, SumVec):
         return _DSumVec(valid)
+    if isinstance(valid, Histogram):
+        return _DHistogram(valid)
     raise NotImplementedError(
-        f"the CUDA prepare path serves Prio3Histogram and Prio3SumVec, not {type(valid).__name__}"
+        f"the CUDA prepare path serves Count, Sum, SumVec and Histogram, not {type(valid).__name__}"
     )
 
 
 class BatchedPrio3:
-    """Device-batched prepare for one Prio3Histogram or one-bit Prio3SumVec
-    instance (TurboSHAKE128).
+    """Device-batched prepare for one Prio3Count, Prio3Sum, Prio3SumVec or
+    Prio3Histogram instance (TurboSHAKE128, one proof).
 
     All entry points take and return tensors on ``device`` (default the
     card); the tests pass ``device="cpu"``, where every kernel wrapper takes
@@ -192,8 +337,39 @@ class BatchedPrio3:
         w = xof_words(seed, dst, binder, self.prio3.xof.SEED_SIZE // 4)
         return words_to_bytes(words(w).transpose(0, 1))
 
+    def _joint_rand(self, agg_id, part, public_parts_u8) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The corrected joint-rand seed over the public parts with our
+        ``part`` (B, SEED) substituted, and the joint-rand vector from it
+        -> (corrected (B, SEED) uint8, jr (JOINT_RAND_LEN, n, B), ok (B,))."""
+        prio3 = self.prio3
+        B, dev = part.shape[0], part.device
+        pieces = []
+        if agg_id > 0:
+            pieces.append(public_parts_u8[:, :agg_id].reshape(B, -1))
+        pieces.append(part)
+        if agg_id < prio3.num_shares - 1:
+            pieces.append(public_parts_u8[:, agg_id + 1 :].reshape(B, -1))
+        zero_seed = torch.zeros((B, prio3.xof.SEED_SIZE), dtype=torch.uint8, device=dev)
+        corrected = self._xof_seed(zero_seed, self._dst(USAGE_JOINT_RAND_SEED), torch.cat(pieces, dim=-1))
+        empty = torch.zeros((B, 0), dtype=torch.uint8, device=dev)
+        jr, ok = self._expand_vec(corrected, self._dst(USAGE_JOINT_RANDOMNESS), empty, self.flp.JOINT_RAND_LEN)
+        return corrected, jr, ok
+
+    def _query_rand(self, verify_key, nonces_u8) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Query randomness from the verify key (bytes or (B, 16) uint8) and
+        the nonces -> (qr (QUERY_RAND_LEN, n, B), ok (B,))."""
+        B, dev = nonces_u8.shape[0], nonces_u8.device
+        if isinstance(verify_key, (bytes, bytearray)):
+            verify_key = torch.from_numpy(np.frombuffer(bytes(verify_key), dtype=np.uint8).copy()).to(dev)
+        vk = verify_key.expand(B, verify_key.shape[-1]).contiguous()
+        return self._expand_vec(vk, self._dst(USAGE_QUERY_RANDOMNESS), nonces_u8, self.flp.QUERY_RAND_LEN)
+
     def planar_eligible(self, agg_id: int, batch: int) -> bool:
-        """True when this prep runs on the planar path (the only one here)."""
+        """True when the planar path serves this prep: the JAX package's
+        rules for the chunked circuits, without its B % 1024 tile rule (the
+        port's kernels take any batch).  Count and Sum, which the JAX
+        package serves on a limb-planar path for the TPU's lanes, take the
+        row path here."""
         if isinstance(self.circ, _DHistogram):
             # the lazy u16-half meas_sum is exact only up to 65535 terms
             circuit_ok = self.flp.MEAS_LEN <= LAZY_SUM_MAX
@@ -201,6 +377,11 @@ class BatchedPrio3:
             # bits > 1 would need a planar truncate (out_share != meas)
             circuit_ok = isinstance(self.circ, _DSumVec) and self.flp.valid.bits == 1
         return circuit_ok and self.prio3.num_proofs == 1 and batch <= LAZY_SUM_MAX
+
+    def prep_route(self, agg_id: int, batch: int) -> str:
+        """The name of the prepare that serves a flush of ``batch`` (padded)
+        rows."""
+        return "prep_init_planar" if self.planar_eligible(agg_id, batch) else "prep_init"
 
     def _planar_ok(self, stream: torch.Tensor, num_elems: int) -> torch.Tensor:
         """Canonicality of every element of a (W, B) stream -> ok (B,)."""
@@ -212,14 +393,6 @@ class BatchedPrio3:
         c = self.consts[name] if idx is None else self.consts[name][idx]
         return [c[..., l] for l in range(self.f.n)]
 
-    def _ones(self, B: int) -> List[torch.Tensor]:
-        return [torch.full((B,), int(v), dtype=torch.int64, device=self.device) for v in self.f.mont_one_np]
-
-    def _pow_range_planes(self, x: List, count: int) -> torch.Tensor:
-        """x^1..x^count (Montgomery), x limb lists (B,) -> (count, n, B)."""
-        out = self.f.pow_range_limbs(x, count)  # n tensors (B, count)
-        return torch.stack(out, dim=0).permute(2, 0, 1)
-
     def _gpoly_at_planes(self, gp: torch.Tensor, t: List) -> List:
         """gpoly(t) by baby-step/giant-step: gp (glen, n, B) canonical
         coefficients, t Montgomery limb lists (B,) -> canonical (B,)."""
@@ -227,7 +400,7 @@ class BatchedPrio3:
         glen, _, B = gp.shape
         bs = max(1, math.isqrt(glen))
         gs = -(-glen // bs)
-        one = self._ones(B)
+        one = _ones(f, B, gp.device)
         baby = [one]
         for _ in range(bs - 1):
             baby.append(f.mont_mul_limbs(baby[-1], t))
@@ -253,8 +426,7 @@ class BatchedPrio3:
         z/(t - w^k) = prod_{j != k} (t - w^j)) -> (lag (K, n, B) Montgomery,
         t_ok (B,)).  t_ok is False where t is a P-th root of unity."""
         f, circ = self.f, self.circ
-        B = t[0].shape[0]
-        one = self._ones(B)
+        one = _ones(f, t[0].shape[0], t[0].device)
         tp = t
         for _ in range(self.log2_P):
             tp = f.mont_mul_limbs(tp, tp)
@@ -293,30 +465,7 @@ class BatchedPrio3:
         gk = [torch.stack([c[l] for c in cols], dim=0) for l in range(f.n)]
         return gk, self._gpoly_at_planes(gp, t)
 
-    def _histogram_coeff_planes(self, jr_m: torch.Tensor, lag: torch.Tensor):
-        """Coefficient planes of the wire kernel: (rch (chunk, n, B),
-        kl (calls, n, B), lagk (calls, n, B), lag0 (n, B), ccorr (n, B)).
-        r^(k*chunk + u + 1) = r^(k*chunk) * r^(u+1) splits the global
-        joint-rand power into the per-call kl and the per-column r_ch."""
-        f, circ = self.f, self.circ
-        B = lag.shape[-1]
-        r = limb_list(jr_m[0])
-        rch = self._pow_range_planes(r, circ.chunk)
-        rc = limb_list(rch[circ.chunk - 1])  # r^chunk
-        r_call = [self._ones(B)]
-        for _ in range(circ.calls - 1):
-            r_call.append(f.mont_mul_limbs(r_call[-1], rc))
-        r_call_t = torch.stack([limb_stack(x) for x in r_call], dim=0)  # (calls, n, B)
-        lagk = lag[1 : 1 + circ.calls]
-        kl = limb_stack(f.mont_mul_limbs(limb_list(r_call_t), limb_list(lagk)))
-        lag_sum = limb_list(lagk[0])
-        for k in range(1, circ.calls):
-            lag_sum = f.add_limbs(lag_sum, limb_list(lagk[k]))
-        c = self.consts["shares_inv_c"]
-        ccorr = limb_stack(f.mont_mul_limbs([c[l].expand(B) for l in range(f.n)], lag_sum))
-        return rch, kl, lagk, lag[0], ccorr
-
-    # -- row-major FLP helpers (SumVec; limb axis last, (B, K, n)) --------
+    # -- row-major FLP helpers (limb axis last, (B, K, n)) ----------------
     def _lagrange_coeffs(self, t_m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Barycentric Lagrange coefficients at t over the P-th roots:
         z/(t - w^k) = prod_{j != k} (t - w^j), the exclusive mutual products.
@@ -342,8 +491,8 @@ class BatchedPrio3:
 
     def _gadget_outputs(self, gpoly: torch.Tensor) -> torch.Tensor:
         """gk (B, calls, n): the gadget polynomial at alpha^1..alpha^calls.
-        An NTT over all P roots after folding the glen = 2P - 1 coefficients
-        mod x^P - 1, or a Horner scan of every call at once below NTT_MIN_P."""
+        An NTT over all P roots after folding the glen coefficients mod
+        x^P - 1, or a Horner scan of every call at once below NTT_MIN_P."""
         f, circ = self.f, self.circ
         if self.ntt is not None:
             P = circ.P
@@ -357,12 +506,13 @@ class BatchedPrio3:
             acc = f.add(f.mont_mul(acc, alpha), gpoly[:, j : j + 1])
         return acc
 
+    # -- planar wire evaluations (K3, K5) -----------------------------------
     def _histogram_parts(self, meas_st, proofs_st, jr_m, t_m):
         """Histogram wires (K3), circuit output v and gpoly(t) ->
         (ev, od (chunk, n, B) int32, v (B, n), gpt (B, n), t_ok (B,))."""
         f, flp, circ, n = self.f, self.flp, self.circ, self.f.n
         lag, t_ok = self._lagrange_planes(t_m)
-        rch, kl, lagk, lag0, ccorr = self._histogram_coeff_planes(jr_m, lag)
+        rch, kl, lagk, lag0, ccorr = circ.planar_coeffs(f, jr_m, lag, self.consts)
         ev, od = wire_evals(
             f, flp.MEAS_LEN, circ.chunk, meas_st, proofs_st,
             storage(rch).contiguous(), storage(kl).contiguous(), storage(lagk).contiguous(),
@@ -371,10 +521,7 @@ class BatchedPrio3:
         proof_el = field_words(words(proofs_st), flp.PROOF_LEN, n)
         gk, gpt = self._gadget_planes(proof_el[circ.arity : circ.arity + circ.glen], t_m)
         # v from the lazily summed measurement (u16 halves, one fold).
-        m_el = field_words(words(meas_st), flp.MEAS_LEN, n)
-        slo = limb_list(torch.sum(m_el & M16, dim=0))
-        shi = limb_list(torch.sum(m_el >> 16, dim=0))
-        meas_sum = f.lazy_fold_limbs(slo, shi)
+        meas_sum = _sum_limbs(f, limb_list(field_words(words(meas_st), flp.MEAS_LEN, n)))
         v = circ.v_from_meas_sum(f, gk, meas_sum, jr_m, self.consts)
         return ev, od, limb_stack(v).transpose(0, 1), limb_stack(gpt).transpose(0, 1), t_ok
 
@@ -395,14 +542,15 @@ class BatchedPrio3:
         )
         proof_el = field_words(words(proofs_st), flp.PROOF_LEN, n)
         gpoly = proof_el[circ.arity : circ.arity + circ.glen].permute(2, 0, 1)  # (B, glen, n)
-        v = circ.v(f, self._gadget_outputs(gpoly))
+        v = circ.v(f, self._gadget_outputs(gpoly), None, None, self.consts)
         return ev, od, v, self._gpoly_at(gpoly, t_row), t_ok
 
     def _jr_part_planes(self, agg_id, blinds_u8, nonces_u8, meas_stream) -> torch.Tensor:
         """Joint-rand-part XOF: the K2 absorb of ``_jr_part_message``
-        -> (seed_words, B) int32."""
+        -> (B, SEED) uint8."""
         msg = self._jr_part_message(agg_id, blinds_u8, nonces_u8, meas_stream)
-        return absorb_planes(msg, self.prio3.xof.SEED_SIZE // 4)
+        part = absorb_planes(msg, self.prio3.xof.SEED_SIZE // 4)
+        return words_to_bytes(words(part).transpose(0, 1))
 
     def _jr_part_message(self, agg_id, blinds_u8, nonces_u8, meas_stream) -> torch.Tensor:
         """The padded joint-rand-part message, built in-plane.
@@ -463,7 +611,7 @@ class BatchedPrio3:
         public_parts_u8: Optional[torch.Tensor] = None,
         keep_planar: bool = False,
     ) -> Dict[str, torch.Tensor]:
-        """Prepare-init of a batch, either side.
+        """Prepare-init of a Histogram or one-bit SumVec batch, either side.
 
         Helpers (agg_id > 0) pass ``share_seeds_u8`` (B, 16) and the share
         streams come from the K1 squeeze; the leader passes its explicit
@@ -479,13 +627,13 @@ class BatchedPrio3:
         and ``wire_od_pl`` (chunk, n, B) int32 and ``v_row``/``gpt_row``
         (B, n) take its place, for ``prep_shares_to_prep_planar``.
         """
-        prio3, flp, f, circ = self.prio3, self.flp, self.f, self.circ
-        n = f.n
+        flp, f, circ = self.flp, self.f, self.circ
         B = nonces_u8.shape[0]
-        dev = nonces_u8.device
         if not self.planar_eligible(agg_id, B):
-            raise NotImplementedError(f"batch of {B} or this circuit is outside the planar path's lazy-sum bounds")
-
+            raise NotImplementedError(
+                f"prep_init_planar does not serve {type(self.circ.valid).__name__} at a batch of {B}"
+            )
+        n, dev = f.n, nonces_u8.device
         if agg_id == 0:
             meas_st = rows_to_planes(meas_limbs.reshape(B, flp.MEAS_LEN * n))
             proofs_st = rows_to_planes(proofs_limbs.reshape(B, flp.PROOF_LEN * n))
@@ -498,24 +646,9 @@ class BatchedPrio3:
 
         # Joint randomness: the part from the in-plane absorb, then the
         # corrected seed and the joint-rand vector from one-block XOFs.
-        part_planes = self._jr_part_planes(agg_id, blinds_u8, nonces_u8, meas_st)
-        part = words_to_bytes(words(part_planes).transpose(0, 1))  # (B, 16)
-        S = prio3.num_shares
-        pieces = []
-        if agg_id > 0:
-            pieces.append(public_parts_u8[:, :agg_id].reshape(B, -1))
-        pieces.append(part)
-        if agg_id < S - 1:
-            pieces.append(public_parts_u8[:, agg_id + 1 :].reshape(B, -1))
-        seed_binder = torch.cat(pieces, dim=-1)
-        zero_seed = torch.zeros((B, prio3.xof.SEED_SIZE), dtype=torch.uint8, device=dev)
-        corrected = self._xof_seed(zero_seed, self._dst(USAGE_JOINT_RAND_SEED), seed_binder)
-        empty = torch.zeros((B, 0), dtype=torch.uint8, device=dev)
-        jr, ok_j = self._expand_vec(corrected, self._dst(USAGE_JOINT_RANDOMNESS), empty, flp.JOINT_RAND_LEN)
-        if isinstance(verify_key, (bytes, bytearray)):
-            verify_key = torch.from_numpy(np.frombuffer(bytes(verify_key), dtype=np.uint8).copy()).to(dev)
-        vk = verify_key.expand(B, verify_key.shape[-1]).contiguous()
-        qr, ok_q = self._expand_vec(vk, self._dst(USAGE_QUERY_RANDOMNESS), nonces_u8, flp.QUERY_RAND_LEN)
+        part = self._jr_part_planes(agg_id, blinds_u8, nonces_u8, meas_st)
+        corrected, jr, ok_j = self._joint_rand(agg_id, part, public_parts_u8)
+        qr, ok_q = self._query_rand(verify_key, nonces_u8)
         ok = ok & ok_j & ok_q
 
         r2 = self._const_limbs("r2")
@@ -525,7 +658,8 @@ class BatchedPrio3:
         parts = self._histogram_parts if isinstance(circ, _DHistogram) else self._sumvec_parts
         ev, od, v, gpt, t_ok = parts(meas_st, proofs_st, jr_m, t_m)
         out = {
-            "out_share": self.planar_out_share_to_rows(circ.truncate(field_words(meas_st, flp.MEAS_LEN, n))),
+            # the planar circuits' out share is the measurement share itself
+            "out_share": self.planar_out_share_to_rows(field_words(meas_st, flp.MEAS_LEN, f.n)),
             "ok": ok & t_ok,
             "joint_rand_part": part,
             "corrected_seed": corrected,
@@ -537,6 +671,92 @@ class BatchedPrio3:
         else:
             out["verifiers"] = torch.cat([v[:, None], self._zip_planes_to_rows(ev, od), gpt[:, None]], dim=1)
         return out
+
+    def helper_shares(self, agg_id: int, share_seeds_u8: torch.Tensor):
+        """A helper's (meas (B, MEAS_LEN, n), proofs (B, PROOF_LEN, n)) int64
+        canonical shares from its seed (K1), and ok (B,)."""
+        B = share_seeds_u8.shape[0]
+        binder = torch.full((B, 1), agg_id, dtype=torch.uint8, device=share_seeds_u8.device)
+        meas, ok1 = self._expand_vec(share_seeds_u8, self._dst(USAGE_MEAS_SHARE), binder, self.flp.MEAS_LEN)
+        proofs, ok2 = self._expand_vec(share_seeds_u8, self._dst(USAGE_PROOF_SHARE), binder, self.flp.PROOF_LEN)
+        return meas.permute(2, 0, 1), proofs.permute(2, 0, 1), ok1 & ok2
+
+    def _query_one(self, meas, proof, jr_m, t_m) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Row-major FLP query of one proof: meas (B, MEAS_LEN, n) and proof
+        (B, PROOF_LEN, n) canonical, jr_m (B, JOINT_RAND_LEN, n) Montgomery
+        or None, t_m (B, n) Montgomery -> (verifier (B, VERIFIER_LEN, n)
+        canonical, t_ok (B,)).  The oracle's FlpGeneric.query layout:
+        [v, wire evaluations, gpoly(t)]."""
+        f, circ = self.f, self.circ
+        seeds = proof[:, : circ.arity]
+        gpoly = proof[:, circ.arity : circ.arity + circ.glen]
+        lag, t_ok = self._lagrange_coeffs(t_m)
+        wires = circ.wire_evals(f, meas, jr_m, lag, seeds, self.consts)
+        v = circ.v(f, self._gadget_outputs(gpoly), meas, jr_m, self.consts)
+        verifier = torch.cat([v[:, None], wires, self._gpoly_at(gpoly, t_m)[:, None]], dim=1)
+        return verifier, t_ok
+
+    def prep_init(
+        self,
+        agg_id: int,
+        verify_key,
+        nonces_u8: torch.Tensor,
+        *,
+        share_seeds_u8: Optional[torch.Tensor] = None,
+        meas_limbs: Optional[torch.Tensor] = None,
+        proofs_limbs: Optional[torch.Tensor] = None,
+        blinds_u8: Optional[torch.Tensor] = None,
+        public_parts_u8: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Row-major prepare-init of any served circuit at any batch, either
+        side: the path for what the planar path cannot take.  Takes and
+        returns what ``prep_init_planar`` does (without ``keep_planar``);
+        Count has no joint randomness, so its result has no
+        ``joint_rand_part`` or ``corrected_seed``."""
+        flp = self.flp
+        B, dev = nonces_u8.shape[0], nonces_u8.device
+        if agg_id == 0:
+            meas, proofs = words(meas_limbs), words(proofs_limbs)
+            ok = torch.ones((B,), dtype=torch.bool, device=dev)
+        else:
+            meas, proofs, ok = self.helper_shares(agg_id, share_seeds_u8)
+
+        out: Dict[str, torch.Tensor] = {}
+        jr = None
+        if flp.JOINT_RAND_LEN > 0:
+            # joint_rand_part = XOF(blind, dst, agg_id || nonce || enc(meas))
+            agg_b = torch.full((B, 1), agg_id, dtype=torch.uint8, device=dev)
+            binder = torch.cat([agg_b, nonces_u8, words_to_bytes(meas.reshape(B, -1))], dim=-1)
+            part = self._xof_seed(blinds_u8, self._dst(USAGE_JOINT_RAND_PART), binder)
+            corrected, jr, ok_j = self._joint_rand(agg_id, part, public_parts_u8)
+            ok = ok & ok_j
+            out.update(joint_rand_part=part, corrected_seed=corrected)
+            jr = jr.permute(2, 0, 1)
+        qr, ok_q = self._query_rand(verify_key, nonces_u8)
+        res = self.query_batch(meas, proofs, jr, qr.permute(2, 0, 1))
+        out.update(res, ok=ok & ok_q & res["ok"])
+        return out
+
+    def query_batch(self, meas, proofs, jr, qr) -> Dict[str, torch.Tensor]:
+        """The FLP query with every XOF output given: meas (B, MEAS_LEN, n),
+        proofs (B, PROOF_LEN, n), jr (B, JOINT_RAND_LEN, n) or None and qr
+        (B, QUERY_RAND_LEN, n), all canonical int64.  Returns ``verifiers``
+        (B, VERIFIER_LEN, n) int64, ``out_share`` (B, OUTPUT_LEN, n) int32
+        and ``ok`` (rows whose query point hit a root of unity are False)."""
+        f = self.f
+        jr_m = None if jr is None else f.to_mont(jr)
+        verifiers, t_ok = self._query_one(meas, proofs, jr_m, f.to_mont(qr[:, 0]))
+        out_share = storage(self.circ.truncate(f, meas, self.consts)).contiguous()
+        return {"verifiers": verifiers, "out_share": out_share, "ok": t_ok}
+
+    def decide_batch(self, combined: torch.Tensor) -> torch.Tensor:
+        """Decide from the combined (summed) verifier (B, VERIFIER_LEN, n):
+        v == 0 and the gadget on the combined wires equals gpoly(t)."""
+        f, circ = self.f, self.circ
+        x = combined[:, 1 : 1 + circ.arity]
+        # g*R^-1 == y*R^-1 is the predicate g == y (R is invertible).
+        y_scaled = f.from_mont(combined[:, 1 + circ.arity])
+        return f.is_zero(combined[:, 0]) & f.eq(circ.gadget_eval_scaled(f, x), y_scaled)
 
     @staticmethod
     def _zip_planes_to_rows(ev: torch.Tensor, od: torch.Tensor) -> torch.Tensor:
@@ -558,16 +778,10 @@ class BatchedPrio3:
     ) -> Dict[str, torch.Tensor]:
         """Combine verifier shares (each (B, VERIFIER_LEN, n) int64
         canonical) and decide; derive the joint-rand seed from the parts."""
-        f, circ = self.f, self.circ
         combined = verifier_shares[0]
         for vs in verifier_shares[1:]:
-            combined = f.add(combined, vs)
-        decide = f.is_zero(combined[:, 0])
-        x = combined[:, 1 : 1 + circ.arity]
-        # g*R^-1 == y*R^-1 is the predicate g == y (R is invertible).
-        y_scaled = f.from_mont(combined[:, 1 + circ.arity])
-        decide = decide & f.eq(circ.gadget_eval_scaled(f, x), y_scaled)
-        return self._prep_msg(decide, joint_rand_parts_u8)
+            combined = self.f.add(combined, vs)
+        return self._prep_msg(self.decide_batch(combined), joint_rand_parts_u8)
 
     def prep_shares_to_prep_planar(
         self,
@@ -636,6 +850,10 @@ def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, n
         consts["alpha_mat_m"] = np.stack(
             [np.stack([mont_np(pow(w, k * j, p)) for j in range(plan.glen)]) for k in range(1, plan.calls + 1)]
         )
+    bits = getattr(circ.valid, "bits", 1)
+    if isinstance(circ, _DSum) or bits > 1:
+        # the bit weights 2^b (b < bits) of the weighted truncate
+        consts["pow2_m"] = np.stack([mont_np(1 << b) for b in range(bits)])
     return consts
 
 

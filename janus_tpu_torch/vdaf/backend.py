@@ -181,13 +181,23 @@ class CudaBackend:
         kw["verify_key_u8"] = np.concatenate([vk, np.repeat(vk[-1:], pad_to - B, axis=0)])
         return StagedPrepInit(agg_id=agg_id, placed=self._place(kw), pad_to=pad_to, rows=B)
 
+    def _prep_fn(self, agg_id: int, pad_to: int):
+        """The prepare that serves a flush padded to ``pad_to`` rows, chosen
+        up front from the padded size as the JAX ``TpuBackend._prep_fn``
+        chooses: the planar path for Histogram and one-bit SumVec, the row
+        path for everything else (Count, Sum, SumVec with bits > 1,
+        Histogram with MEAS_LEN > 65535, any flush past 65535 rows).  Where
+        the JAX package takes its limb-planar Count/Sum path, the port takes
+        the row path, which is the faster one on the card."""
+        return getattr(self.bp, self.bp.prep_route(agg_id, pad_to))
+
     def launch_prep_init_multi(self, staged: StagedPrepInit, requests) -> List[List[PrepOutcome]]:
         """Device half: run the batched prepare, read back once, slice the
         results per request."""
         agg_id, B = staged.agg_id, staged.rows
         kw = dict(staged.placed)
         vk = kw.pop("verify_key_u8")
-        out = self.bp.prep_init_planar(
+        out = self._prep_fn(agg_id, staged.pad_to)(
             agg_id,
             vk,
             kw["nonces_u8"],
@@ -201,9 +211,10 @@ class CudaBackend:
             "ok": out["ok"][:B].cpu().numpy(),
             "verifiers": tensor_to_u32(out["verifiers"][:B]),
             "out_share": tensor_to_u32(out["out_share"][:B]),
-            "joint_rand_part": out["joint_rand_part"][:B].cpu().numpy(),
-            "corrected_seed": out["corrected_seed"][:B].cpu().numpy(),
         }
+        if self.vdaf.flp.JOINT_RAND_LEN > 0:
+            outputs["joint_rand_part"] = out["joint_rand_part"][:B].cpu().numpy()
+            outputs["corrected_seed"] = out["corrected_seed"][:B].cpu().numpy()
         self.outshare_readback_rows += B
         results: List[List[PrepOutcome]] = []
         start = 0

@@ -11,9 +11,12 @@ from janus_tpu.vdaf import instances as jax_instances
 from janus_tpu.vdaf.backend import OracleBackend as JaxOracleBackend
 from janus_tpu.vdaf.prio3 import Prio3InputShare as JaxInputShare
 from janus_tpu.vdaf.prio3 import VdafError as JaxVdafError
+from janus_tpu_torch.flp import Count, FixedPointBoundedL2VecSum, FlpGeneric
 from janus_tpu_torch.vdaf import instances
 from janus_tpu_torch.vdaf.backend import CudaBackend, OracleBackend
-from janus_tpu_torch.vdaf.prio3 import VdafError
+from janus_tpu_torch.vdaf.prio3 import ALG_PRIO3_COUNT, ALG_PRIO3_FIXEDPOINT_BOUNDED_L2_VEC_SUM, Prio3, VdafError
+from janus_tpu_torch.xof import XofTurboShake128
+from test_torch_small import served_pair_matches_jax_oracle
 
 L, C = 10, 3
 VK = bytes(range(100, 116))
@@ -148,53 +151,31 @@ def test_oracle_backends_agree():
     assert [p.verifiers_share for _, p in port] == [p.verifiers_share for _, p in ref]
 
 
-def test_unported_circuits_raise():
-    with pytest.raises(NotImplementedError):
-        CudaBackend(instances.prio3_sum_vec(4, 2, 2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        CudaBackend(instances.prio3_count(), device="cpu")
+class _OtherXof(XofTurboShake128):
+    """An XOF that is not TurboSHAKE128 to the backend (a distinct class)."""
+
+
+@pytest.mark.parametrize(
+    "make,error",
+    [
+        (lambda: Prio3(FlpGeneric(Count()), ALG_PRIO3_COUNT, num_proofs=2), NotImplementedError),
+        (lambda: Prio3(FlpGeneric(Count()), ALG_PRIO3_COUNT, xof=_OtherXof), VdafError),
+        (lambda: Prio3(FlpGeneric(FixedPointBoundedL2VecSum(4, 3)), ALG_PRIO3_FIXEDPOINT_BOUNDED_L2_VEC_SUM),
+         NotImplementedError),
+    ],
+    ids=["two-proofs", "other-xof", "fixedpoint"],
+)
+def test_unported_circuits_raise(make, error):
+    """What the CUDA backend still refuses: more than one proof, an XOF
+    other than TurboSHAKE128, FixedPointBoundedL2VecSum."""
+    with pytest.raises(error):
+        CudaBackend(make(), device="cpu")
 
 
 def test_sumvec_backend_pair_matches_jax_oracle_backend():
     """Prio3SumVec(10, 1, 3) served leader and helper, combined and
     aggregated, against the JAX package's oracle backend; row 2 tampered."""
-    length, chunk = 10, 3
-    jvdaf = jax_instances.prio3_sum_vec(length, 1, chunk)
-    backend = CudaBackend(instances.prio3_sum_vec(length, 1, chunk), device="cpu")
-    rng = np.random.default_rng(8)
-    meas, leader, helper = [], [], []
-    for i in range(4):
-        m = [int(x) for x in rng.integers(0, 2, length)]
-        nonce = rng.bytes(16)
-        public, shares = jvdaf.shard(m, nonce, rng.bytes(jvdaf.RAND_SIZE))
-        lead = shares[0]
-        if i == 2:
-            bad = list(lead.meas_share)
-            bad[0] = (bad[0] + 1) % jvdaf.flp.field.MODULUS
-            lead = JaxInputShare(bad, lead.proofs_share, None, lead.joint_rand_blind)
-        meas.append(m)
-        leader.append((nonce, public, lead))
-        helper.append((nonce, public, shares[1]))
-    oracle = JaxOracleBackend(jvdaf)
-    got = {}
-    for agg_id, rows in ((0, leader), (1, helper)):
-        got[agg_id] = backend.prep_init_batch(VK, agg_id, rows)
-        for (gs, gp), (ws, wp) in zip(got[agg_id], oracle.prep_init_batch(VK, agg_id, rows)):
-            assert gp.verifiers_share == wp.verifiers_share
-            assert gp.joint_rand_part == wp.joint_rand_part
-            assert gs.corrected_joint_rand_seed == ws.corrected_joint_rand_seed
-            assert gs.out_share == ws.out_share
-    pairs = [[got[0][b][1], got[1][b][1]] for b in range(4)]
-    msgs = backend.prep_shares_to_prep_batch(pairs)
-    want = oracle.prep_shares_to_prep_batch(pairs)
-    assert isinstance(msgs[2], VdafError) and isinstance(want[2], JaxVdafError)
-    assert [m for i, m in enumerate(msgs) if i != 2] == [m for i, m in enumerate(want) if i != 2]
-    mask = np.array([i != 2 for i in range(4)])
-    f = backend.bp.f
-    aggs = [
-        backend.aggregate_batch(
-            f.to_limbs([x for st, _ in got[a] for x in st.out_share]).reshape(4, length, f.n), mask
-        )
-        for a in (0, 1)
-    ]
-    assert jvdaf.unshard(aggs, 3) == np.sum([m for i, m in enumerate(meas) if i != 2], axis=0).tolist()
+    served_pair_matches_jax_oracle(
+        instances.prio3_sum_vec(10, 1, 3), jax_instances.prio3_sum_vec(10, 1, 3),
+        lambda rng: [int(x) for x in rng.integers(0, 2, 10)], count=4, seed=8, tamper=(2,),
+    )

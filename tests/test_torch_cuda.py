@@ -220,3 +220,81 @@ def test_cuda_backend_sumvec_matches_oracle(card):
     from janus_tpu_torch.vdaf.instances import prio3_sum_vec
 
     _served_pairs_match_oracle(prio3_sum_vec(10, 1, 3), lambda rng: [int(x) for x in rng.integers(0, 2, 10)])
+
+
+def test_cuda_backend_count_matches_oracle(card):
+    """Prio3Count (Field64) served on the row path on the card."""
+    from janus_tpu_torch.vdaf.instances import prio3_count
+
+    _served_pairs_match_oracle(prio3_count(), lambda rng: int(rng.integers(0, 2)))
+
+
+@pytest.mark.parametrize("bits", [8, 32])
+def test_cuda_backend_sum_matches_oracle(card, bits):
+    """Prio3Sum on the row path on the card (Sum(32): P = 64, the NTT and
+    baby-step/giant-step)."""
+    from janus_tpu_torch.vdaf.instances import prio3_sum
+
+    _served_pairs_match_oracle(prio3_sum(bits), lambda rng: int(rng.integers(0, 1 << bits)))
+
+
+def test_cuda_backend_sumvec_bits_above_one_matches_oracle(card):
+    """Prio3SumVec(10, 3, 4) on the row path on the card."""
+    from janus_tpu_torch.vdaf.instances import prio3_sum_vec
+
+    _served_pairs_match_oracle(prio3_sum_vec(10, 3, 4), lambda rng: [int(x) for x in rng.integers(0, 8, 10)])
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mont_mul", "sum16", "sum5", "sum70000"])
+def test_field64_plain_ops_on_the_card_match_the_cpu(card, op):
+    """Field64's plain ops as CUDA int64 tensors: a 32x32 product that wraps
+    past 2^63 must keep the CPU's bit pattern.  Operands span every u32
+    limb value, with the largest words and p - 1 among them."""
+    from janus_tpu_torch.fields import Field64
+
+    f = TField(Field64)
+    rng = np.random.default_rng(64)
+    count = 70000 if op == "sum70000" else 4096
+    w = _words(rng, (2, count, 2))
+    w[:, :8] = torch.tensor([[0, 0xFFFFFFFF]] * 8)  # p - 1 = 2^64 - 2^32
+    w[:, 8:16] = torch.tensor([[0xFFFFFFFF, 0xFFFFFFFE]] * 8)  # p - 2
+    a, b = (f.add(x, torch.zeros_like(x)) for x in w)  # canonical: one conditional subtraction of p
+    if op.startswith("sum"):
+        n = int(op[3:])
+        x = a[: (count // n) * n].reshape(-1, n, 2)
+        got, want = f.sum(x.to(card), axis=1), f.sum(x, axis=1)
+    else:
+        got, want = getattr(f, op)(a.to(card), b.to(card)), getattr(f, op)(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("circuit", ["count", "sum32"])
+def test_row_path_on_the_card_matches_the_cpu(card, circuit):
+    """prep_init on the card against prep_init on the CPU at B = 1024
+    (Count in Field64, Sum(32) with its NTT): 32 sharded reports staged by
+    the backend and tiled, every output equal."""
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+    from janus_tpu_torch.vdaf.instances import prio3_count, prio3_sum
+
+    vdaf = prio3_count() if circuit == "count" else prio3_sum(32)
+    rng = np.random.default_rng(1024)
+    reports = []
+    for _ in range(32):
+        nonce = rng.bytes(16)
+        m = int(rng.integers(0, 2 if circuit == "count" else 1 << 32))
+        reports.append((nonce, *vdaf.shard(m, nonce, rng.bytes(vdaf.RAND_SIZE))))
+    host = CudaBackend(vdaf, device="cpu")
+    dev = CudaBackend(vdaf, device=card).bp
+    for agg_id in (0, 1):
+        rows = [(nonce, public, shares[agg_id]) for nonce, public, shares in reports]
+        placed = host.stage_prep_init_multi(agg_id, [(bytes(16), rows)]).placed
+        kw = {k: v.repeat((32,) + (1,) * (v.dim() - 1)) for k, v in placed.items()}
+        vk, nonces = kw.pop("verify_key_u8"), kw.pop("nonces_u8")
+        assert dev.prep_route(agg_id, 1024) == "prep_init"
+        got = dev.prep_init(agg_id, vk.to(card), nonces.to(card), **{k: v.to(card) for k, v in kw.items()})
+        want = host.bp.prep_init(agg_id, vk, nonces, **kw)
+        torch.cuda.synchronize()
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (agg_id, k)

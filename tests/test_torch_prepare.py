@@ -16,6 +16,7 @@ from janus_tpu_torch.ops.field import u32_to_tensor, words
 from janus_tpu_torch.ops.prepare import BatchedPrio3
 from janus_tpu_torch.vdaf import instances
 from janus_tpu_torch.vdaf.prio3 import USAGE_JOINT_RAND_PART, Prio3InputShare
+from test_torch_small import CIRCUITS, served_pair_matches_jax_oracle
 
 L, C = 10, 3
 
@@ -144,11 +145,14 @@ def test_aggregate_is_the_masked_field_sum():
         assert got == [sum(r[i] for r, k in zip(rows, mask) if k) % p for i in range(L)]
 
 
-@pytest.mark.parametrize("ctor", [lambda: instances.prio3_count(), lambda: instances.prio3_sum(8),
-                                  lambda: instances.prio3_sum_vec(4, 2, 3)], ids=["count", "sum", "sumvec"])
-def test_other_circuits_raise(ctor):
-    with pytest.raises(NotImplementedError):
-        BatchedPrio3(ctor(), device="cpu")
+@pytest.mark.parametrize("name", ["count", "sum8", "sumvec423"], ids=["count", "sum", "sumvec"])
+def test_other_circuits_raise(name):
+    """Count, Sum(8) and SumVec(4, 2, 3), which the planar path of the
+    chunked circuits cannot take, served as leader/helper pairs through
+    CudaBackend on the CPU (the row path) against the JAX package's oracle
+    backend."""
+    port_ctor, jax_ctor, measure = CIRCUITS[name]
+    served_pair_matches_jax_oracle(port_ctor(), jax_ctor(), measure, seed=len(name))
 
 
 def test_planar_layout_adapters_round_trip():

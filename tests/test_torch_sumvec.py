@@ -10,6 +10,7 @@ from janus_tpu_torch.ops.field import u32_to_tensor, words
 from janus_tpu_torch.ops.prepare import BatchedPrio3
 from janus_tpu_torch.vdaf import instances
 from test_torch_prepare import _inputs
+from test_torch_small import served_pair_matches_jax_oracle
 
 VK = bytes(range(64, 80))
 
@@ -83,8 +84,15 @@ def test_constants_equal_jax():
 
 
 def test_bits_above_one_raise():
-    with pytest.raises(NotImplementedError):
-        BatchedPrio3(instances.prio3_sum_vec(4, 2, 3), device="cpu")
+    """SumVec(10, 3, 4), whose out share weighs 3 bits an element, served
+    through CudaBackend on the row path (the planar path takes bits == 1
+    only) as a leader/helper pair against the JAX package's oracle."""
+    vdaf = instances.prio3_sum_vec(10, 3, 4)
+    assert BatchedPrio3(vdaf, device="cpu").prep_route(1, 8) == "prep_init"
+    served_pair_matches_jax_oracle(
+        vdaf, jax_instances.prio3_sum_vec(10, 3, 4), lambda rng: [int(x) for x in rng.integers(0, 8, 10)],
+        count=4, seed=3, tamper=(2,),
+    )
 
 
 @pytest.mark.parametrize(
