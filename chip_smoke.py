@@ -53,7 +53,23 @@ Drives the port's paths once each, over TurboSHAKE128 with 2 shares and
     tampered) through the backend's row path, sharded by worker processes
     during the build; the aggregate is exact and sampled rows equal the
     oracle; K1 at its measurement-share squeeze (762 blocks a report) and
-    K2 at its joint-rand-part absorb against their plain versions.
+    K2 at its joint-rand-part absorb against their plain versions;
+11. **Histogram through the executor**: phase 2's 4096 rows, the leader's
+    input shares encoded and decoded as an upload delivers them, submitted
+    to a ``DeviceExecutor`` with the device-resident accumulator as 4 jobs
+    of 1024 rows a side with ``retain_out_shares``, after a warmup at the
+    flush's size; the combine through the executor's combine kind; the
+    accepted rows' ``ResidentRef``s committed per job and drained, the
+    store at its default budget.  One prepare flush a side holds all 4
+    jobs, no out-share row is read back, nothing is evicted,
+    the drained aggregate is the exact histogram of the valid rows, every
+    tampered row is rejected, 16 sampled rows' prepare shares equal the
+    oracle's, and the leader flush is marshalled from the shares' bytes,
+    which equal ``to_limbs`` of the same shares;
+12. **SumVec100k through the executor**: phase 4's 128 rows tiled x8 to
+    B = 1024 (the device batch of phase 5), 4 jobs of 256 rows a side, the
+    same flow and checks; the drained aggregate equals 8x phase 4's; peak
+    device memory.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -86,6 +102,8 @@ SAMPLED = 16
 #: Prio3SumVec(100000, 1, 316): BASELINE.json configs[3], the wide-vector FLP.
 SV_LENGTH, SV_CHUNK = 100000, 316
 SV_DISTINCT, SV_TAMPERED, SV_BATCH, SV_TILE = 2, 8, 128, 8
+#: Submissions a side of the executor phases (11, 12), one flush in all.
+EXECUTOR_JOBS = 4
 #: Batches besides the path's at which K4 is also checked and timed: 128
 #: fills 4 blocks; 33 is not a multiple of 4 (word-at-a-time loads) and
 #: leaves a ragged block.
@@ -780,12 +798,18 @@ def oracle_sample(vdaf, verify_key, leader_rows, helper_rows, results, rng, coun
             compare_row(vdaf, b, agg_id, got[b], (pshare.encode(vdaf), state.out_share, state.corrected_joint_rand_seed))
 
 
-def compare_row(vdaf, b, agg_id, got, want) -> None:
-    """One served row against the oracle's (prep share bytes, out share, seed)."""
+def compare_row(vdaf, b, agg_id, got, want, resident=False) -> None:
+    """One served row against the oracle's (prep share bytes, out share,
+    seed).  With ``resident`` the row's out share must have stayed on the
+    card (a ResidentRef; the drained aggregate holds its value)."""
+    from janus_tpu_torch.executor import ResidentRef
+
     gstate, gshare = got
     if gshare.encode(vdaf) != want[0]:
         raise AssertionError(f"row {b} agg {agg_id}: prepare share differs from the oracle")
-    if gstate.out_share != want[1]:
+    if resident and not isinstance(gstate.out_share, ResidentRef):
+        raise AssertionError(f"row {b} agg {agg_id}: out share left the card")
+    if not resident and gstate.out_share != want[1]:
         raise AssertionError(f"row {b} agg {agg_id}: out share differs from the oracle")
     if gstate.corrected_joint_rand_seed != want[2]:
         raise AssertionError(f"row {b} agg {agg_id}: joint-rand seed differs from the oracle")
@@ -873,7 +897,7 @@ def histogram_phases(vdaf, reports, meas, verify_key, rng, phases):
         "device_combine_ms": combine_ms,
         "device_prep_init_row_path_ms": row_ms,
     }
-    return kernels, record
+    return kernels, record, (leader_rows, helper_rows, tampered, src)
 
 
 def histogram_row_phase(bp, staged) -> dict:
@@ -1155,7 +1179,235 @@ def sumvec_phases(verify_key, rng, done, phases):
         "device_launches": dev_launches,
         "device_peak_memory_bytes": peak,
     }
-    return entry, shapes, record
+    return entry, shapes, record, ((leader_rows, helper_rows, tampered, src), aggs, oracle)
+
+
+def decoded_leader_rows(vdaf, rows):
+    """Leader rows whose input shares went through ``encode`` and ``decode``,
+    as an upload delivers them (one decode per distinct share object, which
+    tiled rows share)."""
+    from janus_tpu_torch.vdaf.prio3 import Prio3InputShare
+
+    decoded = {}
+    out = []
+    for nonce, public, share in rows:
+        if id(share) not in decoded:
+            decoded[id(share)] = Prio3InputShare.decode(vdaf, 0, share.encode(vdaf))
+        out.append((nonce, public, decoded[id(share)]))
+    return out
+
+
+def check_byte_marshal(backend, rows) -> int:
+    """The leader marshal of decoded shares (read from the bytes they
+    arrived in) against ``to_limbs`` of the same shares' values, on one row
+    per distinct share object.  Returns the rows held."""
+    distinct = list({id(r[2]): r for r in rows}.values())
+    if not all(r[2].encoded_vectors is not None for r in distinct):
+        raise AssertionError("a decoded leader share does not carry its bytes")
+    f, B = backend.bp.f, len(distinct)
+    got = backend._leader_limbs(distinct)
+    want = [f.to_limbs([x for r in distinct for x in getattr(r[2], name)]).reshape(B, -1, f.n)
+            for name in ("meas_share", "proofs_share")]
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("the byte-marshalled leader limbs differ from to_limbs of the same shares")
+    return B
+
+
+def executor_for(vdaf, batch: int, warmup: bool):
+    """A ``DeviceExecutor`` with the accumulator at its default budget
+    whose flushes close at ``batch`` rows, and a ``make_backend(vdaf,
+    "cuda")`` backend a side (leader 0, helper 1), each warmed at ``batch``
+    (kernel build and one launch) when ``warmup`` is set.  The warmup's synthetic row is read
+    back; each backend's readback count then restarts at 0 for the job.
+    Returns (executor, backends, warmup seconds or None)."""
+    from janus_tpu_torch.executor import AccumulatorConfig, DeviceExecutor, ExecutorConfig
+    from janus_tpu_torch.vdaf.backend import make_backend
+
+    ex = DeviceExecutor(ExecutorConfig(enabled=True, flush_max_rows=batch, accumulator=AccumulatorConfig(enabled=True)))
+    backends = {a: make_backend(vdaf, "cuda", device=DEVICE) for a in (0, 1)}
+    warm_s = None
+    if warmup:
+        t0 = time.perf_counter()
+        for a, backend in backends.items():
+            ex.warmup_backend(backend, agg_ids=(a,), pad_to=batch)
+            backend.outshare_readback_rows = 0
+        warm_s = time.perf_counter() - t0
+    return ex, backends, warm_s
+
+
+def executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, jobs):
+    """One aggregation job of both sides through the executor ``ex`` and its
+    accumulator: each side's rows as ``jobs`` submissions of equal size with
+    ``retain_out_shares`` to its backend (``backends[agg_id]``), one prepare
+    flush a side; the combine through the executor's combine kind on the
+    helper's backend; the accepted rows' out shares committed per job and
+    drained per side.  Shuts ``ex`` down.  Returns (drained aggregate
+    shares, accepted mask, (leader, helper) outcomes, record)."""
+    import asyncio
+
+    from janus_tpu_torch.core import trace
+    from janus_tpu_torch.executor import KIND_COMBINE, KIND_PREP_INIT, ResidentRef
+    from janus_tpu_torch.vdaf.backend import vdaf_shape_key
+
+    B = len(leader_rows)
+    size = B // jobs
+    key = vdaf_shape_key(vdaf)
+    secs = {}
+    spans = []
+    sink = lambda name, cat, start, dur, args: spans.append((name, dur))  # noqa: E731
+    trace.register_span_sink(sink)
+
+    async def prep(agg_id, rows):
+        outs = await asyncio.gather(*[
+            ex.submit(key, KIND_PREP_INIT, (verify_key, rows[j * size:(j + 1) * size]), backend=backends[agg_id],
+                      agg_id=agg_id, retain_out_shares=True)
+            for j in range(jobs)
+        ])
+        return [o for job in outs for o in job]
+
+    async def combine(lead, help_):
+        pairs = [[lead[b][1], help_[b][1]] for b in range(B)]
+        outs = await asyncio.gather(*[
+            ex.submit(key, KIND_COMBINE, pairs[j * size:(j + 1) * size], backend=backends[1]) for j in range(jobs)
+        ])
+        return [o for job in outs for o in job]
+
+    async def job():
+        t0 = time.perf_counter()
+        lead = await prep(0, leader_rows)
+        secs["leader_prep_init"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        help_ = await prep(1, helper_rows)
+        secs["helper_prep_init"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        msgs = await combine(lead, help_)
+        secs["combine"] = time.perf_counter() - t0
+        return lead, help_, msgs
+
+    try:
+        t_job = time.perf_counter()
+        lead, help_, msgs = asyncio.run(job())
+        accepted = np.zeros(B, dtype=bool)
+        for b, msg in enumerate(msgs):
+            if isinstance(msg, Exception):
+                continue
+            vdaf.prep_next(lead[b][0], msg)
+            vdaf.prep_next(help_[b][0], msg)
+            accepted[b] = True
+        t0 = time.perf_counter()
+        store = ex.accumulator
+        field = vdaf.flp.field
+        for side, outcomes in enumerate((lead, help_)):
+            for j in range(jobs):
+                shares = [(b, outcomes[b][0].out_share) for b in range(j * size, (j + 1) * size)]
+                # rows the oracle recomputed carry field vectors, not refs
+                refs = [(b, s) for b, s in shares if accepted[b] and isinstance(s, ResidentRef)]
+                host = [(b, s) for b, s in shares if accepted[b] and not isinstance(s, ResidentRef)]
+                store.commit_rows(("job", side), backends[side], [s for _, s in refs], job_token=j,
+                                  report_ids=[leader_rows[b][0] for b, _ in refs])
+                store.commit_host_rows(("job", side), field, [s for _, s in host], job_token=j,
+                                       report_ids=[leader_rows[b][0] for b, _ in host])
+                store.release_refs([s for b, s in shares if not accepted[b] and isinstance(s, ResidentRef)])
+        torch.cuda.synchronize()
+        secs["commit"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        aggs = [store.drain(("job", side), field)[0] for side in (0, 1)]
+        secs["drain"] = time.perf_counter() - t0
+        e2e = time.perf_counter() - t_job
+        stats = ex.stats()
+        flights = ex.flight_recorder.snapshot(16)
+        store_stats = store.stats()
+    finally:
+        trace.unregister_span_sink(sink)
+        ex.shutdown()
+    for a in (0, 1):
+        label = next(k for k in stats if f"/a{a}/prep_init#" in k)
+        if stats[label]["flushes"] != 1 or stats[label]["flushed_jobs"] != jobs:
+            raise AssertionError(f"executor: {label} ran {stats[label]} (one flush of {jobs} jobs expected)")
+    readback = {a: b.outshare_readback_rows for a, b in backends.items()}
+    if any(readback.values()):
+        raise AssertionError(f"executor: out-share rows were read back: {readback}")
+    if store_stats["flushes_resident"] or store_stats["resident_bytes"] or store_stats["evictions"]:
+        raise AssertionError(f"executor: the store evicted state or still holds it after the drain: {store_stats}")
+    prep_flights = {r["bucket"].split("#")[0]: r for r in flights if "/prep_init" in r["bucket"]}
+    span_s = {}
+    for name, dur in spans:
+        span_s.setdefault(name, []).append(dur)
+    record = {
+        "reports": B, "jobs": jobs, "seconds": e2e, "reports_per_s": B / e2e, "phases_s": secs,
+        "stage_launch_s": {k: {"stage": r["stage_ms"] / 1e3, "launch": r["launch_ms"] / 1e3} for k, r in prep_flights.items()},
+        "verifier_conversion_s": {("leader", "helper")[a]: dict(b.host_seconds) for a, b in backends.items()},
+        "spans_s": {k: {"count": len(v), "total": sum(v), "max": max(v)} for k, v in span_s.items()},
+        "executor_stats": stats, "accumulator": store_stats, "outshare_readback_rows": readback,
+    }
+    return aggs, accepted, (lead, help_), record
+
+
+def histogram_executor_phase(vdaf, verify_key, batch, meas, rng, phases):
+    """Phase 11: phase 2's batch through the executor and the accumulator,
+    both sides, as 4 jobs of 1,024 rows.  Returns the record."""
+    leader_rows, helper_rows, tampered, src = batch
+    t0 = time.perf_counter()
+    leader_rows = decoded_leader_rows(vdaf, leader_rows)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex, backends, warm_s = executor_for(vdaf, len(leader_rows), warmup=True)
+    (aggs, accepted, results, record), _ = counted(
+        "histogram executor path", KERNEL_NAMES[:3],
+        lambda: executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, EXECUTOR_JOBS),
+    )
+    record["warmup_s"] = warm_s
+    want = np.bincount(np.array(meas)[src[~tampered]], minlength=LENGTH).tolist()
+    if vdaf.unshard(aggs, int(accepted.sum())) != want:
+        raise AssertionError("histogram executor path: drained aggregate differs from the expected histogram")
+    check_decisions(accepted, tampered)
+    for b in rng.choice(len(leader_rows), SAMPLED, replace=False):
+        for agg_id, rows in ((0, leader_rows), (1, helper_rows)):
+            nonce, public, share = rows[b]
+            state, pshare = vdaf.prep_init(verify_key, agg_id, nonce, public, share)
+            compare_row(vdaf, b, agg_id, results[agg_id][b], (pshare.encode(vdaf), None, state.corrected_joint_rand_seed),
+                        resident=True)
+    record["byte_marshal_rows_checked"] = check_byte_marshal(backends[0], leader_rows)
+    record["leader_decode_s"] = decode_s
+    log(f"histogram executor path: one flush a side of {EXECUTOR_JOBS} jobs; drained aggregate exact over "
+        f"{int(accepted.sum())} rows; {int(tampered.sum())} tampered rows rejected; no out-share readback; "
+        f"{SAMPLED} sampled rows' prepare shares equal the oracle; job {record['seconds']:.3f} s")
+    phases["histogram_executor"] = time.perf_counter() - t0
+    return record
+
+
+def sumvec_executor_phase(vdaf, verify_key, batch, served_aggs, oracle, phases):
+    """Phase 12: phase 4's served batch tiled x8 to B = 1024 through the
+    executor and the accumulator, 4 jobs of 256 rows.  Returns the record."""
+    leader_rows, helper_rows, tampered, src = batch
+    p = vdaf.flp.field.MODULUS
+    t0 = time.perf_counter()
+    leader_rows = decoded_leader_rows(vdaf, leader_rows) * SV_TILE
+    helper_rows = helper_rows * SV_TILE
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex, backends, _ = executor_for(vdaf, len(leader_rows), warmup=False)
+    torch.cuda.reset_peak_memory_stats()
+    (aggs, accepted, results, record), _ = counted(
+        "sumvec executor path", ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires"),
+        lambda: executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, EXECUTOR_JOBS),
+    )
+    record["device_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    for side in (0, 1):
+        if aggs[side] != [SV_TILE * x % p for x in served_aggs[side]]:
+            raise AssertionError("sumvec executor path: drained aggregate differs from 8x the B = 128 aggregate")
+    check_decisions(accepted, np.tile(tampered, SV_TILE))
+    for i in range(SV_DISTINCT):
+        b = int(np.flatnonzero((src == i) & ~tampered)[0])
+        for agg_id in (0, 1):
+            compare_row(vdaf, b, agg_id, results[agg_id][b], oracle[i][agg_id], resident=True)
+    record["byte_marshal_rows_checked"] = check_byte_marshal(backends[0], leader_rows)
+    record["leader_decode_s"] = decode_s
+    log(f"sumvec executor path at B = {len(leader_rows)}: one flush a side of {EXECUTOR_JOBS} jobs; drained aggregate "
+        f"equals {SV_TILE}x the B = {SV_BATCH} aggregate; {int((~accepted).sum())} tampered rows rejected; no out-share "
+        f"readback; job {record['seconds']:.3f} s; peak memory {record['device_peak_memory_bytes']} bytes")
+    phases["sumvec_executor"] = time.perf_counter() - t0
+    return record
 
 
 def nvidia_smi(query: str) -> str:
@@ -1175,7 +1427,7 @@ def main() -> int:
         return 2
 
     from janus_tpu_torch import _build
-    from janus_tpu_torch.vdaf.instances import prio3_histogram
+    from janus_tpu_torch.vdaf.instances import prio3_histogram, prio3_sum_vec
 
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -1207,9 +1459,9 @@ def main() -> int:
         done = [j.result() for j in jobs]
         sv8_shards = [x for j in sv8_jobs for x in j.result()]
         phases["sumvec_shard_wait"] = time.perf_counter() - t0
-    kernels, histogram = histogram_phases(hist_vdaf, reports, meas, verify_key, rng, phases)
+    kernels, histogram, hist_batch = histogram_phases(hist_vdaf, reports, meas, verify_key, rng, phases)
     torch.cuda.empty_cache()
-    sv_entry, sv_shapes, sumvec = sumvec_phases(verify_key, rng, done, phases)
+    sv_entry, sv_shapes, sumvec, sv_served = sumvec_phases(verify_key, rng, done, phases)
     kernels.append(sv_entry)
     torch.cuda.empty_cache()
     path_shapes = {}
@@ -1217,6 +1469,10 @@ def main() -> int:
     sum_record, path_shapes["sum_flush"] = sum_phase(verify_key, rng, phases)
     torch.cuda.empty_cache()
     sumvec_bits, path_shapes["sumvec_bits8"] = sumvec_bits_phase(verify_key, rng, sv8_shards, phases)
+    torch.cuda.empty_cache()
+    histogram_executor = histogram_executor_phase(hist_vdaf, verify_key, hist_batch, meas, rng, phases)
+    torch.cuda.empty_cache()
+    sumvec_executor = sumvec_executor_phase(prio3_sum_vec(SV_LENGTH, 1, SV_CHUNK), verify_key, *sv_served, phases)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]] for path, launches in PATH_LAUNCHES.items()}
         for path, shapes in path_shapes.items():
@@ -1232,7 +1488,8 @@ def main() -> int:
 
     log(json.dumps({"phases_s": phases, "profiler_traces": TRACE_TALLY}))
     log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec, "count": count, "sum": sum_record,
-                                   "sumvec_bits8": sumvec_bits}}))
+                                   "sumvec_bits8": sumvec_bits, "histogram_executor": histogram_executor,
+                                   "sumvec_executor": sumvec_executor}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

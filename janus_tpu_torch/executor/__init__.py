@@ -1,0 +1,52 @@
+"""Device executor: process-wide continuous cross-job batching.
+
+Copy of ``janus_tpu/executor`` for the PyTorch port.  See service.py for
+the design.  Importing this package does NOT import torch — control-plane
+processes can hold an ExecutorConfig (and the
+overload / circuit-breaker error types for retry classification) without
+pulling in the device stack.
+"""
+
+from .accumulator import (
+    AccumulatorConfig,
+    AccumulatorError,
+    AccumulatorUnavailable,
+    DeviceAccumulatorStore,
+    ResidentRef,
+    StaleAccumulatorDelta,
+)
+from .service import (
+    KIND_COMBINE,
+    KIND_PREP_INIT,
+    CircuitBreaker,
+    CircuitOpenError,
+    DeviceExecutor,
+    ExecutorConfig,
+    ExecutorOverloadedError,
+    bucket_label,
+    get_global_executor,
+    peek_global_executor,
+    reset_global_executor,
+    shape_label,
+)
+
+__all__ = [
+    "AccumulatorConfig",
+    "AccumulatorError",
+    "AccumulatorUnavailable",
+    "CircuitBreaker",
+    "CircuitOpenError",
+    "DeviceAccumulatorStore",
+    "DeviceExecutor",
+    "ExecutorConfig",
+    "ExecutorOverloadedError",
+    "KIND_COMBINE",
+    "KIND_PREP_INIT",
+    "ResidentRef",
+    "StaleAccumulatorDelta",
+    "bucket_label",
+    "get_global_executor",
+    "peek_global_executor",
+    "reset_global_executor",
+    "shape_label",
+]

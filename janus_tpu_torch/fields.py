@@ -108,7 +108,9 @@ class Field:
 
     @classmethod
     def encode_vec(cls, vec: Sequence[int]) -> bytes:
-        return b"".join(cls.encode_elem(x) for x in vec)
+        # encode_elem inlined: a leader share's marshal encodes every element
+        n = cls.ENCODED_SIZE
+        return b"".join([int(x).to_bytes(n, "little") for x in vec])
 
     @classmethod
     def decode_vec(cls, data: bytes) -> List[int]:

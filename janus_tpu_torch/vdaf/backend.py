@@ -1,11 +1,20 @@
 """Execution backends for Prio3 preparation: CPU oracle and CUDA batch.
 
 Counterpart of ``janus_tpu/vdaf/backend.py`` (``StagedPrepInit``,
-``OracleBackend``, ``TpuBackend``).  ``CudaBackend`` has the same
-duck-typed surface the executor calls: it marshals a flush of reports into
-tensors on the card, runs one batched prepare through the CUDA kernels, reads
-the results back and hands out oracle-level types (``Prio3PrepareState``,
-``Prio3PrepareShare``), byte-identical to the oracle.
+``OracleBackend``, ``TpuBackend`` and the module functions the executor and
+the aggregator call).  ``CudaBackend`` has the same duck-typed surface the
+executor calls: it marshals a flush of reports into tensors on the card,
+runs one batched prepare through the CUDA kernels, reads the results back
+and hands out oracle-level types (``Prio3PrepareState``,
+``Prio3PrepareShare``), byte-identical to the oracle.  With a
+``retain_store`` (``executor/accumulator.py``) the flush's out-share matrix
+stays on the card and each state carries a ``ResidentRef``.
+
+The leader's measurement and proof shares are marshalled from their
+encoding: an encoded field element is its little-endian u32 limbs, so a
+flush becomes one ``np.frombuffer``.  A share decoded from the wire keeps
+the bytes it arrived in (``Prio3InputShare.encoded_vectors``); a share
+built from field integers is encoded first.
 
 A row whose device ``ok`` flag is False (an XOF candidate >= p that the
 protocol's rejection sampling skips, or a query point on a root of unity) is
@@ -15,12 +24,14 @@ a device fallback, and ``oracle_recompute_rows`` counts such rows.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core import faults
 from ..fields import next_power_of_2
 from ..ops.field import tensor_to_u32, u32_to_tensor
 from ..ops.prepare import BatchedPrio3
@@ -46,6 +57,18 @@ class StagedPrepInit:
     rows: int
 
 
+def _observe_prepare(backend: str, phase: str, reports: int, seconds: float) -> None:
+    """Per-backend prepare throughput and latency (``janus_prepare_*``), and
+    the same seconds attributed to the calling thread's task scope
+    (``core/costs.py``), as the reference's hook does."""
+    from ..core import costs
+    from ..core.metrics import GLOBAL_METRICS
+
+    if GLOBAL_METRICS.registry is not None:
+        GLOBAL_METRICS.observe_prepare(backend, phase, reports, seconds)
+    costs.attribute_prepare(backend, phase, seconds)
+
+
 class OracleBackend:
     """Scalar per-report loop over the CPU oracle."""
 
@@ -55,41 +78,49 @@ class OracleBackend:
         self.vdaf = vdaf
 
     def prep_init_batch(self, verify_key: bytes, agg_id: int, reports: Sequence[Report]) -> List[PrepOutcome]:
+        t0 = time.monotonic()
         out: List[PrepOutcome] = []
         for nonce, public_share, input_share in reports:
             try:
                 out.append(self.vdaf.prep_init(verify_key, agg_id, nonce, public_share, input_share))
             except VdafError as e:
                 out.append(e)
+        _observe_prepare(self.name, "init", len(out), time.monotonic() - t0)
         return out
 
     def prep_shares_to_prep_batch(
         self, prep_shares: Sequence[Sequence[Prio3PrepareShare]]
     ) -> List[Union[Optional[bytes], VdafError]]:
+        t0 = time.monotonic()
         out: List[Union[Optional[bytes], VdafError]] = []
         for shares in prep_shares:
             try:
                 out.append(self.vdaf.prep_shares_to_prep(shares))
             except VdafError as e:
                 out.append(e)
+        _observe_prepare(self.name, "combine", len(out), time.monotonic() - t0)
         return out
 
 
-def _req_parts(req):
-    """A request is (verify_key, reports) or (verify_key, reports, actual_vdaf)."""
-    return req[0], req[1], (req[2] if len(req) > 2 else None)
-
-
-def _shape_key(vdaf) -> tuple:
-    valid = vdaf.flp.valid
-    params = tuple(sorted((k, v) for k, v in vars(valid).items() if isinstance(v, (int, str, bool))))
-    return (vdaf.algorithm_id, type(valid).__name__, params, vdaf.num_shares, vdaf.num_proofs)
+def oracle_backend_for(backend, vdaf):
+    """The bit-exact CPU oracle for serving ``vdaf``'s reports when
+    ``backend`` cannot (circuit open, kernels warming, replay):
+    ``backend.oracle_for(vdaf)`` where it has one, else its ``.oracle``
+    (or None when there is none)."""
+    if hasattr(backend, "oracle_for"):
+        return backend.oracle_for(vdaf)
+    return getattr(backend, "oracle", None)
 
 
 class CudaBackend:
     """Batched prepare on the card: one pass of CUDA kernels per flush."""
 
     name = "cuda"
+    #: a flush's out shares can stay on the card, handed back as
+    #: ResidentRefs (executor/accumulator.py) instead of field vectors
+    supports_resident_out_shares = True
+    #: leading-axis rows of an accumulator buffer (one card)
+    accum_buffer_rows = 1
 
     def __init__(self, vdaf: Prio3, device="cuda"):
         if vdaf.xof is not XofTurboShake128:
@@ -99,16 +130,44 @@ class CudaBackend:
         self.bp = BatchedPrio3(vdaf, device=self.device)
         self.oracle = OracleBackend(vdaf)
         self._oracles: Dict[tuple, OracleBackend] = {}
-        #: out-share rows read back from the card by prepare launches
+        #: out-share rows read back from the card by prepare launches (0
+        #: while every flush keeps its out shares resident)
         self.outshare_readback_rows = 0
         #: rows whose device ok flag was False, recomputed by the oracle
         self.oracle_recompute_rows = 0
+        #: host seconds converting verifier shares: ``from_limbs`` after a
+        #: launch (``verifiers_out``) and ``to_limbs`` before a combine
+        #: (``verifiers_in``)
+        self.host_seconds = {"verifiers_out": 0.0, "verifiers_in": 0.0}
+
+    def build_kernels(self) -> None:
+        """Build the CUDA kernels now (one nvcc per source, in parallel) so
+        that no launch pays for it; nothing to build for a CPU backend."""
+        if self.device.type == "cuda":
+            from .. import _build
+
+            _build.build()
+
+    def resident_byte_budget(self) -> Optional[int]:
+        """The accumulator store's resident-byte budget for the flushes this
+        backend mints: a quarter of the card's memory, leaving the rest to
+        the prepare's own working set; None off the card (the store's host
+        default holds)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.get_device_properties(self.device).total_memory // 4
+
+    def _sync(self) -> None:
+        """Wait for the card, so that a timer or span closed next measures
+        device work and not an enqueue."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def oracle_for(self, vdaf=None) -> OracleBackend:
         """The bit-exact CPU oracle for ``vdaf`` (None or own = this backend's)."""
         if vdaf is None or vdaf is self.vdaf:
             return self.oracle
-        key = _shape_key(vdaf)
+        key = vdaf_shape_key(vdaf)
         o = self._oracles.get(key)
         if o is None:
             o = self._oracles[key] = OracleBackend(vdaf)
@@ -135,13 +194,28 @@ class CudaBackend:
             ).reshape(pad_to, vdaf.num_shares, seed_size)
             kw["blinds_u8"] = stack_bytes([r[2].joint_rand_blind for r in reports], seed_size)
         if agg_id == 0:
-            meas = f.to_limbs([x for r in reports for x in r[2].meas_share])
-            proofs = f.to_limbs([x for r in reports for x in r[2].proofs_share])
-            kw["meas_limbs"] = pad_rows(meas.reshape(B, flp.MEAS_LEN, f.n))
-            kw["proofs_limbs"] = pad_rows(proofs.reshape(B, flp.PROOF_LEN * vdaf.num_proofs, f.n))
+            meas, proofs = self._leader_limbs(reports)
+            kw["meas_limbs"] = pad_rows(meas)
+            kw["proofs_limbs"] = pad_rows(proofs)
         else:
             kw["share_seeds_u8"] = stack_bytes([r[2].share_seed for r in reports], seed_size)
         return kw
+
+    def _leader_limbs(self, reports: Sequence[Report]) -> Tuple[np.ndarray, np.ndarray]:
+        """The leader shares' (B, MEAS_LEN, n) and (B, PROOF_LEN, n) uint32
+        limbs: the shares' encodings joined and read by one
+        ``np.frombuffer``.  A decoded share's encoding is the bytes it
+        arrived in (``decode_vec`` has refused any element >= p, so they are
+        canonical limbs); any other share is encoded here."""
+        flp, field, B = self.vdaf.flp, self.vdaf.flp.field, len(reports)
+        width = flp.MEAS_LEN + flp.PROOF_LEN * self.vdaf.num_proofs
+        encoded = b"".join(
+            getattr(r[2], "encoded_vectors", None)
+            or field.encode_vec(r[2].meas_share) + field.encode_vec(r[2].proofs_share)
+            for r in reports
+        )
+        both = np.frombuffer(encoded, dtype="<u4").reshape(B, width, self.bp.f.n)
+        return both[:, : flp.MEAS_LEN], both[:, flp.MEAS_LEN :]
 
     def _pad_to(self, B: int) -> int:
         """Power-of-two buckets, as the JAX backend pads."""
@@ -169,7 +243,7 @@ class CudaBackend:
         flat: List[Report] = []
         vk_rows: List[np.ndarray] = []
         for req in requests:
-            verify_key, reports, _actual = _req_parts(req)
+            verify_key, reports = req
             flat.extend(reports)
             vk_rows.extend([np.frombuffer(verify_key, dtype=np.uint8)] * len(reports))
         if not flat:
@@ -191,39 +265,88 @@ class CudaBackend:
         the row path, which is the faster one on the card."""
         return getattr(self.bp, self.bp.prep_route(agg_id, pad_to))
 
-    def launch_prep_init_multi(self, staged: StagedPrepInit, requests) -> List[List[PrepOutcome]]:
+    def launch_prep_init_multi(self, staged: StagedPrepInit, requests, retain_store=None) -> List[List[PrepOutcome]]:
         """Device half: run the batched prepare, read back once, slice the
-        results per request."""
+        results per request.
+
+        With ``retain_store`` (a DeviceAccumulatorStore) the (pad, OUT, n)
+        out-share matrix stays on the card, adopted by the store, and each
+        ok row's state carries a ResidentRef: only the verdict outputs (ok,
+        verifiers, joint-rand parts) are read back."""
+        # Failure-domain boundary: an injected launch fault stands for a
+        # lost or failing card; the executor's breaker and the driver's
+        # retries must degrade gracefully.  The oracle has no such point.
+        faults.fire("backend.launch")
+        faults.fire("backend.device_lost")
         agg_id, B = staged.agg_id, staged.rows
-        kw = dict(staged.placed)
-        vk = kw.pop("verify_key_u8")
-        out = self._prep_fn(agg_id, staged.pad_to)(
-            agg_id,
-            vk,
-            kw["nonces_u8"],
-            share_seeds_u8=kw.get("share_seeds_u8"),
-            meas_limbs=kw.get("meas_limbs"),
-            proofs_limbs=kw.get("proofs_limbs"),
-            blinds_u8=kw.get("blinds_u8"),
-            public_parts_u8=kw.get("public_parts_u8"),
-        )
-        outputs = {
-            "ok": out["ok"][:B].cpu().numpy(),
-            "verifiers": tensor_to_u32(out["verifiers"][:B]),
-            "out_share": tensor_to_u32(out["out_share"][:B]),
-        }
-        if self.vdaf.flp.JOINT_RAND_LEN > 0:
-            outputs["joint_rand_part"] = out["joint_rand_part"][:B].cpu().numpy()
-            outputs["corrected_seed"] = out["corrected_seed"][:B].cpu().numpy()
-        self.outshare_readback_rows += B
-        results: List[List[PrepOutcome]] = []
-        start = 0
-        for req in requests:
-            verify_key, reports, actual = _req_parts(req)
-            n = len(reports)
-            view = {k: v[start : start + n] for k, v in outputs.items()}
-            results.append(self._unmarshal_prep(verify_key, agg_id, reports, view, actual_vdaf=actual))
-            start += n
+        from ..core.metrics import GLOBAL_METRICS
+        from ..core.trace import trace_span
+
+        if GLOBAL_METRICS.registry is not None:
+            GLOBAL_METRICS.device_launches.labels(backend=self.name).inc()
+            GLOBAL_METRICS.device_reports.labels(backend=self.name).inc(B)
+        t0 = time.monotonic()
+        resident = None
+        try:
+            with trace_span("prep_launch", cat="device", backend=self.name, batch=B):
+                kw = dict(staged.placed)
+                vk = kw.pop("verify_key_u8")
+                out = self._prep_fn(agg_id, staged.pad_to)(
+                    agg_id,
+                    vk,
+                    kw["nonces_u8"],
+                    share_seeds_u8=kw.get("share_seeds_u8"),
+                    meas_limbs=kw.get("meas_limbs"),
+                    proofs_limbs=kw.get("proofs_limbs"),
+                    blinds_u8=kw.get("blinds_u8"),
+                    public_parts_u8=kw.get("public_parts_u8"),
+                )
+                outputs = {"ok": out["ok"][:B].cpu().numpy(), "verifiers": tensor_to_u32(out["verifiers"][:B])}
+                if self.vdaf.flp.JOINT_RAND_LEN > 0:
+                    outputs["joint_rand_part"] = out["joint_rand_part"][:B].cpu().numpy()
+                    outputs["corrected_seed"] = out["corrected_seed"][:B].cpu().numpy()
+                if retain_store is not None:
+                    matrix = out["out_share"]
+                    nbytes = matrix.numel() * matrix.element_size()
+                    resident = (retain_store.retain_flush(self, matrix, B, nbytes), 0)
+                else:
+                    outputs["out_share"] = tensor_to_u32(out["out_share"][:B])
+                    self.outshare_readback_rows += B
+                del out
+                self._sync()
+            _observe_prepare(self.name, "init", B, time.monotonic() - t0)
+            results: List[List[PrepOutcome]] = []
+            start = 0
+            for req in requests:
+                verify_key, reports = req
+                n = len(reports)
+                view = {k: v[start : start + n] for k, v in outputs.items()}
+                results.append(
+                    self._unmarshal_prep(
+                        verify_key,
+                        agg_id,
+                        reports,
+                        view,
+                        resident=None if resident is None else (resident[0], start),
+                    )
+                )
+                start += n
+        except Exception:
+            if resident is not None:
+                # a failure after the store adopted the matrix must not
+                # strand the flush: release every row (release is idempotent)
+                from ..executor.accumulator import ResidentRef
+
+                retain_store.release_refs([ResidentRef(resident[0], r) for r in range(B)])
+            raise
+        if resident is not None:
+            # rows the oracle recomputed (device ok False) minted no ref;
+            # release them so the flush can free
+            from ..executor.accumulator import ResidentRef
+
+            dead = [ResidentRef(resident[0], r) for r in np.flatnonzero(~outputs["ok"]).tolist()]
+            if dead:
+                retain_store.release_refs(dead)
         return results
 
     def prep_init_multi(self, agg_id: int, requests) -> List[List[PrepOutcome]]:
@@ -236,23 +359,36 @@ class CudaBackend:
             return [[] for _ in requests]
         return self.launch_prep_init_multi(staged, requests)
 
-    def _unmarshal_prep(self, verify_key, agg_id, reports, out, actual_vdaf=None) -> List[PrepOutcome]:
+    def _unmarshal_prep(self, verify_key, agg_id, reports, out, resident=None) -> List[PrepOutcome]:
+        """``resident=(flush_id, start_row)`` means the out-share matrix
+        stayed on the card (accumulator store): states carry ResidentRefs
+        instead of field vectors.  A row whose device ``ok`` is False is
+        recomputed by the oracle (the protocol's rule)."""
         flp, f = self.vdaf.flp, self.bp.f
-        out_len = (actual_vdaf or self.vdaf).flp.OUTPUT_LEN
-        oracle = self.oracle_for(actual_vdaf)
+        out_len = flp.OUTPUT_LEN
         has_jr = flp.JOINT_RAND_LEN > 0
+        t0 = time.perf_counter()
+        ver_len = out["verifiers"].shape[1]
+        verifiers = f.from_limbs(out["verifiers"])
+        self.host_seconds["verifiers_out"] += time.perf_counter() - t0
+        if resident is not None:
+            from ..executor.accumulator import ResidentRef
+
+            flush_id, start_row = resident
         results: List[PrepOutcome] = []
         for b in range(len(reports)):
             if not out["ok"][b]:
                 self.oracle_recompute_rows += 1
-                results.extend(oracle.prep_init_batch(verify_key, agg_id, [reports[b]]))
+                results.extend(self.oracle.prep_init_batch(verify_key, agg_id, [reports[b]]))
                 continue
             state = Prio3PrepareState(
-                out_share=f.from_limbs(out["out_share"][b, :out_len]),
+                out_share=f.from_limbs(out["out_share"][b, :out_len])
+                if resident is None
+                else ResidentRef(flush_id, start_row + b),
                 corrected_joint_rand_seed=out["corrected_seed"][b].tobytes() if has_jr else None,
             )
             share = Prio3PrepareShare(
-                verifiers_share=f.from_limbs(out["verifiers"][b]),
+                verifiers_share=verifiers[b * ver_len : (b + 1) * ver_len],
                 joint_rand_part=out["joint_rand_part"][b].tobytes() if has_jr else None,
             )
             results.append((state, share))
@@ -264,6 +400,7 @@ class CudaBackend:
         """Combine the aggregators' prepare shares and decide, per report."""
         if not prep_shares:
             return []
+        faults.fire("backend.combine")
         vdaf, flp, f = self.vdaf, self.vdaf.flp, self.bp.f
         S = vdaf.num_shares
         bad_rows = {i for i, row in enumerate(prep_shares) if len(row) != S}
@@ -279,7 +416,9 @@ class CudaBackend:
         ver_len = flp.VERIFIER_LEN * vdaf.num_proofs
         vs, parts = [], []
         for a in range(S):
+            t0 = time.perf_counter()
             limbs = f.to_limbs([x for row in prep_shares for x in row[a].verifiers_share])
+            self.host_seconds["verifiers_in"] += time.perf_counter() - t0
             limbs = limbs.reshape(B, ver_len, f.n)
             limbs = np.concatenate([limbs, np.repeat(limbs[-1:], pad_to - B, axis=0)])
             vs.append(torch.from_numpy(limbs.astype(np.int64)).to(self.device))
@@ -289,9 +428,12 @@ class CudaBackend:
                 ).reshape(B, vdaf.xof.SEED_SIZE)
                 arr = np.concatenate([arr, np.repeat(arr[-1:], pad_to - B, axis=0)])
                 parts.append(torch.from_numpy(arr).to(self.device))
+        t0 = time.monotonic()
         out = self.bp.prep_shares_to_prep(vs, parts if has_jr else None)
         decide = out["decide"][:B].cpu().numpy()
         seeds = out["prep_msg_seed"][:B].cpu().numpy() if has_jr else None
+        self._sync()
+        _observe_prepare(self.name, "combine", B, time.monotonic() - t0)
         results: List[Union[Optional[bytes], VdafError]] = []
         for b in range(B):
             if not decide[b]:
@@ -305,15 +447,18 @@ class CudaBackend:
     # -- aggregation -------------------------------------------------------
     def accumulate_rows(self, buffer, matrix: torch.Tensor, mask: np.ndarray):
         """Add the ``mask``-selected rows of an out-share matrix (pad, OUT, n)
-        on the card to ``buffer`` ((OUT, n) limbs; None starts one)."""
+        to ``buffer`` ((OUT, n) int64 words on the card; None starts one).
+        Device work only, no readback; a matrix the store evicted to the
+        host goes back to the card for the sum."""
         f = self.bp.f
         m = torch.from_numpy(np.asarray(mask, dtype=bool)).to(self.device)
-        delta = self.bp.aggregate(matrix, m)
+        delta = self.bp.aggregate(matrix.to(self.device), m)
         if buffer is None:
             return delta
         return f.add(buffer, delta)
 
     def read_accum_buffer(self, buffer) -> List[int]:
+        """The drain's readback: ONE (OUT,) field vector."""
         return self.bp.f.from_limbs(tensor_to_u32(buffer))
 
     def aggregate_batch(self, out_shares_limbs, mask) -> List[int]:
@@ -328,3 +473,91 @@ class CudaBackend:
             m = np.concatenate([m, np.zeros(pad_to - B, dtype=bool)])
         agg = self.bp.aggregate(u32_to_tensor(shares, self.device), torch.from_numpy(m).to(self.device))
         return self.bp.f.from_limbs(tensor_to_u32(agg))
+
+
+BACKENDS = {"oracle": OracleBackend, "cuda": CudaBackend}
+
+
+def vdaf_shape_key(vdaf) -> tuple:
+    """Key a VDAF by its full parameterization: tasks sharing it share one
+    backend instance, one executor bucket and one breaker.  Every public
+    scalar circuit parameter takes part (derived lengths alone are
+    ambiguous: SumVec(length=100, bits=2) and SumVec(length=200, bits=1)
+    share MEAS_LEN but not OUTPUT_LEN), and so does the XOF.  Equal to the
+    reference's ``vdaf_shape_key`` for the same VDAF, so both packages land
+    the same VDAF in the same buckets."""
+    flp = getattr(vdaf, "flp", None)
+    valid = getattr(flp, "valid", None)
+    circuit_params = None
+    if valid is not None:
+        circuit_params = tuple(
+            sorted(
+                (k, v if isinstance(v, (int, str, bool)) else getattr(v, "__name__", str(v)))
+                for k, v in vars(valid).items()
+                if not k.startswith("_") and not isinstance(v, (list, dict))
+            )
+        )
+    return (
+        type(vdaf).__name__,
+        type(valid).__name__ if valid is not None else None,
+        circuit_params,
+        getattr(vdaf, "algorithm_id", None),
+        getattr(vdaf, "num_shares", None),
+        getattr(vdaf, "num_proofs", None),
+        getattr(getattr(vdaf, "xof", None), "__name__", None),
+        # FLP-less VDAFs (Poplar1) parameterize by their input bit width
+        getattr(vdaf, "bits", None) if valid is None else None,
+    )
+
+
+#: Circuits the port's device prepare serves (``ops/prepare.py``
+#: ``_device_circuit``), as a name set so that a control-plane process can
+#: classify a VDAF without building anything.  FixedPointBoundedL2VecSum
+#: joins with the multi-gadget plane (ROADMAP.md queue 1 item 5).
+DEVICE_CIRCUITS = {"Count", "Sum", "SumVec", "Histogram"}
+
+
+def device_supported(vdaf) -> Tuple[bool, str]:
+    """Whether the port's CUDA prepare serves this VDAF: (ok, reason).
+
+    Duck-typed (a Prio3 is anything with an ``flp``), so it classifies the
+    reference's VDAF objects too."""
+    if getattr(vdaf, "flp", None) is None:
+        name = type(vdaf).__name__
+        if name == "Poplar1":
+            return False, "Poplar1 has no device path in the port yet (ROADMAP.md queue 1 item 8)"
+        return False, f"{name} is not a Prio3 VDAF"
+    circuit = type(vdaf.flp.valid).__name__
+    if circuit not in DEVICE_CIRCUITS:
+        return False, f"no device circuit for {circuit}"
+    xof = getattr(vdaf.xof, "__name__", str(vdaf.xof))
+    if xof != XofTurboShake128.__name__:
+        return False, f"{xof} has no device path in the port yet (ROADMAP.md queue 1 item 7, the HMAC multiproof)"
+    if vdaf.num_proofs != 1:
+        return False, f"the device prepare serves one proof, not {vdaf.num_proofs}"
+    return True, ""
+
+
+def device_path_label(vdaf) -> str:
+    """Human-readable routing status for provisioning surfaces: which
+    accelerated path serves this VDAF, or the oracle's reason."""
+    ok, reason = device_supported(vdaf)
+    if not ok:
+        return f"cpu-oracle ({reason})"
+    return "cuda: batched device prepare, executor kind=prep_init/combine"
+
+
+def make_backend(vdaf, backend: str = "cuda", device=None):
+    """Backend factory: ``"cuda"`` (the default: ``CudaBackend`` on
+    ``device``, the card unless the caller names another) or ``"oracle"``
+    (the CPU oracle, only when named).  An unknown name raises VdafError,
+    and so does ``"cuda"`` with no card to run on: there is no quiet
+    fallback to the oracle."""
+    if backend not in BACKENDS:
+        raise VdafError(f"unknown backend {backend!r}")
+    if backend == "oracle":
+        return OracleBackend(vdaf)
+    device = torch.device(device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise VdafError("the cuda backend needs a CUDA card, and none is available")
+    return CudaBackend(vdaf, device=device)

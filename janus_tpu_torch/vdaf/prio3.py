@@ -14,7 +14,7 @@ aggregator/src/aggregator.rs:2101).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 from ..flp.generic import FlpGeneric
@@ -45,6 +45,21 @@ class VdafError(Exception):
     pass
 
 
+class ReadOnlyVector(list):
+    """A list that refuses change in place: the vectors of a decoded leader
+    share, which must stay equal to the bytes they were decoded from.
+    Equal to a plain list of the same elements."""
+
+    def _refuse(self, *args, **kwargs):
+        raise TypeError("a decoded input share's vectors are read-only: build a new share instead")
+
+    __setitem__ = __delitem__ = __iadd__ = __imul__ = _refuse
+    append = extend = insert = pop = remove = clear = sort = reverse = _refuse
+
+    def __reduce__(self):
+        return (type(self), (list(self),))
+
+
 @dataclass
 class Prio3InputShare:
     """Leader share carries explicit vectors; helpers carry seeds."""
@@ -53,6 +68,19 @@ class Prio3InputShare:
     proofs_share: Optional[List[int]] = None  # leader only (all proofs, concatenated)
     share_seed: Optional[bytes] = None  # helpers only
     joint_rand_blind: Optional[bytes] = None  # present iff circuit uses joint rand
+    #: leader only, set by ``decode``: the measurement and proof vectors as
+    #: they arrived, ENCODED_SIZE little-endian bytes an element, which are
+    #: the element's u32 limbs; the device backend marshals a flush from
+    #: them.  Not part of the share's value: equality and ``encode`` ignore
+    #: it.  It cannot go stale: ``decode`` makes the vectors read-only,
+    #: assigning either vector drops it, and ``dataclasses.replace`` does
+    #: not carry it over (it is no constructor argument).
+    encoded_vectors: Optional[bytes] = field(default=None, init=False, compare=False, repr=False)
+
+    def __setattr__(self, name, value):
+        if name in ("meas_share", "proofs_share"):
+            object.__setattr__(self, "encoded_vectors", None)
+        object.__setattr__(self, name, value)
 
     def encode(self, prio3: "Prio3") -> bytes:
         f = prio3.flp.field
@@ -78,11 +106,13 @@ class Prio3InputShare:
             proofs_len = prio3.flp.PROOF_LEN * prio3.num_proofs * f.ENCODED_SIZE
             if len(data) != meas_len + proofs_len:
                 raise VdafError("bad leader input share length")
-            return Prio3InputShare(
-                meas_share=f.decode_vec(data[:meas_len]),
-                proofs_share=f.decode_vec(data[meas_len:]),
+            share = Prio3InputShare(
+                meas_share=ReadOnlyVector(f.decode_vec(data[:meas_len])),
+                proofs_share=ReadOnlyVector(f.decode_vec(data[meas_len:])),
                 joint_rand_blind=blind,
             )
+            share.encoded_vectors = bytes(data)
+            return share
         if len(data) != prio3.xof.SEED_SIZE:
             raise VdafError("bad helper input share length")
         return Prio3InputShare(share_seed=data, joint_rand_blind=blind)

@@ -179,3 +179,182 @@ def test_sumvec_backend_pair_matches_jax_oracle_backend():
         instances.prio3_sum_vec(10, 1, 3), jax_instances.prio3_sum_vec(10, 1, 3),
         lambda rng: [int(x) for x in rng.integers(0, 2, 10)], count=4, seed=8, tamper=(2,),
     )
+
+
+# -- the executor surface ----------------------------------------------------
+
+SHAPES = {
+    "count": (lambda m: m.prio3_count(), lambda r: int(r.integers(0, 2))),
+    "sum8": (lambda m: m.prio3_sum(8), lambda r: int(r.integers(0, 256))),
+    "sumvec": (lambda m: m.prio3_sum_vec(9, 1, 4), lambda r: [int(x) for x in r.integers(0, 2, 9)]),
+    "histogram": (lambda m: m.prio3_histogram(17, 5), lambda r: int(r.integers(0, 17))),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_vdaf_shape_key_equals_the_jax_package(shape):
+    from janus_tpu.vdaf.backend import vdaf_shape_key as jax_shape_key
+    from janus_tpu_torch.vdaf.backend import vdaf_shape_key
+
+    make, _ = SHAPES[shape]
+    assert vdaf_shape_key(make(instances)) == jax_shape_key(make(jax_instances))
+    keys = {vdaf_shape_key(m(instances)) for m, _ in SHAPES.values()}
+    assert len(keys) == len(SHAPES)
+
+
+@pytest.mark.parametrize(
+    "shape,ok,reason",
+    [
+        ("count", True, ""),
+        ("sum8", True, ""),
+        ("sumvec", True, ""),
+        ("histogram", True, ""),
+        ("fixedpoint", False, "no device circuit for FixedPointBoundedL2VecSum"),
+        ("hmac-multiproof", False, "XofHmacSha256Aes128 has no device path in the port yet (ROADMAP.md queue 1 item 7"),
+    ],
+)
+def test_device_supported_and_path_label(shape, ok, reason):
+    """What the port's device path serves, and the reason it states for
+    what it does not (the two unported families are the JAX package's
+    instances: the port has neither constructor yet)."""
+    from janus_tpu_torch.vdaf.backend import device_path_label, device_supported
+
+    if shape == "fixedpoint":
+        vdaf = Prio3(FlpGeneric(FixedPointBoundedL2VecSum(4, 3)), ALG_PRIO3_FIXEDPOINT_BOUNDED_L2_VEC_SUM)
+    elif shape == "hmac-multiproof":
+        vdaf = jax_instances.prio3_sum_vec_field64_multiproof_hmacsha256_aes128(2, 4, 1, 2)
+    else:
+        vdaf = SHAPES[shape][0](instances)
+    got_ok, got_reason = device_supported(vdaf)
+    assert got_ok == ok and got_reason.startswith(reason)
+    label = device_path_label(vdaf)
+    if ok:
+        assert label.startswith("cuda: batched device prepare")
+    else:
+        assert label == f"cpu-oracle ({got_reason})"
+
+
+@pytest.mark.parametrize("shape", ["count", "histogram"])
+def test_byte_marshal_equals_the_int_marshal(shape):
+    """Leader shares decoded from their bytes (Field64 for Count, Field128
+    for Histogram) marshal from the bytes they arrived in; shares built
+    from field integers are encoded first; both give the same staged
+    arrays, and the leader's limbs equal ``to_limbs`` of the values."""
+    make, measure = SHAPES[shape]
+    vdaf = make(instances)
+    backend = CudaBackend(vdaf, device="cpu")
+    rng = np.random.default_rng(len(shape))
+    from_ints, from_bytes = [], []
+    for _ in range(3):
+        nonce = rng.bytes(16)
+        public, shares = vdaf.shard(measure(rng), nonce, rng.bytes(vdaf.RAND_SIZE))
+        decoded = type(shares[0]).decode(vdaf, 0, shares[0].encode(vdaf))
+        assert decoded == shares[0] and decoded.encoded_vectors is not None and shares[0].encoded_vectors is None
+        from_ints.append((nonce, public, shares[0]))
+        from_bytes.append((nonce, public, decoded))
+    a = backend._marshal(0, from_ints, 4)
+    b = backend._marshal(0, from_bytes, 4)
+    assert set(a) == set(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    f, flp = backend.bp.f, vdaf.flp
+    meas = f.to_limbs([x for _, _, s in from_ints for x in s.meas_share]).reshape(3, flp.MEAS_LEN, f.n)
+    assert np.array_equal(b["meas_limbs"][:3], meas)
+
+
+@pytest.mark.parametrize("change", ["replace", "assign", "in_place"])
+def test_a_changed_leader_share_marshals_its_new_values(change):
+    """A decoded share's bytes cannot go stale: ``dataclasses.replace``
+    builds a share without them, assigning a vector drops them, and the
+    decoded vectors refuse change in place."""
+    import dataclasses
+
+    vdaf = instances.prio3_histogram(L, C)
+    backend = CudaBackend(vdaf, device="cpu")
+    nonce = bytes(16)
+    public, shares = vdaf.shard(3, nonce, bytes(vdaf.RAND_SIZE))
+    decoded = type(shares[0]).decode(vdaf, 0, shares[0].encode(vdaf))
+    bad = list(decoded.meas_share)
+    bad[0] = (bad[0] + 1) % vdaf.flp.field.MODULUS
+    if change == "in_place":
+        with pytest.raises(TypeError, match="read-only"):
+            decoded.meas_share[0] = bad[0]
+        with pytest.raises(TypeError, match="read-only"):
+            decoded.proofs_share.append(0)
+        assert decoded.meas_share != bad and decoded.encoded_vectors is not None
+        changed = type(decoded)(bad, decoded.proofs_share, None, decoded.joint_rand_blind)
+    elif change == "replace":
+        changed = dataclasses.replace(decoded, meas_share=bad)
+    else:
+        changed = decoded
+        changed.meas_share = bad
+    assert changed.encoded_vectors is None
+    got = backend._marshal(0, [(nonce, public, changed)], 1)["meas_limbs"]
+    assert np.array_equal(got[0], backend.bp.f.to_limbs(bad))
+
+
+def test_launch_fault_opens_the_breaker_and_the_oracle_serves_the_same_bytes():
+    """An injected ``backend.launch`` fault fails the flush; after the
+    breaker's threshold the executor refuses the shape (CircuitOpenError),
+    and the oracle the caller then takes serves the same prepare shares as
+    the healthy backend does."""
+    import asyncio
+
+    from janus_tpu_torch.core import faults
+    from janus_tpu_torch.core.faults import FaultInjectedError, FaultSpec
+    from janus_tpu_torch.executor import KIND_PREP_INIT, CircuitOpenError, DeviceExecutor, ExecutorConfig
+    from janus_tpu_torch.vdaf.backend import oracle_backend_for, vdaf_shape_key
+
+    vdaf = instances.prio3_histogram(L, C)
+    backend = CudaBackend(vdaf, device="cpu")
+    _, _, leader, _ = _reports(2, seed=9)
+    key = vdaf_shape_key(vdaf)
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.001, breaker_failure_threshold=2))
+
+    async def submit():
+        return await ex.submit(key, KIND_PREP_INIT, (VK, leader), backend=backend)
+
+    faults.configure([FaultSpec("backend.launch", "error", 1.0)], seed=1)
+    try:
+        for _ in range(2):
+            with pytest.raises(FaultInjectedError):
+                asyncio.run(submit())
+        assert ex.circuit_open(key)
+        with pytest.raises(CircuitOpenError):
+            asyncio.run(submit())
+    finally:
+        faults.clear()
+        ex.shutdown()
+    (circuit,) = ex.circuit_stats().values()
+    assert circuit["state"] == "open" and circuit["trips"] == 1
+    served = oracle_backend_for(backend, vdaf).prep_init_batch(VK, 0, leader)
+    healthy = backend.prep_init_batch(VK, 0, leader)
+    assert [p.encode(vdaf) for _, p in served] == [p.encode(vdaf) for _, p in healthy]
+    assert [s.out_share for s, _ in served] == [s.out_share for s, _ in healthy]
+
+
+@pytest.mark.parametrize("name", ["tpu", "mesh", "oracle ", "cuda", None])
+def test_make_backend_refuses_what_it_cannot_serve(name):
+    """Unknown names raise VdafError; so do "cuda" and the default, which
+    is "cuda", with no card: no quiet fallback to the oracle or the CPU."""
+    from janus_tpu_torch.vdaf.backend import make_backend
+
+    if name in ("cuda", None):
+        import torch
+
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA card is present: make_backend('cuda') serves it")
+    args = () if name is None else (name,)
+    with pytest.raises(VdafError):
+        make_backend(instances.prio3_count(), *args)
+
+
+def test_make_backend_builds_what_it_names():
+    """The default is the card's backend (on the device the caller names);
+    the oracle only when named."""
+    from janus_tpu_torch.vdaf.backend import make_backend
+
+    vdaf = instances.prio3_count()
+    assert type(make_backend(vdaf, "oracle")) is OracleBackend
+    for backend in (make_backend(vdaf, device="cpu"), make_backend(vdaf, "cuda", device="cpu")):
+        assert type(backend) is CudaBackend and backend.device.type == "cpu"

@@ -298,3 +298,49 @@ def test_row_path_on_the_card_matches_the_cpu(card, circuit):
         assert set(got) == set(want)
         for k in want:
             assert torch.equal(got[k].cpu(), want[k]), (agg_id, k)
+
+
+def test_executor_resident_flush_on_the_card(card):
+    """A 64-row Histogram(1024, 316) flush of both sides through the
+    executor with the accumulator at its default budget (a quarter of the
+    card's memory): no out-share row is read back, nothing is evicted, and
+    each side's drained aggregate equals ``aggregate_batch`` over the same
+    flush's out shares read back (the backend's non-resident launch)."""
+    import asyncio
+
+    from janus_tpu_torch.executor import KIND_PREP_INIT, AccumulatorConfig, DeviceExecutor, ExecutorConfig
+    from janus_tpu_torch.vdaf.backend import make_backend, vdaf_shape_key
+    from janus_tpu_torch.vdaf.instances import prio3_histogram
+    from janus_tpu_torch.vdaf.prio3 import Prio3InputShare
+
+    vdaf = prio3_histogram(1024, 316)
+    rng = np.random.default_rng(64)
+    reports = []
+    for _ in range(4):
+        nonce = rng.bytes(16)
+        public, shares = vdaf.shard(int(rng.integers(0, 1024)), nonce, rng.bytes(vdaf.RAND_SIZE))
+        shares[0] = Prio3InputShare.decode(vdaf, 0, shares[0].encode(vdaf))
+        reports.append((nonce, public, shares))
+    vk = bytes(16)
+    ex = DeviceExecutor(ExecutorConfig(enabled=True, flush_max_rows=64, accumulator=AccumulatorConfig(enabled=True)))
+    try:
+        for agg_id in (0, 1):
+            backend = make_backend(vdaf, "cuda")
+            rows = [(n, p, s[agg_id]) for n, p, s in reports] * 16
+            out = asyncio.run(
+                ex.submit(vdaf_shape_key(vdaf), KIND_PREP_INIT, (vk, rows), backend=backend, agg_id=agg_id,
+                          retain_out_shares=True)
+            )
+            ex.accumulator.commit_rows((agg_id,), backend, [st.out_share for st, _ in out], job_token=b"job",
+                                       report_ids=[r[0] for r in rows])
+            drained, _ = ex.accumulator.drain((agg_id,), vdaf.flp.field)
+            assert backend.outshare_readback_rows == 0
+            plain = backend.prep_init_batch(vk, agg_id, rows)
+            f = backend.bp.f
+            limbs = f.to_limbs([x for st, _ in plain for x in st.out_share]).reshape(64, 1024, f.n)
+            assert drained == backend.aggregate_batch(limbs, np.ones(64, dtype=bool))
+        store = ex.accumulator
+        assert store.byte_budget == torch.cuda.get_device_properties(0).total_memory // 4
+        assert store.evictions == 0
+    finally:
+        ex.shutdown()

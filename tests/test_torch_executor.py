@@ -1,0 +1,403 @@
+"""The port's device executor (janus_tpu_torch/executor/service.py).
+
+The cases of tests/test_executor.py that need no aggregator, on the port's
+copy: scheduling (bucketing, flush triggers, backpressure, deadlines,
+failure propagation) against a stub backend that touches no device, and
+coalesced flushes through ``CudaBackend(device="cpu")`` held byte for byte
+against the JAX package's ``OracleBackend``."""
+
+import asyncio
+import threading
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+from janus_tpu.vdaf import instances as jax_instances
+from janus_tpu.vdaf.backend import OracleBackend as JaxOracleBackend
+from janus_tpu_torch.executor import (
+    KIND_COMBINE,
+    KIND_PREP_INIT,
+    DeviceExecutor,
+    ExecutorConfig,
+    ExecutorOverloadedError,
+    bucket_label,
+)
+from janus_tpu_torch.fields import next_power_of_2
+from janus_tpu_torch.vdaf import instances
+from janus_tpu_torch.vdaf.backend import CudaBackend, OracleBackend, vdaf_shape_key
+
+
+def _run(coro, timeout=30.0):
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(asyncio.wait_for(coro, timeout))
+    finally:
+        loop.close()
+
+
+class _StubBackend:
+    """Stage/launch seam double: records mega-batches, touches no device."""
+
+    def __init__(self, launch_gate: threading.Event = None, fail: bool = False):
+        self.vdaf = SimpleNamespace()
+        self.launches = []  # rows per request of each mega-batch
+        self.staged_pads = []
+        self.combine_batches = []
+        self._gate = launch_gate
+        self._fail = fail
+
+    def stage_prep_init_multi(self, agg_id, requests, pad_to=None):
+        rows = sum(len(r) for _, r in requests)
+        if rows == 0:
+            return None
+        self.staged_pads.append(max(pad_to or 0, next_power_of_2(rows)))
+        return SimpleNamespace(agg_id=agg_id, placed=None, pad_to=self.staged_pads[-1], rows=rows)
+
+    def launch_prep_init_multi(self, staged, requests):
+        if self._fail:
+            raise RuntimeError("device on fire")
+        if self._gate is not None:
+            assert self._gate.wait(10), "test launch gate never opened"
+        self.launches.append([len(r) for _, r in requests])
+        return [[("prep", vk, i) for i in range(len(reports))] for vk, reports in requests]
+
+    def prep_shares_to_prep_batch(self, rows):
+        self.combine_batches.append(len(rows))
+        return [("combined", i) for i in range(len(rows))]
+
+
+# -- bucketing / padding -----------------------------------------------------
+
+
+def test_distinct_shape_kind_aggid_get_distinct_buckets():
+    backend = _StubBackend()
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.005, flush_max_rows=1024))
+
+    async def go():
+        await asyncio.gather(
+            ex.submit(("shapeA",), KIND_PREP_INIT, (b"k1", [1, 2]), backend=backend),
+            ex.submit(("shapeA",), KIND_PREP_INIT, (b"k2", [3]), backend=backend),
+            ex.submit(("shapeB",), KIND_PREP_INIT, (b"k3", [4]), backend=backend),
+            ex.submit(("shapeA",), KIND_COMBINE, [[1], [2]], backend=backend),
+            ex.submit(("shapeA",), KIND_PREP_INIT, (b"k4", [5]), backend=backend, agg_id=1),
+        )
+
+    _run(go())
+    ex.shutdown()
+    # same (shape, kind, agg_id) coalesce; anything else separates
+    assert len(ex._buckets) == 4
+    assert [sorted(x) for x in backend.launches].count([1, 2]) == 1
+    assert 4 in backend.staged_pads  # the 4-row shapeA/a0 mega-batch, pow2-padded
+
+
+def test_pow2_padding_and_warmup_override():
+    """The port's backend pads a flush to the next power of two; an
+    explicit ``pad_to`` (the warmup's target) wins, and the warmup launches
+    one synthetic row per side at that size."""
+    backend = CudaBackend(instances.prio3_count(), device="cpu")
+    rows = [(n, p, s[1]) for n, p, s in _shard(backend.vdaf, lambda r: 1, 3, 0)]
+    assert backend.stage_prep_init_multi(1, [(bytes(16), rows)]).pad_to == 4
+    staged = backend.stage_prep_init_multi(1, [(bytes(16), rows)], pad_to=16)
+    assert staged.pad_to == 16 and staged.rows == 3
+    assert staged.placed["share_seeds_u8"].shape[0] == 16
+    ex = DeviceExecutor(ExecutorConfig(warmup_rows=8))
+    assert ex.warmup_backend(backend, agg_ids=(0, 1)) == 2
+    ex.shutdown()
+    assert backend.outshare_readback_rows == 2  # one real row a side, padded to 8
+
+
+def test_warmup_through_backend_for_records_compile_stats():
+    backend = CudaBackend(instances.prio3_count(), device="cpu")
+    ex = DeviceExecutor(ExecutorConfig(warmup_rows=4, warmup_async=False))
+    key = vdaf_shape_key(backend.vdaf)
+    assert ex.backend_for(key, lambda: backend) is backend
+    ex.shutdown()
+    (stats,) = ex.compile_stats().values()
+    assert stats["state"] == "warm" and stats["compile_s"] is not None and stats["error"] is None
+
+
+def test_empty_submission_short_circuits():
+    backend = _StubBackend()
+    ex = DeviceExecutor(ExecutorConfig())
+
+    async def go():
+        return await ex.submit(("s",), KIND_PREP_INIT, (b"k", []), backend=backend)
+
+    assert _run(go()) == []
+    ex.shutdown()
+    assert backend.launches == []
+
+
+def test_breakers_are_per_shape_and_retire_with_their_buckets():
+    """A failing shape opens its own circuit only; once idle, a closed
+    circuit retires with its bucket and an open one stays."""
+    sick, healthy = _StubBackend(fail=True), _StubBackend()
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.001, breaker_failure_threshold=1))
+
+    async def go():
+        return await asyncio.gather(
+            ex.submit(("sick",), KIND_PREP_INIT, (b"k", [0]), backend=sick),
+            ex.submit(("healthy",), KIND_PREP_INIT, (b"k", [0]), backend=healthy),
+            return_exceptions=True,
+        )
+
+    failed, ok = _run(go())
+    assert isinstance(failed, RuntimeError) and ok == [("prep", b"k", 0)]
+    assert ex.circuit_open(("sick",)) and not ex.circuit_open(("healthy",))
+    assert sorted(c["state"] for c in ex.circuit_stats().values()) == ["closed", "open"]
+    assert ex.retire_idle_buckets(max_idle_s=0.0) == 2
+    assert [c["state"] for c in ex.circuit_stats().values()] == ["open"]
+    ex.shutdown()
+
+
+def test_bucket_label_is_compact():
+    assert bucket_label(OracleBackend(instances.prio3_count()), KIND_PREP_INIT, 0) == "Count/a0/prep_init"
+
+
+# -- flush triggers ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("trigger", ["deadline", "size"])
+def test_flush_coalesces_concurrent_jobs(trigger):
+    """Two jobs ride ONE flush: the window's deadline fires it, or (with an
+    absurdly long window) the size trigger does without waiting."""
+    backend = _StubBackend()
+    if trigger == "deadline":
+        config = ExecutorConfig(flush_window_s=0.01, flush_max_rows=10_000)
+    else:
+        config = ExecutorConfig(flush_window_s=60.0, flush_max_rows=5)
+    ex = DeviceExecutor(config)
+
+    async def go():
+        return await asyncio.gather(
+            ex.submit(("s",), KIND_PREP_INIT, (b"k1", [0, 1]), backend=backend),
+            ex.submit(("s",), KIND_PREP_INIT, (b"k2", [0, 1, 2]), backend=backend),
+        )
+
+    t0 = time.monotonic()
+    a, b = _run(go(), timeout=10.0)
+    elapsed = time.monotonic() - t0
+    ex.shutdown()
+    assert backend.launches == [[2, 3]], "both jobs must ride ONE flush"
+    assert len(a) == 2 and len(b) == 3
+    assert elapsed < 5.0
+    stats = next(iter(ex.stats().values()))
+    assert stats["flushes"] == 1 and stats["flushed_jobs"] == 2
+
+
+def test_combine_kind_coalesces_and_slices():
+    backend = _StubBackend()
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.01, flush_max_rows=10_000))
+
+    async def go():
+        return await asyncio.gather(
+            ex.submit(("s",), KIND_COMBINE, [[1], [2]], backend=backend),
+            ex.submit(("s",), KIND_COMBINE, [[3]], backend=backend),
+        )
+
+    a, b = _run(go())
+    ex.shutdown()
+    assert backend.combine_batches == [3], "one concatenated combine launch"
+    assert a == [("combined", 0), ("combined", 1)] and b == [("combined", 2)]
+
+
+# -- backpressure ------------------------------------------------------------
+
+
+def test_oversized_submission_admitted_on_empty_bucket():
+    """A job larger than max_queue_rows still runs when nothing is queued
+    ahead of it: a deterministic rejection would fail it on every retry."""
+    backend = _StubBackend()
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.01, flush_max_rows=10_000, max_queue_rows=2))
+
+    async def go():
+        return await ex.submit(("s",), KIND_PREP_INIT, (b"k1", [0, 1, 2, 3, 4]), backend=backend)
+
+    assert len(_run(go())) == 5
+    ex.shutdown()
+
+
+@pytest.mark.parametrize("ahead", ["queued", "in_flight"])
+def test_backpressure_rejects_past_the_queue_bound(ahead):
+    """Rows queued, or already flushed and in flight, count against the
+    bucket's bound; the submission that would pass it is rejected."""
+    gate = threading.Event()
+    backend = _StubBackend(launch_gate=gate)
+    # in flight: 3 rows size-flush at once and park on the launch gate
+    max_rows = 10_000 if ahead == "queued" else 3
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=60.0, flush_max_rows=max_rows, max_queue_rows=4))
+
+    async def go():
+        first = asyncio.ensure_future(ex.submit(("s",), KIND_PREP_INIT, (b"k1", [0, 1, 2]), backend=backend))
+        await asyncio.sleep(0.05)
+        with pytest.raises(ExecutorOverloadedError):
+            await ex.submit(("s",), KIND_PREP_INIT, (b"k2", [0, 1]), backend=backend)
+        if ahead == "queued":
+            first.cancel()
+            return None
+        gate.set()
+        return await first
+
+    out = _run(go())
+    gate.set()
+    ex.shutdown()
+    stats = next(iter(ex.stats().values()))
+    assert stats["rejections"] == 1
+    if ahead == "in_flight":
+        assert len(out) == 3
+
+
+def test_deadline_expired_submission_rejected_at_flush():
+    backend = _StubBackend()
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.05, flush_max_rows=10_000))
+
+    async def go():
+        # a deadline far shorter than the flush window: expires while queued
+        with pytest.raises(ExecutorOverloadedError):
+            await ex.submit(("s",), KIND_PREP_INIT, (b"k1", [0]), backend=backend, deadline_s=1e-4)
+
+    _run(go())
+    ex.shutdown()
+    stats = next(iter(ex.stats().values()))
+    assert stats["rejections"] == 1 and stats["flushes"] == 0
+
+
+def test_deadline_expiry_between_take_pending_and_flush_rejects_retryably():
+    """A submission whose deadline passes after the size trigger detached it
+    but before its flush runs is rejected retryably, never dropped with an
+    unresolved future and never launched past its deadline."""
+    backend = _StubBackend()
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=60.0, flush_max_rows=10_000))
+
+    async def go():
+        fut = asyncio.ensure_future(
+            ex.submit(("s",), KIND_PREP_INIT, (b"k1", [0]), backend=backend, deadline_s=0.02)
+        )
+        await asyncio.sleep(0)
+        with ex._lock:
+            bucket = next(iter(ex._buckets.values()))
+            subs = ex._take_pending(bucket)
+        assert subs
+        await asyncio.sleep(0.05)
+        await ex._run_flush(bucket, subs, trigger="size")
+        with pytest.raises(ExecutorOverloadedError):
+            await fut
+
+    _run(go())
+    ex.shutdown()
+    stats = next(iter(ex.stats().values()))
+    assert stats["rejections"] == 1 and stats["depth_rows"] == 0
+    assert backend.launches == []
+
+
+# -- error propagation -------------------------------------------------------
+
+
+def test_launch_failure_propagates_to_every_job_in_the_flush():
+    backend = _StubBackend(fail=True)
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.01, flush_max_rows=10_000))
+
+    async def go():
+        return await asyncio.gather(
+            ex.submit(("s",), KIND_PREP_INIT, (b"k1", [0]), backend=backend),
+            ex.submit(("s",), KIND_PREP_INIT, (b"k2", [0]), backend=backend),
+            return_exceptions=True,
+        )
+
+    a, b = _run(go())
+    ex.shutdown()
+    assert isinstance(a, RuntimeError) and isinstance(b, RuntimeError)
+
+
+# -- CudaBackend on the CPU against the JAX package's oracle -----------------
+
+
+def _shard(jvdaf, measure, count, seed):
+    rng = np.random.default_rng(seed)
+    reports = []
+    for _ in range(count):
+        nonce = rng.bytes(16)
+        public, shares = jvdaf.shard(measure(rng), nonce, rng.bytes(jvdaf.RAND_SIZE))
+        reports.append((nonce, public, shares))
+    return reports
+
+
+@pytest.mark.parametrize(
+    "circuit",
+    [
+        ("count", lambda: instances.prio3_count(), lambda: jax_instances.prio3_count(), lambda r: int(r.integers(0, 2))),
+        (
+            "histogram",
+            lambda: instances.prio3_histogram(17, 5),
+            lambda: jax_instances.prio3_histogram(17, 5),
+            lambda r: int(r.integers(0, 17)),
+        ),
+    ],
+    ids=lambda c: c[0],
+)
+def test_coalesced_results_byte_identical_to_jax_oracle(circuit):
+    """Two tasks' submissions coalesce into one flush a side and one combine
+    flush; every prepare share, out share, seed and prep message equals the
+    JAX package's OracleBackend byte for byte."""
+    _, port_vdaf, jax_vdaf, measure = circuit
+    vdaf, jvdaf = port_vdaf(), jax_vdaf()
+    backend = CudaBackend(vdaf, device="cpu")
+    oracle = JaxOracleBackend(jvdaf)
+    key = vdaf_shape_key(vdaf)
+    vks = (b"\x01" * 16, b"\x02" * 16)
+    tasks = (_shard(jvdaf, measure, 3, 1), _shard(jvdaf, measure, 2, 2))
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.02, flush_max_rows=1024))
+
+    async def go():
+        outs = {}
+        for agg_id in (0, 1):
+            outs[agg_id] = await asyncio.gather(*[
+                ex.submit(key, KIND_PREP_INIT, (vk, [(n, p, s[agg_id]) for n, p, s in rows]), backend=backend,
+                          agg_id=agg_id)
+                for vk, rows in zip(vks, tasks)
+            ])
+        msgs = await asyncio.gather(*[
+            ex.submit(key, KIND_COMBINE, [[a[1], h[1]] for a, h in zip(outs[0][t], outs[1][t])], backend=backend)
+            for t in range(2)
+        ])
+        return outs, msgs
+
+    outs, msgs = _run(go(), timeout=120.0)
+    ex.shutdown()
+    stats = ex.stats()
+    assert all(s["flushes"] == 1 and s["flushed_jobs"] == 2 for s in stats.values()), stats
+    for t, (vk, rows) in enumerate(zip(vks, tasks)):
+        want = {a: oracle.prep_init_batch(vk, a, [(n, p, s[a]) for n, p, s in rows]) for a in (0, 1)}
+        for a in (0, 1):
+            for (gs, gp), (ws, wp) in zip(outs[a][t], want[a]):
+                assert gp.encode(vdaf) == wp.encode(jvdaf)
+                assert gs.out_share == ws.out_share
+                assert gs.corrected_joint_rand_seed == ws.corrected_joint_rand_seed
+        assert msgs[t] == oracle.prep_shares_to_prep_batch([[w0[1], w1[1]] for w0, w1 in zip(want[0], want[1])])
+
+
+@pytest.mark.parametrize(
+    "point,rel",
+    [
+        ("executor.flush", "executor/service.py"),
+        ("backend.launch", "vdaf/backend.py"),
+        ("backend.device_lost", "vdaf/backend.py"),
+        ("backend.combine", "vdaf/backend.py"),
+        ("accumulator.spill", "executor/accumulator.py"),
+        ("accumulator.evict", "executor/accumulator.py"),
+    ],
+)
+def test_port_wires_its_fault_points(point, rel):
+    """Each fault point of the executor slice is a KNOWN_POINTS name and is
+    fired at its call site in the port (a renamed point fails here rather
+    than silently stop injecting).  The control plane's points come with
+    its copy."""
+    from pathlib import Path
+
+    import janus_tpu_torch
+    from janus_tpu_torch.core import faults
+
+    assert point in faults.KNOWN_POINTS
+    assert f'"{point}"' in (Path(janus_tpu_torch.__file__).parent / rel).read_text()
