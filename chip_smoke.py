@@ -69,7 +69,27 @@ Drives the port's paths once each, over TurboSHAKE128 with 2 shares and
 12. **SumVec100k through the executor**: phase 4's 128 rows tiled x8 to
     B = 1024 (the device batch of phase 5), 4 jobs of 256 rows a side, the
     same flow and checks; the drained aggregate equals 8x phase 4's; peak
-    device memory.
+    device memory;
+13. **The leader/helper pair**: a leader and a helper ``Aggregator``, each
+    with its own SQLite ``EphemeralDatastore`` and its own
+    ``DeviceExecutor`` with the accumulator at its default budget, the
+    backend ``make_backend``'s ``CudaBackend``, joined by the in-process
+    transport (``aggregator/test_util.py``) on a ``MockClock``; one task a
+    family at its published width on the time-interval query: Count and
+    Sum(bits=32) at 1,024 reports sharded in the phase, Histogram(1024,
+    316) at 512 (phase 1's 64 and 448 sharded by worker processes during
+    the build), each with 8 tampered, and SumVec(100000, 1, 316) at phase
+    4's 2 reports; each report uploaded under its shard nonce as report
+    ID.  Each side's executor is warmed first; every report is sealed to
+    both aggregators and uploaded through ``handle_upload``, the creator
+    cuts jobs of 256, the driver steps the first job alone and the rest
+    together, and a collector collects.  The aggregate and report count
+    are exact, no out share is read back or recomputed, no oracle serves a
+    row, no breaker trips, every leader row is marshalled from its bytes,
+    and each family's kernels launch; upload, creator, first job, the
+    other jobs, collection and end-to-end seconds, uploads/s and
+    reports/s, flushes a side, busy seconds by layer and peak memory go
+    under ``pair`` in the ``end_to_end`` line.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -125,6 +145,13 @@ SUM_TILE = 32
 #: that shard them.
 SV8 = (1000, 8, 89)
 SV8_REPORTS, SV8_WORKERS, SV8_SAMPLED = 64, 2, 4
+#: Phase 13, the leader/helper pair: reports a task (each with its own
+#: report ID), of which PAIR_TAMPERED carry a perturbed leader measurement
+#: share; the creator's job size; the histogram reports beyond phase 2's 64,
+#: sharded by worker processes during the build; concurrent uploads a wave.
+PAIR_COUNT_REPORTS = PAIR_SUM_REPORTS = 1024
+PAIR_HIST_REPORTS, PAIR_HIST_WORKERS = 512, 4
+PAIR_TAMPERED, PAIR_JOB_SIZE, PAIR_UPLOAD_WAVE = 8, 256, 256
 #: Where the paths run (the card; a CPU rehearsal of the script sets "cpu").
 DEVICE = "cuda"
 #: Largest |kernel - plain| allowed over u32 words: the arithmetic is exact
@@ -355,13 +382,20 @@ def counters():
     )))
 
 
-def counted(path: str, needs, fn):
-    """Run one path with every launch counter at 0 just before it and read
-    just after; fail if a kernel the path needs was never launched."""
+def zero_counters():
+    """Set every launch counter to 0, once the card has run what came
+    before; returns the counted wrappers by name."""
     fns = counters()
     torch.cuda.synchronize()
     for w in fns.values():
         w.launches = 0
+    return fns
+
+
+def counted(path: str, needs, fn):
+    """Run one path with every launch counter at 0 just before it and read
+    just after; fail if a kernel the path needs was never launched."""
+    fns = zero_counters()
     result = fn()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in fns.items()}
@@ -434,6 +468,18 @@ def sumvec_bits_shard_job(seed: int, worker: int, count: int):
     vdaf = prio3_sum_vec(*SV8)
     rng = np.random.default_rng([seed, 100 + worker])
     reports, meas = shard_reports(vdaf, rng, lambda r: [int(x) for x in r.integers(0, 1 << SV8[1], SV8[0])], count)
+    return list(zip(meas, reports))
+
+
+def histogram_shard_job(seed: int, worker: int, count: int):
+    """``count`` distinct Prio3Histogram(1024, 316) reports sharded by the
+    port's oracle (run in a worker process): [(measurement, (nonce, public
+    share, input shares))]."""
+    from janus_tpu_torch.vdaf.instances import prio3_histogram
+
+    vdaf = prio3_histogram(LENGTH, CHUNK)
+    rng = np.random.default_rng([seed, 200 + worker])
+    reports, meas = shard_reports(vdaf, rng, lambda r: int(r.integers(0, LENGTH)), count)
     return list(zip(meas, reports))
 
 
@@ -1223,7 +1269,7 @@ def executor_for(vdaf, batch: int, warmup: bool):
     from janus_tpu_torch.executor import AccumulatorConfig, DeviceExecutor, ExecutorConfig
     from janus_tpu_torch.vdaf.backend import make_backend
 
-    ex = DeviceExecutor(ExecutorConfig(enabled=True, flush_max_rows=batch, accumulator=AccumulatorConfig(enabled=True)))
+    ex = DeviceExecutor(ExecutorConfig(flush_max_rows=batch, accumulator=AccumulatorConfig(enabled=True)))
     backends = {a: make_backend(vdaf, "cuda", device=DEVICE) for a in (0, 1)}
     warm_s = None
     if warmup:
@@ -1410,6 +1456,295 @@ def sumvec_executor_phase(vdaf, verify_key, batch, served_aggs, oracle, phases):
     return record
 
 
+def tamper(vdaf, shares):
+    """The input shares with the leader's first measurement element
+    perturbed, which the proof then fails."""
+    from janus_tpu_torch.vdaf.prio3 import Prio3InputShare
+
+    lead = shares[0]
+    ms = list(lead.meas_share)
+    ms[0] = (ms[0] + 1) % vdaf.flp.field.MODULUS
+    bad = Prio3InputShare(meas_share=ms, proofs_share=lead.proofs_share, joint_rand_blind=lead.joint_rand_blind)
+    return [bad] + list(shares[1:])
+
+
+def tally_calls(owner, attr: str, tally: dict, key: str):
+    """Wrap ``owner.attr`` (a function or coroutine function, on an
+    instance or a module) so that each call adds its seconds to
+    ``tally[key]`` as [calls, total, max].  Returns the undo.  Calls on
+    worker threads overlap, so a total is busy time, not wall time."""
+    import inspect
+
+    orig = getattr(owner, attr)
+    had = attr in vars(owner)
+    slot = tally.setdefault(key, [0, 0.0, 0.0])
+
+    def add(t0):
+        d = time.perf_counter() - t0
+        slot[0] += 1
+        slot[1] += d
+        slot[2] = max(slot[2], d)
+
+    if inspect.iscoroutinefunction(orig):
+        async def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return await orig(*a, **k)
+            finally:
+                add(t0)
+    else:
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                add(t0)
+    setattr(owner, attr, wrapped)
+    return lambda: setattr(owner, attr, orig) if had else delattr(owner, attr)
+
+
+def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
+    """One task through the leader/helper pair on the card: each side an
+    ``Aggregator`` with its own ``EphemeralDatastore`` and its own
+    ``DeviceExecutor`` with the accumulator on (``make_backend``'s
+    ``CudaBackend`` at the default budget), joined by the in-process
+    transport, on a ``MockClock``.  ``shards`` are (measurement, (nonce,
+    public share, input shares)); report i goes up under report ID nonce i,
+    with its leader share perturbed where ``tampered[i]``.  Every report is
+    sealed to both aggregators and uploaded through ``handle_upload``, the
+    creator cuts jobs of PAIR_JOB_SIZE, the driver steps the first job alone
+    and the rest together (the helper answers through its executor), and a
+    collector collects.  Raises unless the aggregate is ``expect`` over
+    exactly the untampered reports, no out share was read back or recomputed,
+    no oracle served a row, no breaker tripped, every leader row was
+    marshalled from its bytes and the kernels ``needs`` launched.  Returns
+    the record."""
+    import asyncio
+
+    from janus_tpu_torch.core import hpke_batch, trace
+    from janus_tpu_torch.aggregator import (
+        AggregationJobCreator, AggregationJobDriver, Aggregator, CollectionJobDriver, Config, CreatorConfig,
+        DriverConfig,
+    )
+    from janus_tpu_torch.aggregator.test_util import InProcessNetwork
+    from janus_tpu_torch.client import seal_report
+    from janus_tpu_torch.collector import Collector
+    from janus_tpu_torch.core.auth_tokens import AuthenticationToken
+    from janus_tpu_torch.core.hpke import HpkeKeypair
+    from janus_tpu_torch.core.time import MockClock
+    from janus_tpu_torch.datastore import AggregatorTask, TaskQueryType
+    from janus_tpu_torch.datastore.test_util import EphemeralDatastore
+    from janus_tpu_torch.executor import AccumulatorConfig, DeviceExecutor, ExecutorConfig
+    from janus_tpu_torch.messages import Duration, Interval, Query, ReportId, Role, TaskId, Time
+    from janus_tpu_torch.utils.gcm import HAVE_FUNCTIONAL_CRYPTOGRAPHY
+    from janus_tpu_torch.vdaf.backend import make_backend, vdaf_shape_key
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+
+    precision = 3600
+    now = 1_600_002_000
+    start = now - now % precision
+    agg_token, col_token = AuthenticationToken.new_bearer("pair-agg"), AuthenticationToken.new_bearer("pair-col")
+    vdaf = vdaf_from_instance(desc)
+    key = vdaf_shape_key(vdaf)
+    secs = {}
+    rec = {"reports": len(shards), "tampered": int(sum(tampered)),
+           "hpke_route": "cryptography" if HAVE_FUNCTIONAL_CRYPTOGRAPHY else "pure"}
+    # busy seconds by layer: [calls, total, max] of the handlers, the
+    # datastore transactions, the HPKE opens, the driver's steps and the
+    # executor's spans
+    layers = {}
+    spans = []
+    sink = lambda name, cat, start, dur, args: spans.append((name, dur))  # noqa: E731
+
+    async def run():
+        clock = MockClock(Time(now))
+        ds = {side: EphemeralDatastore(clock) for side in ("leader", "helper")}
+        ex = {side: DeviceExecutor(ExecutorConfig(accumulator=AccumulatorConfig(enabled=True)))
+              for side in ds}
+        aggs = {side: Aggregator(ds[side].datastore, clock, Config(
+            vdaf_device=DEVICE, device_executor=ex[side], max_upload_batch_write_delay=0.02)) for side in ds}
+        net = InProcessNetwork()
+        urls = {side: net.add(side, agg) for side, agg in aggs.items()}
+        undo = [tally_calls(aggs["leader"], "handle_upload", layers, "leader upload handler"),
+                tally_calls(aggs["helper"], "handle_aggregate_init", layers, "helper aggregate-init handler"),
+                tally_calls(aggs["leader"], "handle_create_collection_job", layers, "leader collection handler"),
+                tally_calls(aggs["helper"], "handle_aggregate_share", layers, "helper aggregate-share handler"),
+                tally_calls(hpke_batch, "open_batch", layers, "hpke open_batch")]
+        undo += [tally_calls(ds[side].datastore, "run_tx", layers, f"{side} datastore tx") for side in ds]
+        trace.register_span_sink(sink)
+        try:
+            task_id = TaskId.random()
+            collector_keys = HpkeKeypair.generate(9)
+            common = dict(task_id=task_id, query_type=TaskQueryType.time_interval(), vdaf=desc,
+                          vdaf_verify_key=verify_key, min_batch_size=1, time_precision=Duration(precision),
+                          collector_hpke_config=collector_keys.config)
+            tasks = {
+                "leader": AggregatorTask(peer_aggregator_endpoint=urls["helper"], role=Role.LEADER,
+                                         aggregator_auth_token=agg_token, collector_auth_token_hash=col_token.hash(),
+                                         hpke_keys=[HpkeKeypair.generate(1)], **common),
+                "helper": AggregatorTask(peer_aggregator_endpoint=urls["leader"], role=Role.HELPER,
+                                         aggregator_auth_token_hash=agg_token.hash(),
+                                         hpke_keys=[HpkeKeypair.generate(2)], **common),
+            }
+            for side in ds:
+                ds[side].datastore.run_tx("put", lambda tx, t=tasks[side]: tx.put_aggregator_task(t))
+            # Warm each side's executor before the first upload: its backend
+            # (the one the driver and the helper will take from the cache)
+            # builds the kernels and launches once at the flush size of this
+            # task's jobs.  The launch counters then go back to 0, so that
+            # they count the pair's own run and nothing of the warmup.
+            t0 = time.perf_counter()
+            backends = {}
+            for agg_id, side in enumerate(ds):
+                b = backends[side] = ex[side].backend_for(key, lambda: make_backend(vdaf, "cuda", device=DEVICE))
+                ex[side].warmup_backend(b, agg_ids=(agg_id,), pad_to=min(PAIR_JOB_SIZE, len(shards)))
+                b.outshare_readback_rows = 0
+                b.leader_marshal_rows = {"bytes": 0, "values": 0}
+                b.oracle.rows = {"init": 0, "combine": 0}
+            secs["warmup"] = time.perf_counter() - t0
+            zero_counters()
+            configs = [tasks[side].hpke_keys[0].config for side in ("leader", "helper")]
+            t0 = time.perf_counter()
+            sealed = [seal_report(vdaf, task_id, *configs, ReportId(nonce), Time(start), public,
+                                  tamper(vdaf, shares) if bad else shares)
+                      for (_m, (nonce, public, shares)), bad in zip(shards, tampered)]
+            secs["seal"] = time.perf_counter() - t0
+            session = net.session()
+            t_e2e = time.perf_counter()
+
+            async def upload(report):
+                async with session.put(f"{urls['leader']}tasks/{task_id}/reports", data=report.get_encoded()) as r:
+                    if r.status != 201:
+                        raise AssertionError(f"pair {name}: upload answered {r.status}: {await r.text()}")
+
+            for i in range(0, len(sealed), PAIR_UPLOAD_WAVE):
+                await asyncio.gather(*[upload(r) for r in sealed[i:i + PAIR_UPLOAD_WAVE]])
+            secs["upload"] = time.perf_counter() - t_e2e
+            t0 = time.perf_counter()
+            await AggregationJobCreator(ds["leader"].datastore, CreatorConfig(
+                min_aggregation_job_size=1, max_aggregation_job_size=PAIR_JOB_SIZE)).run_once()
+            secs["creator"] = time.perf_counter() - t0
+            driver = AggregationJobDriver(ds["leader"].datastore, net.session, DriverConfig(
+                vdaf_device=DEVICE, device_executor=ex["leader"]))
+            undo.append(tally_calls(driver, "step_aggregation_job", layers, "leader driver step"))
+            leases = await ds["leader"].datastore.run_tx_async(
+                "acquire", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(600), 1 << 10))
+            rec["jobs"] = len(leases)
+            t0 = time.perf_counter()
+            await driver.step_aggregation_job(leases[0])
+            secs["first_job"] = time.perf_counter() - t0
+            rec["first_job_helper_init_s"] = layers["helper aggregate-init handler"][1]
+            t0 = time.perf_counter()
+            await asyncio.gather(*[driver.step_aggregation_job(lease) for lease in leases[1:]])
+            secs["other_jobs"] = time.perf_counter() - t0
+            left = await ds["leader"].datastore.run_tx_async(
+                "acquire", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(600), 1 << 10))
+            if left:
+                raise AssertionError(f"pair {name}: {len(left)} aggregation jobs still incomplete after one step")
+            await driver.close()
+            collector = Collector(task_id=task_id, leader_endpoint=urls["leader"], vdaf=vdaf, auth_token=col_token,
+                                  hpke_keypair=collector_keys, poll_interval=0.02, max_poll_time=600.0)
+            collection_driver = CollectionJobDriver(ds["leader"].datastore, net.session)
+
+            async def drive_collection():
+                while True:
+                    leases = await ds["leader"].datastore.run_tx_async(
+                        "acquire", lambda tx: tx.acquire_incomplete_collection_jobs(Duration(600), 8))
+                    for lease in leases:
+                        await collection_driver.step_collection_job(lease)
+                    if leases:
+                        return
+                    await asyncio.sleep(0.01)
+
+            t0 = time.perf_counter()
+            query = Query.new_time_interval(Interval(Time(start), Duration(precision)))
+            result, _ = await asyncio.gather(collector.collect(query, session=session), drive_collection())
+            secs["collection"] = time.perf_counter() - t0
+            secs["end_to_end"] = time.perf_counter() - t_e2e
+            await collection_driver.close()
+            return result, backends, {s: ex[s].stats() for s in ex}, {s: ex[s].circuit_stats() for s in ex}
+        finally:
+            trace.unregister_span_sink(sink)
+            for u in undo:
+                u()
+            for side in ds:
+                await aggs[side].shutdown()
+                ex[side].shutdown()
+                ds[side].cleanup()
+
+    torch.cuda.reset_peak_memory_stats()
+    (result, backends, stats, circuits), launches = counted(f"pair {name}", needs, lambda: asyncio.run(run()))
+    valid = [m for (m, _r), bad in zip(shards, tampered) if not bad]
+    if result.report_count != len(valid) or result.aggregate_result != expect(valid):
+        raise AssertionError(f"pair {name}: collected {result.report_count} reports, not the exact aggregate of the "
+                             f"{len(valid)} untampered ones")
+    for side, b in backends.items():
+        extra = [o.rows for o in b._oracles.values()]
+        if b.outshare_readback_rows or b.oracle_recompute_rows or any(any(r.values()) for r in [b.oracle.rows] + extra):
+            raise AssertionError(f"pair {name}: the {side} read back {b.outshare_readback_rows} out shares, "
+                                 f"recomputed {b.oracle_recompute_rows} rows, oracle rows {b.oracle.rows} {extra}")
+        if any(c["trips"] or c["state"] != "closed" for c in circuits[side].values()):
+            raise AssertionError(f"pair {name}: a breaker of the {side} tripped: {circuits[side]}")
+    marshal = backends["leader"].leader_marshal_rows
+    if marshal != {"bytes": len(shards), "values": 0}:
+        raise AssertionError(f"pair {name}: leader rows marshalled {marshal}, not all {len(shards)} from their bytes")
+    flushes = {side: sum(v["flushes"] for k, v in st.items() if "/prep_init#" in k) for side, st in stats.items()}
+    for span, dur in spans:
+        slot = layers.setdefault(f"span {span}", [0, 0.0, 0.0])
+        slot[0] += 1
+        slot[1] += dur
+        slot[2] = max(slot[2], dur)
+    rec.update({
+        "layer_busy_s": {k: {"calls": v[0], "total": v[1], "max": v[2]} for k, v in layers.items()},
+        "seconds": secs, "uploads_per_s": len(shards) / secs["upload"], "reports_per_s": len(shards) / secs["end_to_end"],
+        "helper_init_s": {"first": rec.pop("first_job_helper_init_s")},
+        "prep_init_flushes": flushes, "executor_stats": stats, "leader_marshal_rows": marshal,
+        "outshare_readback_rows": {s: b.outshare_readback_rows for s, b in backends.items()},
+        "device_peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+        "report_count": result.report_count,
+    })
+    log(f"pair {name}: {len(shards)} reports ({rec['tampered']} tampered, rejected) in {rec['jobs']} jobs; aggregate "
+        f"exact; {flushes} prepare flushes a side; upload {secs['upload']:.3f} s ({rec['uploads_per_s']:.1f}/s, "
+        f"{rec['hpke_route']} HPKE); first job {secs['first_job']:.3f} s; end to end {secs['end_to_end']:.3f} s "
+        f"({rec['reports_per_s']:.1f} reports/s)")
+    return rec
+
+
+def pair_phase(verify_key, rng, hist_shards, sv_done, phases):
+    """Phase 13: one task a family through the leader/helper pair.  Returns
+    the records by task."""
+    from janus_tpu_torch.vdaf.instances import prio3_count, prio3_sum
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def tampered_flags(n, k):
+        flags = np.zeros(n, dtype=bool)
+        flags[rng.choice(n, k, replace=False)] = True
+        return flags.tolist()
+
+    count = shard_reports(prio3_count(), rng, lambda r: int(r.integers(0, 2)), PAIR_COUNT_REPORTS)
+    out["count"] = pair_run("count", {"type": "Prio3Count"}, list(zip(count[1], count[0])),
+                            tampered_flags(PAIR_COUNT_REPORTS, PAIR_TAMPERED), sum, verify_key, ("keccak_squeeze",))
+    sums = shard_reports(prio3_sum(SUM_BITS), rng, lambda r: int(r.integers(0, 1 << SUM_BITS)), PAIR_SUM_REPORTS)
+    out["sum"] = pair_run("sum", {"type": "Prio3Sum", "bits": SUM_BITS}, list(zip(sums[1], sums[0])),
+                          tampered_flags(PAIR_SUM_REPORTS, PAIR_TAMPERED), sum, verify_key,
+                          ("keccak_squeeze", "keccak_absorb"))
+    torch.cuda.empty_cache()
+    out["histogram"] = pair_run(
+        "histogram", {"type": "Prio3Histogram", "length": LENGTH, "chunk_length": CHUNK}, hist_shards,
+        tampered_flags(len(hist_shards), PAIR_TAMPERED),
+        lambda valid: np.bincount(valid, minlength=LENGTH).tolist(), verify_key, KERNEL_NAMES[:3])
+    torch.cuda.empty_cache()
+    out["sumvec"] = pair_run(
+        "sumvec", {"type": "Prio3SumVec", "length": SV_LENGTH, "bits": 1, "chunk_length": SV_CHUNK},
+        [(d[0], d[1]) for d in sv_done], [False] * len(sv_done),
+        lambda valid: np.sum(valid, axis=0).tolist(), verify_key,
+        ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires"))
+    phases["pair"] = time.perf_counter() - t0
+    return out
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -1440,9 +1775,12 @@ def main() -> int:
     # The pure-Python oracle takes about a minute to shard and prove each
     # SumVec100k report; two worker processes do it during the build and the
     # histogram sharding, and end before any timed phase starts.
-    with ProcessPoolExecutor(max_workers=SV_DISTINCT + SV8_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+    workers = SV_DISTINCT + SV8_WORKERS + PAIR_HIST_WORKERS
+    with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as pool:
         jobs = [pool.submit(sumvec_oracle_job, args.seed, i, verify_key) for i in range(SV_DISTINCT)]
         sv8_jobs = [pool.submit(sumvec_bits_shard_job, args.seed, w, SV8_REPORTS // SV8_WORKERS) for w in range(SV8_WORKERS)]
+        extra = (PAIR_HIST_REPORTS - DISTINCT) // PAIR_HIST_WORKERS
+        hist_jobs = [pool.submit(histogram_shard_job, args.seed, w, extra) for w in range(PAIR_HIST_WORKERS)]
         t0 = time.perf_counter()
         _build.build()
         phases["build"] = time.perf_counter() - t0
@@ -1458,6 +1796,7 @@ def main() -> int:
         t0 = time.perf_counter()
         done = [j.result() for j in jobs]
         sv8_shards = [x for j in sv8_jobs for x in j.result()]
+        hist_shards = list(zip(meas, reports)) + [x for j in hist_jobs for x in j.result()]
         phases["sumvec_shard_wait"] = time.perf_counter() - t0
     kernels, histogram, hist_batch = histogram_phases(hist_vdaf, reports, meas, verify_key, rng, phases)
     torch.cuda.empty_cache()
@@ -1473,6 +1812,8 @@ def main() -> int:
     histogram_executor = histogram_executor_phase(hist_vdaf, verify_key, hist_batch, meas, rng, phases)
     torch.cuda.empty_cache()
     sumvec_executor = sumvec_executor_phase(prio3_sum_vec(SV_LENGTH, 1, SV_CHUNK), verify_key, *sv_served, phases)
+    torch.cuda.empty_cache()
+    pair = pair_phase(verify_key, rng, hist_shards, done, phases)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]] for path, launches in PATH_LAUNCHES.items()}
         for path, shapes in path_shapes.items():
@@ -1489,7 +1830,7 @@ def main() -> int:
     log(json.dumps({"phases_s": phases, "profiler_traces": TRACE_TALLY}))
     log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec, "count": count, "sum": sum_record,
                                    "sumvec_bits8": sumvec_bits, "histogram_executor": histogram_executor,
-                                   "sumvec_executor": sumvec_executor}}))
+                                   "sumvec_executor": sumvec_executor, "pair": pair}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,41 @@
-"""Shared kernel glue of the port: metrics, fault injection, tracing, cost
-attribution and quarantine.
+"""Shared kernel glue: HPKE, auth tokens, checksums, clock, retries.
 
-Copies of the jax-free modules of ``janus_tpu/core`` that the executor
-imports.  The rest of that package (HPKE, auth tokens, clocks, retries and
-the other control-plane modules) comes with the port's control plane; this
-``__init__`` therefore re-exports nothing, and callers import the modules.
+The analog of the reference's ``janus_core`` crate (reference: core/src/).
 """
+
+from .auth_tokens import (
+    DAP_AUTH_HEADER,
+    AuthenticationToken,
+    AuthenticationTokenHash,
+    extract_bearer_token,
+)
+from .hpke import (
+    HpkeApplicationInfo,
+    HpkeError,
+    HpkeKeypair,
+    Label,
+    is_hpke_config_supported,
+    open_,
+    seal,
+)
+from .report_id import (
+    checksum_combined,
+    checksum_for_report_id,
+    checksum_updated_with,
+)
+from .time import (
+    Clock,
+    MockClock,
+    RealClock,
+    interval_contains_interval,
+    interval_merge,
+    intervals_overlap,
+    time_add,
+    time_difference,
+    time_is_after,
+    time_sub,
+    time_to_batch_interval,
+    time_to_batch_interval_start,
+)
+
+__all__ = [n for n in dir() if not n.startswith("_")]

@@ -19,8 +19,7 @@ tests/test_chaos.py cross-checks them):
     ``backend.launch``       in ``CudaBackend.launch_prep_init_multi``
     ``backend.device_lost``  same site, impersonating a lost mesh device
     ``backend.combine``      in ``CudaBackend.prep_shares_to_prep_batch``
-    ``clock.skew``           sampled by ``skew()`` (the reference's
-                             ``SkewedClock.now``, not yet in the port)
+    ``clock.skew``           sampled by ``SkewedClock.now``
     ``upload.open``          head of each batched HPKE-open pass
                              (UploadOpenBatcher worker thread)
     ``report_writer.flush``  before a ReportWriteBatcher batch commit
@@ -35,7 +34,7 @@ Modes: ``error`` raises :class:`FaultInjectedError`, ``delay`` sleeps
 timeout guards the call site), ``skew`` offsets a clock by up to
 ``skew_s`` seconds in either direction, ``corrupt`` bit-flips or
 truncates a durable payload at a ``corrupt_bytes()`` call site (the
-data failure domain —).  Each point draws from its own
+data failure domain).  Each point draws from its own
 ``random.Random`` seeded by ``(seed, point)``, so per-point decision
 sequences are reproducible regardless of how threads interleave across
 points.
@@ -451,6 +450,35 @@ class _PointRng:
 
     def offset(self, magnitude: int) -> int:
         return self._r.randint(-magnitude, magnitude)
+
+
+# -- process-wide instance ---------------------------------------------------
+
+_REGISTRY = FaultRegistry()
+
+
+class SkewedClock:
+    """Clock wrapper applying registry-driven skew (the clock-skew
+    failure domain): each ``now()`` is offset by whatever the
+    ``clock.skew`` point samples.  Wrap exactly the replica whose clock
+    should drift; everything else keeps the base clock."""
+
+    def __init__(self, base, point: str = "clock.skew"):
+        self.base = base
+        self.point = point
+
+    def now(self):
+        from ..messages import Time
+
+        t = self.base.now()
+        offset = skew(self.point)
+        if offset == 0:
+            return t
+        return Time(max(0, t.seconds + offset))
+
+    def __getattr__(self, item):
+        # advance()/set() on a wrapped MockClock keep working
+        return getattr(self.base, item)
 
 
 # -- process-wide instance ---------------------------------------------------

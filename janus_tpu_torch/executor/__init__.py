@@ -24,9 +24,6 @@ from .service import (
     ExecutorConfig,
     ExecutorOverloadedError,
     bucket_label,
-    get_global_executor,
-    peek_global_executor,
-    reset_global_executor,
     shape_label,
 )
 
@@ -45,8 +42,5 @@ __all__ = [
     "ResidentRef",
     "StaleAccumulatorDelta",
     "bucket_label",
-    "get_global_executor",
-    "peek_global_executor",
-    "reset_global_executor",
     "shape_label",
 ]

@@ -76,10 +76,10 @@ class CircuitOpenError(Exception):
     """The shape's device circuit is open: K consecutive launches failed
     and the breaker has not yet half-open-probed its way back.
 
-    NOT a retryable-overload signal — the device is sick, not busy.  The
-    caller's contract is graceful degradation: serve the submission on
-    the bit-exact CPU oracle instead (AggregationJobDriver does), so
-    aggregation keeps running while the breaker probes for recovery.
+    The device is sick, not busy.  The caller refuses the work as
+    retryable (the driver's JobStepError, the helper's 503) and the lease
+    machinery redelivers it while the breaker probes for recovery; a
+    circuit the card serves never lands on the CPU oracle.
     """
 
 
@@ -92,7 +92,6 @@ _CIRCUIT_STATE_NAMES = {0: "closed", 1: "open", 2: "half_open"}
 class ExecutorConfig:
     """Tuning knobs; defaults favor throughput at ~5 ms added latency."""
 
-    enabled: bool = False
     #: flush a bucket as soon as it holds this many rows
     flush_max_rows: int = 16384
     #: deadline from a bucket's first pending submission to its flush
@@ -106,13 +105,12 @@ class ExecutorConfig:
     warmup_rows: int = 0
     #: run warmup compiles on a dedicated background thread (default) so
     #: backend_for — and therefore the submit path and binary startup —
-    #: never blocks behind nvcc; while a shape is WARMING, producers route
-    #: its submissions to the CPU oracle (or wait on the warm future),
-    #: and the breaker never sees the compile.  False = legacy inline
+    #: never blocks behind nvcc; while a shape is WARMING, producers wait
+    #: on the warm future, and the breaker never sees the compile.  False = legacy inline
     #: warmup (the first resolver pays the compile synchronously).
     warmup_async: bool = True
     #: consecutive launch failures per VDAF shape before its circuit
-    #: opens (submits raise CircuitOpenError -> oracle fallback); 0 = off
+    #: opens (submits raise CircuitOpenError -> retryable refusal); 0 = off
     breaker_failure_threshold: int = 5
     #: how long an open circuit waits before letting one half-open probe
     #: launch through to test the device
@@ -235,7 +233,7 @@ class CircuitBreaker:
                 self.trips += 1
                 logger.warning(
                     "device circuit %s OPEN after %d consecutive launch "
-                    "failure(s); falling back to the CPU oracle for %.1fs",
+                    "failure(s); refusing its work for %.1fs",
                     self.label,
                     self.consecutive_failures,
                     self.reset_timeout_s,
@@ -349,7 +347,8 @@ def shape_label(backend, shape_key: tuple) -> str:
 
 
 class DeviceExecutor:
-    """The continuous batcher.  One per process (get_global_executor)."""
+    """The continuous batcher.  One per process: its owner hands it to every
+    driver and aggregator there (their configs' ``device_executor``)."""
 
     def __init__(self, config: Optional[ExecutorConfig] = None):
         self.config = config or ExecutorConfig()
@@ -451,8 +450,7 @@ class DeviceExecutor:
         """Queue a warmup compile for a freshly created backend.  With
         ``warmup_async`` (the default) the compile runs on the dedicated
         warmup thread and backend_for returns immediately — producers see
-        warming() True and drain the shape through the CPU oracle (or
-        wait_warm()) until the executable lands.  A FAILED warmup only
+        warming() True and wait_warm() until the executable lands.  A FAILED warmup only
         clears the warming flag: the bucket keeps working (the first live
         flush pays the compile, exactly the pre-warmup world) and the
         breaker is untouched — compile trouble is not device sickness."""
@@ -519,16 +517,15 @@ class DeviceExecutor:
 
     def warming(self, shape_key: tuple) -> bool:
         """True while the shape's warmup compile is still in flight —
-        producers route its submissions to the CPU oracle meanwhile (the
-        breaker must never count compile-wait as a launch failure, and
-        with this peek it never sees one)."""
+        producers wait_warm() before submitting (the breaker must never
+        count compile-wait as a launch failure, and with this peek it
+        never sees one)."""
         st = self._warmup_state.get(shape_key)
         return st is not None and st["state"] == "warming"
 
     def wait_warm(self, shape_key: tuple, timeout: Optional[float] = None) -> bool:
         """Block until the shape's warmup settles; True iff it is WARM.
-        The compile-future face of the cold-task contract (producers that
-        prefer waiting a bounded moment over an oracle hop)."""
+        The compile-future face of the cold-task contract."""
         st = self._warmup_state.get(shape_key)
         if st is None:
             return False
@@ -1444,7 +1441,8 @@ class DeviceExecutor:
         """Build the kernels and run one launch per side at the mega-batch.
 
         Builds the backend's CUDA kernels (``build_kernels``: one nvcc per
-        source), then stages a synthetic report padded to ``pad_to``
+        source), then stages a synthetic report (``_synthetic_report``)
+        padded to ``pad_to``
         (default config.warmup_rows) and launches it, so the first real
         flush pays neither nvcc nor the first launch at that size at peak
         traffic.  Returns the number of launches (0 when warmup is off or
@@ -1458,13 +1456,11 @@ class DeviceExecutor:
         if build is not None:
             build()
         vdaf = backend.vdaf
-        meas = _synthetic_measurement(vdaf)
         nonce = b"\x00" * vdaf.NONCE_SIZE
-        public, shares = vdaf.shard(meas, nonce, b"\x00" * vdaf.RAND_SIZE)
         vk = b"\x00" * vdaf.VERIFY_KEY_SIZE
         compiled = 0
         for agg_id in agg_ids:
-            reports = [(nonce, public, shares[min(agg_id, len(shares) - 1)])]
+            reports = [(nonce, *_synthetic_report(vdaf, agg_id))]
             staged = backend.stage_prep_init_multi(
                 agg_id, [(vk, reports)], pad_to=pad_to
             )
@@ -1492,8 +1488,8 @@ class DeviceExecutor:
         """PEEK at a shape's circuit without the allow() side effects:
         True while the circuit is open and still inside its reset dwell.
         Job drivers consult this at step entry (alongside circuit_stats())
-        to route straight to the CPU oracle instead of paying a
-        submit-then-CircuitOpenError round trip per job.  Returns False
+        to refuse the job as retryable without paying a
+        submit-then-CircuitOpenError round trip.  Returns False
         once the dwell has elapsed so the next real submission runs the
         half-open probe that can close the circuit."""
         with self._lock:
@@ -1660,50 +1656,18 @@ class DeviceExecutor:
             ).inc()
 
 
-def _synthetic_measurement(vdaf):
-    """A valid all-zero measurement for warmup sharding: scalar circuits
-    (Count/Sum/Histogram) take 0; vector circuits take [0]*length (the
-    fixed-point family sizes by ``entries`` — the all-zero vector has
-    norm 0, valid in every family)."""
-    flp = vdaf.flp
-    try:
-        flp.encode(0)
-        return 0
-    except Exception:
-        length = getattr(flp.valid, "length", None)
-        if length is None:
-            length = getattr(flp.valid, "entries", 1)
-        return [0] * length
-
-
-# -- process-wide instance ---------------------------------------------------
-
-_GLOBAL: Optional[DeviceExecutor] = None
-_GLOBAL_LOCK = threading.Lock()
-
-
-def get_global_executor(config: Optional[ExecutorConfig] = None) -> DeviceExecutor:
-    """The one executor that owns this process's chip.  First caller's
-    config wins; later callers share the instance (all drivers feed one
-    batcher — that is the point)."""
-    global _GLOBAL
-    with _GLOBAL_LOCK:
-        if _GLOBAL is None:
-            _GLOBAL = DeviceExecutor(config)
-        return _GLOBAL
-
-
-def peek_global_executor() -> Optional[DeviceExecutor]:
-    """The process-wide instance if one exists, WITHOUT creating it —
-    shutdown paths must never mint an executor just to tear it down."""
-    with _GLOBAL_LOCK:
-        return _GLOBAL
-
-
-def reset_global_executor() -> None:
-    """Tests only: drop the process-wide instance."""
-    global _GLOBAL
-    with _GLOBAL_LOCK:
-        if _GLOBAL is not None:
-            _GLOBAL.shutdown(drain=False)
-        _GLOBAL = None
+def _synthetic_report(vdaf, agg_id: int):
+    """(public share, ``agg_id``'s input share) of the VDAF's shape for a
+    warmup launch: all-zero bytes decoded as the wire would be, so the
+    leader's share also carries its encoded bytes.  The report fails
+    verification, which no warmup reads; sharding a real measurement
+    instead proves it on the host, tens of seconds for SumVec(100000)."""
+    flp, seed = vdaf.flp, vdaf.xof.SEED_SIZE
+    joint = flp.JOINT_RAND_LEN > 0
+    if agg_id == 0:
+        size = (flp.MEAS_LEN + flp.PROOF_LEN * vdaf.num_proofs) * flp.field.ENCODED_SIZE
+    else:
+        size = seed
+    share = vdaf.decode_input_share(agg_id, bytes(size + (seed if joint else 0)))
+    public = vdaf.decode_public_share(bytes(vdaf.num_shares * seed if joint else 0))
+    return public, share

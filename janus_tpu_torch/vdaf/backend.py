@@ -76,9 +76,13 @@ class OracleBackend:
 
     def __init__(self, vdaf: Prio3):
         self.vdaf = vdaf
+        #: rows this oracle prepared (``init``) and combined (``combine``):
+        #: a device backend's oracle serves only fallbacks and recomputes
+        self.rows = {"init": 0, "combine": 0}
 
     def prep_init_batch(self, verify_key: bytes, agg_id: int, reports: Sequence[Report]) -> List[PrepOutcome]:
         t0 = time.monotonic()
+        self.rows["init"] += len(reports)
         out: List[PrepOutcome] = []
         for nonce, public_share, input_share in reports:
             try:
@@ -92,6 +96,7 @@ class OracleBackend:
         self, prep_shares: Sequence[Sequence[Prio3PrepareShare]]
     ) -> List[Union[Optional[bytes], VdafError]]:
         t0 = time.monotonic()
+        self.rows["combine"] += len(prep_shares)
         out: List[Union[Optional[bytes], VdafError]] = []
         for shares in prep_shares:
             try:
@@ -104,7 +109,7 @@ class OracleBackend:
 
 def oracle_backend_for(backend, vdaf):
     """The bit-exact CPU oracle for serving ``vdaf``'s reports when
-    ``backend`` cannot (circuit open, kernels warming, replay):
+    ``backend`` cannot (the replay of out shares a lost flush held):
     ``backend.oracle_for(vdaf)`` where it has one, else its ``.oracle``
     (or None when there is none)."""
     if hasattr(backend, "oracle_for"):
@@ -139,6 +144,9 @@ class CudaBackend:
         #: launch (``verifiers_out``) and ``to_limbs`` before a combine
         #: (``verifiers_in``)
         self.host_seconds = {"verifiers_out": 0.0, "verifiers_in": 0.0}
+        #: leader rows marshalled from the bytes their shares arrived in
+        #: (``bytes``) and from their field values (``values``)
+        self.leader_marshal_rows = {"bytes": 0, "values": 0}
 
     def build_kernels(self) -> None:
         """Build the CUDA kernels now (one nvcc per source, in parallel) so
@@ -209,11 +217,14 @@ class CudaBackend:
         canonical limbs); any other share is encoded here."""
         flp, field, B = self.vdaf.flp, self.vdaf.flp.field, len(reports)
         width = flp.MEAS_LEN + flp.PROOF_LEN * self.vdaf.num_proofs
+        kept = [getattr(r[2], "encoded_vectors", None) for r in reports]
         encoded = b"".join(
-            getattr(r[2], "encoded_vectors", None)
-            or field.encode_vec(r[2].meas_share) + field.encode_vec(r[2].proofs_share)
-            for r in reports
+            k or field.encode_vec(r[2].meas_share) + field.encode_vec(r[2].proofs_share)
+            for k, r in zip(kept, reports)
         )
+        n_kept = sum(k is not None for k in kept)
+        self.leader_marshal_rows["bytes"] += n_kept
+        self.leader_marshal_rows["values"] += B - n_kept
         both = np.frombuffer(encoded, dtype="<u4").reshape(B, width, self.bp.f.n)
         return both[:, : flp.MEAS_LEN], both[:, flp.MEAS_LEN :]
 

@@ -7,8 +7,10 @@ eviction under a tiny byte budget, a poisoned bucket, the spill and evict
 faults, agg-param-keyed host buckets, the fair scheduler), then through
 ``CudaBackend(device="cpu")``: an executor flush keeps its out shares
 resident (``outshare_readback_rows`` stays 0) and the drained aggregate
-equals the JAX package's oracle.  The cases that need the driver or the
-writer wait for the control-plane copy."""
+equals the JAX package's oracle; then the cases that need the control
+plane's copy: the writer's delta resolution and journal, the driver's
+breaker replay, precheck and maintenance pass, the helper's prep routing,
+the shutdown drain and concurrent deliveries to the helper."""
 
 import asyncio
 import threading
@@ -370,3 +372,448 @@ def test_cuda_backend_buffer_counts_its_true_bytes():
     assert bucket.buffer_nbytes > 0
     assert bucket.buffer_nbytes == bucket.buffer.numel() * bucket.buffer.element_size()
     assert store.resident_bytes == bucket.buffer_nbytes  # the flush freed once every row was consumed
+
+
+# -- the control plane's side of the store: the writer, the driver, the helper
+
+
+def test_writer_resolves_delta_and_rejects_stale_sets():
+    from janus_tpu_torch.aggregator.aggregation_job_writer import AggregationJobWriter
+    from janus_tpu_torch.executor import StaleAccumulatorDelta
+
+    writer = AggregationJobWriter(
+        task=None, vdaf=None, accumulator_deltas={b"ident": ([5, 50], frozenset({b"r1", b"r2"}))}
+    )
+    refs = [ResidentRef(0, 0), ResidentRef(0, 1)]
+    assert writer._resolve_shares(_Field, b"ident", refs, [b"r1", b"r2"]) == [5, 50]
+    # mixed host + resident rows: delta and host vectors add
+    assert writer._resolve_shares(_Field, b"ident", refs + [[1, 1]], [b"r1", b"r2", b"r3"]) == [6, 51]
+    # a report failed in-tx after its row was drained -> abort the tx
+    with pytest.raises(StaleAccumulatorDelta):
+        writer._resolve_shares(_Field, b"ident", [refs[0]], [b"r1"])
+    # unknown batch ident -> no delta at all
+    with pytest.raises(StaleAccumulatorDelta):
+        writer._resolve_shares(_Field, b"other", refs, [b"r1", b"r2"])
+
+
+def test_writer_journal_entries_defer_shares_and_persist_rows():
+    """Deferred mode at the writer: journaled rows contribute NO share in
+    this tx (None when everything is deferred) and one journal row per
+    (job, ident) is persisted; a journaled report failed in-tx aborts."""
+    from janus_tpu_torch.aggregator.aggregation_job_writer import AggregationJobWriter
+    from janus_tpu_torch.executor import StaleAccumulatorDelta
+
+    writer = AggregationJobWriter(task=None, vdaf=None, journal_entries={b"ident": frozenset({b"r1", b"r2"})})
+    refs = [ResidentRef(0, 0), ResidentRef(0, 1)]
+    assert writer._resolve_shares(_Field, b"ident", refs, [b"r1", b"r2"]) is None
+    assert writer._resolve_shares(_Field, b"ident", refs + [[1, 1]], [b"r1", b"r2", b"r3"]) == [1, 1]
+    with pytest.raises(StaleAccumulatorDelta):
+        writer._resolve_shares(_Field, b"other-ident", refs, [b"r1", b"r2"])
+    calls = []
+    tx = SimpleNamespace(put_accumulator_journal_entry=lambda *a: calls.append(a))
+    writer.task = SimpleNamespace(task_id=b"task")
+    job = SimpleNamespace(aggregation_parameter=b"", aggregation_job_id=b"job")
+    writer._write_journal(tx, job, failures={})
+    assert calls == [(b"task", b"ident", b"", b"job", [b"r1", b"r2"])]
+    with pytest.raises(StaleAccumulatorDelta):
+        writer._write_journal(tx, job, failures={b"r2": "collected"})
+
+
+@pytest.fixture(scope="module")
+def count_backend():
+    return CudaBackend(instances.prio3_count(), device="cpu")
+
+
+def _count_reports(vdaf, n, seed):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        nonce = rng.bytes(vdaf.NONCE_SIZE)
+        ps, shares = vdaf.shard(i % 2, nonce, rng.bytes(vdaf.RAND_SIZE))
+        rows.append((nonce, ps, shares[0]))
+    return rows
+
+
+def _driver(**executor):
+    """A driver with a device executor of its own; the caller shuts the
+    executor down (``driver._executor.shutdown(drain=False)``)."""
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, DriverConfig
+
+    return AggregationJobDriver(
+        datastore=None,
+        session_factory=None,
+        config=DriverConfig(
+            vdaf_device="cpu", device_executor=DeviceExecutor(ExecutorConfig(**executor))
+        ),
+    )
+
+
+def test_driver_breaker_replay_recovers_via_oracle(count_backend):
+    """Launch-failure recovery at the DRIVER layer: commit_rows dies, the
+    journal replays through the CPU oracle, out_shares become host
+    vectors (equal to the JAX package's oracle), and nothing is left
+    resident to double-count."""
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver
+    from janus_tpu_torch.datastore import AggregationJob, AggregationJobState, ReportAggregation, ReportAggregationState
+    from janus_tpu_torch.datastore.task import AggregatorTask, TaskQueryType
+    from janus_tpu_torch.messages import AggregationJobId, AggregationJobStep, Duration, Interval, ReportId, Role, TaskId, Time
+    from janus_tpu_torch.vdaf import pingpong as pp
+
+    vdaf = count_backend.vdaf
+    driver = _driver(flush_window_s=0.02, flush_max_rows=1024, accumulator=AccumulatorConfig(enabled=True))
+    store = driver._executor.accumulator
+    assert store is not None
+    driver._backends[AggregationJobDriver._vdaf_shape_key(vdaf)] = count_backend
+    task = AggregatorTask(
+        task_id=TaskId.random(), peer_aggregator_endpoint="inproc://helper/",
+        query_type=TaskQueryType.time_interval(), vdaf={"type": "Prio3Count"}, role=Role.LEADER,
+        vdaf_verify_key=b"\x2a" * 16, min_batch_size=1, time_precision=Duration(3600),
+    )
+    now = Time(1_600_000_000)
+    job = AggregationJob(
+        task_id=task.task_id, aggregation_job_id=AggregationJobId.random(), aggregation_parameter=b"",
+        partial_batch_identifier=None, client_timestamp_interval=Interval(now, Duration(3600)),
+        state=AggregationJobState.IN_PROGRESS, step=AggregationJobStep(1),
+    )
+    reports = _count_reports(vdaf, 3, 11)
+    ras = [
+        ReportAggregation(
+            task_id=task.task_id, aggregation_job_id=job.aggregation_job_id, report_id=ReportId(nonce), time=now,
+            ord=i, state=ReportAggregationState.START_LEADER, public_share=vdaf.encode_public_share(ps),
+            leader_input_share=share.encode(vdaf),
+        )
+        for i, (nonce, ps, share) in enumerate(reports)
+    ]
+
+    async def go():
+        prep_in = [(ra.report_id.data, ps, share) for ra, (_n, ps, share) in zip(ras, reports)]
+        out = await driver._coalesced_prep_init(count_backend, task.vdaf_verify_key, prep_in)
+        assert count_backend.outshare_readback_rows == 0
+        states, out_shares = {}, {}
+        for ra, (state, _share) in zip(ras, out):
+            assert isinstance(state.out_share, ResidentRef)
+            states[ra.report_id.data] = pp.PingPongContinued(state, 0)
+            out_shares[ra.report_id.data] = state.out_share
+
+        def dead(*a, **kw):  # the device dies between flush and commit
+            raise RuntimeError("device on fire")
+
+        orig, count_backend.accumulate_rows = count_backend.accumulate_rows, dead
+        try:
+            deltas, _journal, _touched = await driver._commit_resident_shares(task, vdaf, job, ras, states, out_shares)
+        finally:
+            count_backend.accumulate_rows = orig
+        return deltas, out_shares
+
+    count_backend.outshare_readback_rows = 0
+    try:
+        deltas, out_shares = _run(go())
+    finally:
+        driver._executor.shutdown(drain=False)
+    assert deltas is None, "replay path yields host vectors, not deltas"
+    jvdaf = jax_instances.prio3_count()
+    want = {
+        nonce: state.out_share
+        for (nonce, _p, _s), (state, _) in zip(
+            reports, JaxOracleBackend(jvdaf).prep_init_batch(task.vdaf_verify_key, 0, _jax_rows(jvdaf, vdaf, reports))
+        )
+    }
+    assert out_shares == want, "oracle replay must be bit-exact"
+    assert store.stats()["buckets"] == 0, "discarded delta must never drain"
+    assert store.stats()["flushes_resident"] == 0
+
+
+def _jax_rows(jvdaf, vdaf, reports):
+    """The port's leader rows as the JAX package's objects (via the wire)."""
+    return [
+        (nonce, jvdaf.decode_public_share(vdaf.encode_public_share(ps)), jvdaf.decode_input_share(0, share.encode(vdaf)))
+        for nonce, ps, share in reports
+    ]
+
+
+def _helper_decoded_rows(vdaf, n, seed):
+    """(idx, (nonce, public, helper_share, leader INITIALIZE msg)) rows,
+    exactly what handle_aggregate_init hands _helper_prepare_batch."""
+    from janus_tpu_torch.vdaf import pingpong as pp
+
+    vk = b"\x2a" * vdaf.VERIFY_KEY_SIZE
+    rng = np.random.default_rng(seed)
+    decoded = []
+    for i in range(n):
+        nonce = rng.bytes(vdaf.NONCE_SIZE)
+        public, shares = vdaf.shard(i % 2, nonce, rng.bytes(vdaf.RAND_SIZE))
+        _state, l_share = vdaf.prep_init(vk, 0, nonce, public, shares[0])
+        msg = pp.PingPongMessage(pp.PingPongMessage.INITIALIZE, prep_share=vdaf.ping_pong_encode_prep_share(l_share))
+        decoded.append((i, (nonce, public, shares[1], msg)))
+    return vk, decoded
+
+
+def _agg_stub(executor):
+    """Just the Aggregator surface the helper prep path touches."""
+    from janus_tpu_torch.aggregator.aggregator import Aggregator as A
+
+    stub = SimpleNamespace(_executor=executor)
+    for name in ("_helper_decode_leader_shares", "_helper_finish_prio3"):
+        setattr(stub, name, getattr(A, name))
+    for name in ("_helper_prepare_batch_prio3", "_helper_prepare_batch_prio3_executor",
+                 "_executor_backend_for", "_release_helper_refs", "_release_unfinished_helper_refs"):
+        setattr(stub, name, getattr(A, name).__get__(stub))
+    return stub
+
+
+def test_helper_prep_routes_through_executor_and_matches_oracle(count_backend):
+    """aggregator.py's prep_init_batch / prep_shares_to_prep_batch calls
+    submit through the executor (prep_init a1 + combine buckets) and the
+    outcomes match the direct oracle path bit for bit."""
+    from janus_tpu_torch.vdaf.backend import OracleBackend
+
+    vdaf = count_backend.vdaf
+    vk, decoded = _helper_decoded_rows(vdaf, 3, 21)
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.02, flush_max_rows=1024))
+    agg = _agg_stub(ex)
+    ta = SimpleNamespace(vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+    got = _run(agg._helper_prepare_batch_prio3_executor(ta, decoded))
+    ex.shutdown()
+    want = agg._helper_prepare_batch_prio3(
+        SimpleNamespace(vdaf=vdaf, backend=OracleBackend(vdaf), task=ta.task), decoded
+    )
+    assert set(got) == set(want)
+    for idx in want:
+        gk, g_out, g_msg = got[idx]
+        wk, w_out, w_msg = want[idx]
+        assert (gk, g_out) == (wk, w_out)
+        assert (g_msg.variant, g_msg.prep_msg) == (w_msg.variant, w_msg.prep_msg)
+    stats = ex.stats()
+    assert any("/a1/prep_init" in k for k in stats), stats
+    assert any("/a1/combine" in k for k in stats), stats
+
+
+def test_helper_prep_degrades_to_oracle_when_circuit_open(count_backend):
+    """Breaker-aware helper path: an open circuit skips the executor
+    entirely (no submissions).  The reference serves the request on the
+    CPU oracle; the port serves no circuit the card serves on the oracle,
+    so the helper answers the DAP-retryable 503 and the leader's lease
+    machinery redelivers once the circuit closes."""
+    from janus_tpu_torch.aggregator.error import ServiceUnavailable
+
+    vdaf = count_backend.vdaf
+    vk, decoded = _helper_decoded_rows(vdaf, 2, 22)
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.02, flush_max_rows=1024))
+    ex.circuit_open = lambda shape_key: True  # breaker peek says: open
+    agg = _agg_stub(ex)
+    ta = SimpleNamespace(vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+    count_backend.oracle.rows = {"init": 0, "combine": 0}
+    try:
+        with pytest.raises(ServiceUnavailable) as exc_info:
+            _run(agg._helper_prepare_batch_prio3_executor(ta, decoded))
+    finally:
+        ex.shutdown()
+    assert exc_info.value.status == 503 and exc_info.value.retry_after is not None
+    assert ex.stats() == {}, "open circuit must not submit to the device"
+    assert count_backend.oracle.rows == {"init": 0, "combine": 0}, "a served circuit must not land on the oracle"
+
+
+def test_driver_precheck_skips_submit_when_circuit_open():
+    """Breaker-aware acquisition on the DRIVER side: circuit_open refuses
+    the job before any submission, as a retryable JobStepError (the lease
+    machinery redelivers it), and the oracle is never asked."""
+    from janus_tpu_torch.aggregator.aggregation_job_driver import JobStepError
+
+    driver = _driver()
+    driver._executor.circuit_open = lambda shape_key: True
+
+    class _Oracle:
+        def prep_init_batch(self, vk, agg_id, rows):  # pragma: no cover
+            raise AssertionError("a served circuit reached the oracle")
+
+    class _B:
+        vdaf = SimpleNamespace()
+        oracle = _Oracle()
+
+        def stage_prep_init_multi(self, *a, **kw):  # pragma: no cover
+            raise AssertionError("device path reached despite open circuit")
+
+    try:
+        with pytest.raises(JobStepError) as exc_info:
+            _run(driver._coalesced_prep_init(_B(), b"vk", [0, 1]))
+        assert exc_info.value.retryable
+        assert driver._executor.stats() == {}
+    finally:
+        driver._executor.shutdown(drain=False)
+
+
+def test_cold_shape_waits_for_its_warmup_and_never_reaches_the_oracle(count_backend):
+    """A shape still WARMING (kernels building on the warmup thread): the
+    driver and the helper wait on the compile future, then launch on the
+    shape's own backend; the oracle serves no row."""
+    import time as _time
+
+    vdaf = count_backend.vdaf
+    key = vdaf_shape_key(vdaf)
+    driver = _driver(flush_window_s=0.01, flush_max_rows=1024, warmup_rows=4)
+    ex = driver._executor
+    built = threading.Event()
+    orig_build = getattr(count_backend, "build_kernels", None)
+
+    def slow_build():
+        _time.sleep(0.2)
+        built.set()
+        if orig_build is not None:
+            orig_build()
+
+    count_backend.build_kernels = slow_build
+    count_backend.oracle.rows = {"init": 0, "combine": 0}
+    try:
+        assert ex.backend_for(key, lambda: count_backend) is count_backend
+        assert ex.warming(key)
+        reports = _count_reports(vdaf, 3, 31)
+        out = _run(driver._coalesced_prep_init(count_backend, b"\x2a" * 16, reports))
+        assert built.is_set() and not ex.warming(key)
+        assert len(out) == 3 and not any(isinstance(o, Exception) for o in out)
+        vk, decoded = _helper_decoded_rows(vdaf, 2, 33)
+        ta = SimpleNamespace(vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+        got = _run(_agg_stub(ex)._helper_prepare_batch_prio3_executor(ta, decoded))
+        assert all(v[0] == "finished" for v in got.values())
+    finally:
+        del count_backend.build_kernels
+        ex.shutdown(drain=False)
+    assert count_backend.oracle.rows == {"init": 0, "combine": 0}
+
+
+def test_accumulator_config_yaml_round_trip():
+    """The executor block of a driver's YAML config builds the port's
+    ``ExecutorConfig`` with its accumulator.  The port has no binaries
+    yet (ROADMAP queue 1 item 11), so the mapping goes through the
+    dataclasses directly, and back out unchanged."""
+    import dataclasses
+
+    import yaml
+
+    doc = yaml.safe_load(
+        """
+device_executor:
+  fair_quota_rows: 4096
+  accumulator:
+    enabled: true
+    byte_budget: 1048576
+"""
+    )["device_executor"]
+    ec = ExecutorConfig(**{**doc, "accumulator": AccumulatorConfig(**doc["accumulator"])})
+    assert ec.fair_quota_rows == 4096
+    assert ec.accumulator is not None and ec.accumulator.byte_budget == 1048576
+    back = dataclasses.asdict(ec)
+    assert back["fair_quota_rows"] == 4096
+    assert {k: back["accumulator"][k] for k in doc["accumulator"]} == doc["accumulator"]
+
+
+def test_maintenance_pass_drains_due_deferred_buckets_and_rebalances():
+    """The dedicated maintenance pass: due deferred buckets drain WITHOUT
+    waiting for a committing driver, and the occupancy rebalance runs off
+    the hot path."""
+    import time as _time
+
+    driver = _driver(accumulator=AccumulatorConfig(enabled=True, drain_interval_s=0.01, maintenance_interval_s=0.01))
+    store = driver._executor.accumulator
+    backend = _AccumBackend()
+    m = _matrix(2)
+    fid = store.retain_flush(backend, m, rows=2, nbytes=m.nbytes)
+    key = ("leader", b"task", ("shape",), b"ident", b"param")  # deferred key
+    store.commit_rows(key, backend, [ResidentRef(fid, 0), ResidentRef(fid, 1)], job_token=b"job",
+                      report_ids=[b"r0", b"r1"])
+    drained_keys = []
+
+    def fake_drain(k):  # consume the bucket like the real drain's journal tx
+        drained_keys.append(k)
+        store.discard(k)
+
+    driver._drain_due_bucket = fake_drain
+    _time.sleep(0.02)  # past drain_interval_s: the bucket is due
+    try:
+        assert _run(driver.run_accumulator_maintenance()) == 1 and drained_keys == [key]
+        # nothing due -> a quiet pass; the loop must be safe to run forever
+        assert _run(driver.run_accumulator_maintenance()) == 0
+    finally:
+        driver._executor.shutdown(drain=False)
+
+
+def _committed(store, backend, job=b"jobA"):
+    m = _matrix(2)
+    fid = store.retain_flush(backend, m, rows=2, nbytes=m.nbytes)
+    store.commit_rows(("bucket",), backend, [ResidentRef(fid, 0), ResidentRef(fid, 1)], job_token=job,
+                      report_ids=[b"r0", b"r1"])
+
+
+def test_shutdown_drain_spills_through_sink_exactly_once():
+    """The SIGTERM path: shutdown(drain=True), the default, spills
+    committed-but-unspilled deltas through the registered sink before
+    discarding; the sink sees the vector AND the per-job journal."""
+    store = DeviceAccumulatorStore(AccumulatorConfig(enabled=True, drain_interval_s=60))
+    ex = DeviceExecutor(ExecutorConfig())
+    ex.accumulator = store
+    _committed(store, _AccumBackend())
+    spilled = []
+    ex.set_spill_sink(lambda key, vector, journal: spilled.append((key, vector, journal)))
+    ex.shutdown()
+    assert spilled == [(("bucket",), [1 + 2, 10 + 20], [(b"jobA", frozenset({b"r0", b"r1"}))])]
+    assert store.stats()["buckets"] == 0
+    spilled.clear()
+    ex.shutdown()  # drained exactly once: nothing left for a second teardown
+    assert spilled == []
+
+
+def test_undrained_shutdown_discards_and_redelivery_rederives():
+    """shutdown(drain=False), the crash shape, discards the delta WITHOUT
+    spilling; recommitting the same rows into a fresh store (what lease
+    redelivery does with real shares) yields the identical vector."""
+    store = DeviceAccumulatorStore(AccumulatorConfig(enabled=True))
+    ex = DeviceExecutor(ExecutorConfig())
+    ex.accumulator = store
+    backend = _AccumBackend()
+    _committed(store, backend)
+    spilled = []
+    ex.set_spill_sink(lambda *a: spilled.append(a))
+    ex.shutdown(drain=False)
+    assert spilled == [] and store.stats()["buckets"] == 0
+    store2 = DeviceAccumulatorStore(AccumulatorConfig(enabled=True))
+    _committed(store2, backend)
+    vector, rids = store2.drain(("bucket",), _Field)
+    assert vector == [3, 30] and rids == {b"r0", b"r1"}
+
+
+def test_concurrent_same_job_deliveries_use_disjoint_buckets():
+    """Two CONCURRENT deliveries of one aggregation job to the helper must
+    never share a drain-at-commit bucket (both commits landing before
+    either drain would double the vector with a matching report-id set);
+    keys carry a per-delivery nonce, so each drains exactly its own rows."""
+    from janus_tpu_torch.aggregator.aggregator import Aggregator
+    from janus_tpu_torch.datastore import TaskQueryType
+    from janus_tpu_torch.messages import AggregationJobId, Duration, TaskId, Time
+
+    store = DeviceAccumulatorStore(AccumulatorConfig(enabled=True))
+    backend = _AccumBackend()
+    commit_keys = []
+    orig_commit = store.commit_rows
+
+    def recording_commit(key, *a, **kw):
+        commit_keys.append(key)
+        return orig_commit(key, *a, **kw)
+
+    store.commit_rows = recording_commit
+    task = SimpleNamespace(task_id=TaskId.random(), query_type=TaskQueryType.time_interval(),
+                           time_precision=Duration(3600))
+    job = SimpleNamespace(aggregation_parameter=b"", aggregation_job_id=AggregationJobId.random(),
+                          partial_batch_identifier=None)
+    ta = SimpleNamespace(task=task, vdaf=instances.prio3_count(), backend=backend)
+    agg = SimpleNamespace(_executor=SimpleNamespace(accumulator=store), datastore=None)
+
+    def deliver():
+        m = _matrix(2)
+        fid = store.retain_flush(backend, m, rows=2, nbytes=m.nbytes)
+        ras = [SimpleNamespace(report_id=SimpleNamespace(data=bytes([i]) * 16), time=Time(0)) for i in range(2)]
+        out_shares = {ras[0].report_id.data: ResidentRef(fid, 0), ras[1].report_id.data: ResidentRef(fid, 1)}
+        return _run(Aggregator._commit_helper_resident_shares(agg, ta, job, ras, out_shares, decoded_by_rid={}))
+
+    (v1, _r1), = deliver().values()
+    (v2, _r2), = deliver().values()
+    assert v1 == [1 + 2, 10 + 20] and v2 == [1 + 2, 10 + 20]
+    assert len(commit_keys) == 2 and commit_keys[0] != commit_keys[1]

@@ -322,7 +322,7 @@ def test_executor_resident_flush_on_the_card(card):
         shares[0] = Prio3InputShare.decode(vdaf, 0, shares[0].encode(vdaf))
         reports.append((nonce, public, shares))
     vk = bytes(16)
-    ex = DeviceExecutor(ExecutorConfig(enabled=True, flush_max_rows=64, accumulator=AccumulatorConfig(enabled=True)))
+    ex = DeviceExecutor(ExecutorConfig(flush_max_rows=64, accumulator=AccumulatorConfig(enabled=True)))
     try:
         for agg_id in (0, 1):
             backend = make_backend(vdaf, "cuda")
@@ -344,3 +344,34 @@ def test_executor_resident_flush_on_the_card(card):
         assert store.evictions == 0
     finally:
         ex.shutdown()
+
+
+@pytest.mark.parametrize(
+    "family",
+    [
+        ("count", {"type": "Prio3Count"}, lambda r: int(r.integers(0, 2)), sum, ("keccak_squeeze",)),
+        ("sum", {"type": "Prio3Sum", "bits": 8}, lambda r: int(r.integers(0, 256)), sum,
+         ("keccak_squeeze", "keccak_absorb")),
+        ("histogram", {"type": "Prio3Histogram", "length": 6, "chunk_length": 2}, lambda r: int(r.integers(0, 6)),
+         lambda valid: np.bincount(valid, minlength=6).tolist(), ("keccak_squeeze", "keccak_absorb", "flp_wire_evals")),
+        ("sumvec", {"type": "Prio3SumVec", "length": 10, "bits": 1, "chunk_length": 3},
+         lambda r: [int(x) for x in r.integers(0, 2, 10)], lambda valid: np.sum(valid, axis=0).tolist(),
+         ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires")),
+    ],
+    ids=lambda f: f[0],
+)
+def test_small_pair_on_the_card(card, family):
+    """The leader/helper pair of ``chip_smoke.py`` phase 13 (in-process
+    transport, each side its own executor and accumulator, ``CudaBackend``
+    on the card) at small widths: 6 reports, one tampered; the aggregate is
+    exact, no out share is read back or recomputed, no oracle serves a row,
+    every leader row is marshalled from its bytes and the family's kernels
+    launch (``pair_run`` raises otherwise)."""
+    import chip_smoke
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+
+    name, desc, measure, expect, needs = family
+    rng = np.random.default_rng(6)
+    reports, meas = chip_smoke.shard_reports(vdaf_from_instance(desc), rng, measure, 6)
+    rec = chip_smoke.pair_run(name, desc, list(zip(meas, reports)), [False] * 5 + [True], expect, bytes(16), needs)
+    assert rec["report_count"] == 5

@@ -401,3 +401,36 @@ def test_port_wires_its_fault_points(point, rel):
 
     assert point in faults.KNOWN_POINTS
     assert f'"{point}"' in (Path(janus_tpu_torch.__file__).parent / rel).read_text()
+
+
+def test_driver_surfaces_overload_as_retryable_jobsteperror():
+    """The driver contract: executor backpressure -> JobStepError(retryable)
+    so the lease machinery redelivers the job."""
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, DriverConfig, JobStepError
+
+    ex = DeviceExecutor(ExecutorConfig(max_queue_rows=2, flush_window_s=60.0))
+    try:
+        driver = AggregationJobDriver(
+            datastore=None,
+            session_factory=None,
+            config=DriverConfig(vdaf_device="cpu", device_executor=ex),
+        )
+        assert driver._executor is not None
+        backend = _StubBackend()
+        # pre-fill the bucket (oversized jobs on an EMPTY bucket are
+        # admitted, so backpressure needs something queued ahead)
+        key = AggregationJobDriver._vdaf_shape_key(backend.vdaf)
+
+        async def go():
+            filler = asyncio.ensure_future(
+                driver._executor.submit(key, KIND_PREP_INIT, (b"vk0", [0, 1]), backend=backend)
+            )
+            await asyncio.sleep(0)
+            with pytest.raises(JobStepError) as exc_info:
+                await driver._coalesced_prep_init(backend, b"vk", [0, 1, 2])
+            assert exc_info.value.retryable
+            filler.cancel()
+
+        _run(go())
+    finally:
+        ex.shutdown(drain=False)

@@ -1,0 +1,375 @@
+"""The port's control plane end to end: a leader and a helper aggregator,
+each with its own datastore, take uploads, aggregate through the device
+executor and collect, on the port's ``CudaBackend`` (here on the CPU, where
+every kernel wrapper takes its plain version).  The pair runs over aiohttp
+and over the in-process transport (``aggregator/test_util.py``), and the
+collected aggregate equals the JAX oracle's.  Two mixed pairs (the port's
+leader with the JAX package's helper, and the reverse) show that the wire
+formats and the prepare shares of the two packages are interchangeable."""
+
+import asyncio
+import importlib
+import secrets
+
+import aiohttp
+import numpy as np
+import pytest
+from aiohttp.test_utils import TestServer
+
+from janus_tpu_torch.client import seal_report
+from janus_tpu_torch.collector import Collector
+from janus_tpu_torch.core.auth_tokens import AuthenticationToken
+from janus_tpu_torch.core.hpke import HpkeKeypair
+from janus_tpu_torch.messages import Duration, Interval, Query, ReportId, Time
+from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+
+TIME_PRECISION = 3600
+NOW = 1_600_002_000
+AGG_TOKEN = "agg-token-pair"
+COL_TOKEN = "col-token-pair"
+
+FAMILIES = {
+    "count": ({"type": "Prio3Count"}, lambda r: int(r.integers(0, 2))),
+    "sum": ({"type": "Prio3Sum", "bits": 8}, lambda r: int(r.integers(0, 256))),
+    "histogram": ({"type": "Prio3Histogram", "length": 6, "chunk_length": 2}, lambda r: int(r.integers(0, 6))),
+    "sumvec": (
+        {"type": "Prio3SumVec", "length": 10, "bits": 1, "chunk_length": 3},
+        lambda r: [int(x) for x in r.integers(0, 2, 10)],
+    ),
+}
+VALID = 5
+
+
+def jax_oracle_aggregate(desc, measurements):
+    """The JAX package's CPU oracle over ``measurements``: shard, prepare
+    both sides, combine, aggregate and unshard."""
+    from janus_tpu.vdaf.instances import vdaf_from_instance as jax_vdaf_from_instance
+
+    vdaf = jax_vdaf_from_instance(desc)
+    vk = b"\x2a" * 16
+    out = [[], []]
+    for m in measurements:
+        nonce = secrets.token_bytes(vdaf.NONCE_SIZE)
+        public, shares = vdaf.shard(m, nonce, secrets.token_bytes(vdaf.RAND_SIZE))
+        inits = [vdaf.prep_init(vk, a, nonce, public, shares[a]) for a in (0, 1)]
+        msg = vdaf.prep_shares_to_prep([s for _st, s in inits])
+        for a in (0, 1):
+            out[a].append(vdaf.prep_next(inits[a][0], msg))
+    aggs = [vdaf.aggregate(out[a]) for a in (0, 1)]
+    return vdaf.unshard(aggs, len(measurements))
+
+
+def reports_for(vdaf, desc_rng, task, leader_cfg, helper_cfg, n_valid, measure, tamper=True):
+    """``n_valid`` honest reports and, with ``tamper``, one whose leader
+    measurement share is perturbed (the proof then fails); returns
+    (reports, valid measurements)."""
+    reports, meas = [], []
+    t = Time(NOW - NOW % TIME_PRECISION)
+    for i in range(n_valid + tamper):
+        m = measure(desc_rng)
+        rid = ReportId.random()
+        public, shares = vdaf.shard(m, rid.data, secrets.token_bytes(vdaf.RAND_SIZE))
+        if i == n_valid:
+            f = vdaf.flp.field
+            shares[0].meas_share = [(shares[0].meas_share[0] + 1) % f.MODULUS] + list(shares[0].meas_share[1:])
+        else:
+            meas.append(m)
+        reports.append(seal_report(vdaf, task, leader_cfg, helper_cfg, rid, t, public, shares))
+    return reports, meas
+
+
+class Pair:
+    """A leader and a helper from packages ``leader_pkg`` / ``helper_pkg``
+    ("janus_tpu_torch" or "janus_tpu") over ``transport`` ("aiohttp" or
+    "inproc"); the port's sides run ``CudaBackend`` on the CPU behind their
+    own executor with the accumulator on, or the oracle when ``oracle``."""
+
+    def __init__(self, desc, leader_pkg, helper_pkg, transport, oracle=False):
+        self.desc = desc
+        self.pkgs = {"leader": leader_pkg, "helper": helper_pkg}
+        self.transport = transport
+        self.oracle = oracle
+        self.executors = {}
+
+    def _mod(self, side, name):
+        return importlib.import_module(f"{self.pkgs[side]}.{name}")
+
+    def _aggregator(self, side, clock):
+        pkg = self.pkgs[side]
+        agg_mod = self._mod(side, "aggregator")
+        ds = self._mod(side, "datastore.test_util").EphemeralDatastore(clock)
+        kw = {"max_upload_batch_write_delay": 0.01}
+        if pkg == "janus_tpu":
+            kw["vdaf_backend"] = "oracle"
+        elif self.oracle:
+            kw["vdaf_backend"] = "oracle"
+        else:
+            ex = importlib.import_module("janus_tpu_torch.executor")
+            self.executors[side] = ex.DeviceExecutor(
+                ex.ExecutorConfig(flush_window_s=0.001, accumulator=ex.AccumulatorConfig(enabled=True))
+            )
+            kw.update(vdaf_device="cpu", device_executor=self.executors[side])
+        return ds, agg_mod.Aggregator(ds.datastore, clock, agg_mod.Config(**kw))
+
+    def _task(self, side, peer_url, collector_config):
+        M = self._mod(side, "messages")
+        dsm = self._mod(side, "datastore")
+        auth = self._mod(side, "core.auth_tokens").AuthenticationToken
+        hpke = self._mod(side, "core.hpke").HpkeKeypair
+        common = dict(
+            task_id=M.TaskId(self.task_id.data),
+            query_type=dsm.TaskQueryType.time_interval(),
+            vdaf=self.desc,
+            vdaf_verify_key=b"\x2a" * 16,
+            min_batch_size=1,
+            time_precision=M.Duration(TIME_PRECISION),
+            collector_hpke_config=M.HpkeConfig.get_decoded(collector_config.get_encoded()),
+            peer_aggregator_endpoint=peer_url,
+            hpke_keys=[hpke.generate(1 if side == "leader" else 2)],
+        )
+        if side == "leader":
+            return dsm.AggregatorTask(
+                role=M.Role.LEADER,
+                aggregator_auth_token=auth.new_bearer(AGG_TOKEN),
+                collector_auth_token_hash=auth.new_bearer(COL_TOKEN).hash(),
+                **common,
+            )
+        return dsm.AggregatorTask(
+            role=M.Role.HELPER, aggregator_auth_token_hash=auth.new_bearer(AGG_TOKEN).hash(), **common
+        )
+
+    async def run(self, measure, seed, tamper=True):
+        from janus_tpu_torch.messages import TaskId
+
+        clock_mod = self._mod("leader", "core.time")
+        M = self._mod("leader", "messages")
+        clock = clock_mod.MockClock(M.Time(NOW))
+        hclock = self._mod("helper", "core.time").MockClock(self._mod("helper", "messages").Time(NOW))
+        self.task_id = TaskId.random()
+        collector_keys = HpkeKeypair.generate(9)
+        lds, leader = self._aggregator("leader", clock)
+        hds, helper = self._aggregator("helper", hclock)
+        servers = []
+        try:
+            if self.transport == "inproc":
+                from janus_tpu_torch.aggregator.test_util import InProcessNetwork
+
+                net = InProcessNetwork()
+                urls = {"leader": net.add("leader", leader), "helper": net.add("helper", helper)}
+                session_factory = net.session
+            else:
+                for side, agg in (("leader", leader), ("helper", helper)):
+                    server = TestServer(self._mod(side, "aggregator").aggregator_app(agg))
+                    await server.start_server()
+                    servers.append(server)
+                urls = {"leader": str(servers[0].make_url("/")), "helper": str(servers[1].make_url("/"))}
+                session_factory = aiohttp.ClientSession
+            tasks = {
+                "leader": self._task("leader", urls["helper"], collector_keys.config),
+                "helper": self._task("helper", urls["leader"], collector_keys.config),
+            }
+            for ds, side in ((lds, "leader"), (hds, "helper")):
+                ds.datastore.run_tx("put", lambda tx, t=tasks[side]: tx.put_aggregator_task(t))
+            from janus_tpu_torch.messages import HpkeConfig
+
+            cfg = {s: HpkeConfig.get_decoded(tasks[s].hpke_keys[0].config.get_encoded()) for s in tasks}
+            vdaf = vdaf_from_instance(self.desc)
+            reports, meas = reports_for(
+                vdaf, np.random.default_rng(seed), self.task_id, cfg["leader"], cfg["helper"], VALID, measure, tamper
+            )
+            session = session_factory()
+            try:
+                for report in reports:
+                    async with session.put(
+                        f"{urls['leader'].rstrip('/')}/tasks/{self.task_id}/reports", data=report.get_encoded()
+                    ) as resp:
+                        assert resp.status == 201, await resp.text()
+                await self._aggregate(lds, session_factory)
+                collector = Collector(
+                    task_id=self.task_id,
+                    leader_endpoint=urls["leader"],
+                    vdaf=vdaf,
+                    auth_token=AuthenticationToken.new_bearer(COL_TOKEN),
+                    hpke_keypair=collector_keys,
+                    poll_interval=0.02,
+                    max_poll_time=20.0,
+                )
+                start = NOW - NOW % TIME_PRECISION
+                query = Query.new_time_interval(Interval(Time(start), Duration(TIME_PRECISION)))
+                result, _ = await asyncio.gather(
+                    collector.collect(query, session=session), self._collect_jobs(lds, session_factory)
+                )
+            finally:
+                await session.close()
+            return result, meas
+        finally:
+            await leader.shutdown()
+            await helper.shutdown()
+            for server in servers:
+                await server.close()
+            lds.cleanup()
+            hds.cleanup()
+
+    async def _aggregate(self, lds, session_factory):
+        agg_mod = self._mod("leader", "aggregator")
+        retries = self._mod("leader", "core.retries")
+        Duration_ = self._mod("leader", "messages").Duration
+        await asyncio.sleep(0.05)  # the upload batcher's write delay
+        creator = agg_mod.AggregationJobCreator(
+            lds.datastore, agg_mod.CreatorConfig(min_aggregation_job_size=1, max_aggregation_job_size=4)
+        )
+        await creator.run_once()
+        kw = {"http_retry": retries.HttpRetryPolicy(0.01, 0.1, 2.0, 2.0, 3)}
+        if self.pkgs["leader"] == "janus_tpu":
+            kw["vdaf_backend"] = "oracle"
+        elif self.oracle:
+            kw["vdaf_backend"] = "oracle"
+        else:
+            kw.update(vdaf_device="cpu", device_executor=self.executors["leader"])
+        driver = agg_mod.AggregationJobDriver(lds.datastore, session_factory, agg_mod.DriverConfig(**kw))
+        try:
+            for _ in range(10):
+                leases = await lds.datastore.run_tx_async(
+                    "acquire", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration_(600), 10)
+                )
+                if not leases:
+                    break
+                for lease in leases:
+                    await driver.step_aggregation_job(lease)
+        finally:
+            await driver.close()
+
+    async def _collect_jobs(self, lds, session_factory):
+        agg_mod = self._mod("leader", "aggregator")
+        Duration_ = self._mod("leader", "messages").Duration
+        driver = agg_mod.CollectionJobDriver(lds.datastore, session_factory)
+        await asyncio.sleep(0.05)
+        for _ in range(10):
+            leases = await lds.datastore.run_tx_async(
+                "acquire", lambda tx: tx.acquire_incomplete_collection_jobs(Duration_(600), 10)
+            )
+            if not leases:
+                break
+            for lease in leases:
+                await driver.step_collection_job(lease)
+        await driver.close()
+
+    def shutdown(self):
+        for ex in self.executors.values():
+            ex.shutdown()
+
+
+def run_pair(pair, measure, seed, tamper=True):
+    try:
+        return asyncio.run(pair.run(measure, seed, tamper))
+    finally:
+        pair.shutdown()
+
+
+@pytest.mark.parametrize("transport", ["inproc", "aiohttp"])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_port_pair_collects_the_oracle_aggregate(family, transport):
+    """Upload, aggregate through both sides' executors on ``CudaBackend``,
+    collect: the aggregate is the JAX oracle's over the valid reports, the
+    tampered report is rejected, and no out share is read back, recomputed
+    on the oracle or marshalled from field values."""
+    desc, measure = FAMILIES[family]
+    pair = Pair(desc, "janus_tpu_torch", "janus_tpu_torch", transport)
+    result, meas = run_pair(pair, measure, seed=hash(family) % 1000)
+    assert result.report_count == len(meas) == VALID
+    assert result.aggregate_result == jax_oracle_aggregate(desc, meas)
+    from janus_tpu_torch.vdaf.backend import CudaBackend, vdaf_shape_key
+
+    key = vdaf_shape_key(vdaf_from_instance(desc))
+    for side, ex in pair.executors.items():
+        backend = ex.cached_backend(key)
+        assert isinstance(backend, CudaBackend) and backend.device.type == "cpu", side
+        assert backend.outshare_readback_rows == 0 and backend.oracle_recompute_rows == 0, side
+        flushes = {k: v for k, v in ex.stats().items() if "/prep_init#" in k}
+        assert flushes and all(v["flushes"] >= 1 for v in flushes.values()), (side, flushes)
+    leader = pair.executors["leader"].cached_backend(key)
+    assert leader.leader_marshal_rows == {"bytes": VALID + 1, "values": 0}
+
+
+@pytest.mark.parametrize("leader_pkg,helper_pkg", [("janus_tpu_torch", "janus_tpu"), ("janus_tpu", "janus_tpu_torch")])
+@pytest.mark.parametrize("family", ["sum", "histogram"])
+def test_mixed_pair_collects_the_same_aggregate(family, leader_pkg, helper_pkg):
+    """The port's leader with the JAX package's helper, and the reverse,
+    over aiohttp on the oracle: the wire formats and prepare shares of the
+    two packages interchange, and the aggregate is the JAX oracle's."""
+    desc, measure = FAMILIES[family]
+    pair = Pair(desc, leader_pkg, helper_pkg, "aiohttp", oracle=True)
+    result, meas = run_pair(pair, measure, seed=7)
+    assert result.report_count == len(meas) == VALID
+    assert result.aggregate_result == jax_oracle_aggregate(desc, meas)
+
+
+def test_multiround_fake_vdaf_pair():
+    """The 2-round Fake VDAF (no device path: the oracle serves it) through
+    the port's pair in process: init leaves the leader waiting with a
+    stored transition, a continue round finishes every report, and the
+    collected aggregate is the plain sum."""
+    pair = Pair({"type": "Fake", "rounds": 2}, "janus_tpu_torch", "janus_tpu_torch", "inproc")
+    result, meas = run_pair(pair, lambda r: int(r.integers(0, 10)), seed=3, tamper=False)
+    assert result.report_count == len(meas) == VALID
+    assert result.aggregate_result == sum(meas)
+
+
+REFUSAL_STATUS = {
+    ("PUT", "aggregation_jobs/{job}"): 403,
+    ("POST", "aggregate_shares"): 403,
+    ("PUT", "reports"): 400,
+    ("DELETE", "reports"): 405,
+    ("GET", "no_such_route"): 404,
+}
+
+
+@pytest.mark.parametrize(
+    "method,path,body",
+    [
+        ("PUT", "aggregation_jobs/{job}", b"\x00"),  # wrong token: 403 problem document
+        ("POST", "aggregate_shares", b""),  # wrong token: 403
+        ("PUT", "reports", b"\x01\x02"),  # undecodable report: 400 invalidMessage
+        ("DELETE", "reports", b""),  # a route without that method: 405
+        ("GET", "no_such_route", b""),  # no route: 404
+    ],
+)
+def test_refusals_match_over_both_transports(method, path, body):
+    """A refused request reaches the caller with the same status, body and
+    Retry-After over the in-process transport as over aiohttp: both answer
+    through ``dispatch.dispatch``."""
+    from janus_tpu_torch.aggregator import Aggregator, Config, aggregator_app
+    from janus_tpu_torch.aggregator.test_util import InProcessNetwork
+    from janus_tpu_torch.core.time import MockClock
+    from janus_tpu_torch.datastore.test_util import EphemeralDatastore
+    from janus_tpu_torch.messages import AggregationJobId, TaskId
+
+    pair = Pair({"type": "Prio3Count"}, "janus_tpu_torch", "janus_tpu_torch", "inproc", oracle=True)
+    pair.task_id = TaskId.random()
+    headers = {"Authorization": "Bearer not-the-token"}
+    url_path = f"tasks/{pair.task_id}/" + path.format(job=AggregationJobId.random())
+
+    async def go():
+        clock = MockClock(Time(NOW))
+        ds = EphemeralDatastore(clock)
+        helper = Aggregator(ds.datastore, clock, Config(vdaf_backend="oracle"))
+        task = pair._task("helper", "inproc://leader/", HpkeKeypair.generate(9).config)
+        ds.datastore.run_tx("put", lambda tx: tx.put_aggregator_task(task))
+        server = TestServer(aggregator_app(helper))
+        await server.start_server()
+        try:
+            got = []
+            net = InProcessNetwork()
+            for session, base in ((net.session(), net.add("helper", helper)), (aiohttp.ClientSession(), str(server.make_url("/")))):
+                async with session.request(method, base + url_path, data=body, headers=headers) as resp:
+                    got.append((resp.status, await resp.read(), resp.headers.get("Retry-After")))
+                await session.close()
+            return got
+        finally:
+            await server.close()
+            await helper.shutdown()
+            ds.cleanup()
+
+    inproc, http = asyncio.run(go())
+    assert inproc == http
+    assert inproc[0] == REFUSAL_STATUS[method, path]
