@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's paths once each, over TurboSHAKE128 with 2 shares and
-1 proof (Field128, and Field64 for Count), and checks them:
+Drives the port's paths once each, 2 shares each, over TurboSHAKE128 with
+1 proof (Field128, and Field64 for Count) and over HMAC-SHA256-AES128 with
+2 proofs (Field64), and checks them:
 
 1. builds the CUDA kernels from ``janus_tpu_torch/csrc`` (one nvcc per
    source, all at once) and shards 64 distinct histogram reports from
@@ -89,7 +90,39 @@ Drives the port's paths once each, over TurboSHAKE128 with 2 shares and
     and each family's kernels launch; upload, creator, first job, the
     other jobs, collection and end-to-end seconds, uploads/s and
     reports/s, flushes a side, busy seconds by layer and peak memory go
-    under ``pair`` in the ``end_to_end`` line.
+    under ``pair`` in the ``end_to_end`` line.  Two more tasks, run
+    after phases 14 and 15: FixedPointBoundedL2VecSum(BitSize16, 1000)
+    with phase 14's distinct reports and 2 of its norm-lie reports, and
+    the HMAC multiproof SumVec with phase 15's 2 reports (its FLP on the
+    card, no port kernel launched: its XOF is on the host); no DP
+    strategy, so each aggregate is exact;
+14. **FixedPointBoundedL2VecSum at full width**, BitSize16 with 1,000
+    entries (MEAS_LEN 16,030, chunk 126: gadget 0 has 128 calls, P = 256,
+    the NTT; gadget 1 has 8 calls, P = 16, Horner), the registry's
+    instance: distinct reports sharded with the oracle's prep_init of both
+    sides by worker processes during the build, tiled to B = 1024 rows
+    with 8 rows whose leader measurement share is perturbed and 8 rows of
+    reports whose claimed norm disagrees with their entries; the direct
+    backend path (``prep_init``), both sides: the aggregate is the exact
+    sum of the valid rows' entries, every tampered row is rejected and 16
+    sampled rows equal the oracle; device ms a side, a profiled call and
+    peak memory; the same rows through the executor as 4 jobs of 256 a
+    side with the accumulator (one flush a side, no readback, no
+    eviction); K1 at the helper's measurement-share squeeze (1,527 blocks
+    a report) and K2 at the leader's joint-rand-part absorb against their
+    plain versions on the card, whole batch, the plain version timed on
+    the one call that is compared;
+15. **The HMAC multiproof SumVec at full width**,
+    Prio3SumVecField64MultiproofHmacSha256Aes128(proofs=2, length=100000,
+    bits=1, chunk_length=316): 2 reports sharded (with the oracle's
+    prep_init of both sides) by worker processes, tiled to 120 rows plus 8
+    tampered, B = 128, through ``make_backend``'s ``HybridXofBackend``,
+    both sides: host XOF, the FLP of both proofs and the decide on the
+    card (Field64, P = 512 on the NTT); the aggregate is exact, the
+    tampered rows are rejected, one row per side per report equals the
+    oracle, every leader row is marshalled from its bytes, no port kernel
+    launches; host-XOF and device seconds; a profiled ``query_batch`` call
+    a side must hold device activities.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -152,6 +185,25 @@ SV8_REPORTS, SV8_WORKERS, SV8_SAMPLED = 64, 2, 4
 PAIR_COUNT_REPORTS = PAIR_SUM_REPORTS = 1024
 PAIR_HIST_REPORTS, PAIR_HIST_WORKERS = 512, 4
 PAIR_TAMPERED, PAIR_JOB_SIZE, PAIR_UPLOAD_WAVE = 8, 256, 256
+#: Phase 14: Prio3FixedPointBoundedL2VecSum as the registry builds it at
+#: the reference's BitSize16 (core/src/vdaf.rs:88-91) with 1,000 entries,
+#: the JAX package's full-size fpvec row; distinct reports sharded by
+#: FP_WORKERS worker processes (each also shards one report whose claimed
+#: norm is 0 over nonzero entries), entries k / 2^15 with |k| <= FP_ENTRY_MAX
+#: (the squared norm stays below the 2^30 the claim holds); the batch's
+#: rows with a perturbed leader share and rows of the norm-lie reports.
+FP_DESC = {"type": "Prio3FixedPointBoundedL2VecSum", "bitsize": "BitSize16", "length": 1000}
+FP_DISTINCT, FP_WORKERS, FP_ENTRY_MAX = 16, 4, 1000
+FP_BATCH, FP_TAMPERED, FP_LIE_ROWS = 1024, 8, 8
+#: Phase 15: the HMAC-SHA256-AES128 multiproof SumVec at BASELINE.json
+#: configs[3]'s width with 2 proofs, the fewest its constructor takes
+#: (core/src/vdaf.rs:178-195); reports sharded by worker processes, batch.
+MP_DESC = {"type": "Prio3SumVecField64MultiproofHmacSha256Aes128", "proofs": 2, "length": 100000, "bits": 1,
+           "chunk_length": 316}
+MP_DISTINCT, MP_TAMPERED, MP_BATCH = 2, 8, 128
+#: The pair's FixedPoint task: phase 14's distinct reports and this many of
+#: its norm-lie reports.
+PAIR_FP_LIES = 2
 #: Where the paths run (the card; a CPU rehearsal of the script sets "cpu").
 DEVICE = "cuda"
 #: Largest |kernel - plain| allowed over u32 words: the arithmetic is exact
@@ -214,7 +266,9 @@ DEVICE_KERNELS = dict(zip(KERNEL_NAMES, ("squeeze_kernel", "absorb_kernel", "wir
 #: Small kernels a trace runs before the calls it measures: late in a long
 #: process torch.profiler can miss the first few device activities of a
 #: trace (PERF.md, section 5), so these stand first and are not counted.
-PROFILE_PRIMER = 8
+#: A FixedPoint helper prepare's trace (47,000 activities) lost all 8 of an
+#: earlier primer and its first squeeze besides.
+PROFILE_PRIMER = 64
 #: Seconds of quiet between the primer and the measured calls, which tell
 #: their events apart, and the traces taken before a profile that keeps
 #: losing kernel events fails.
@@ -452,10 +506,7 @@ def sumvec_oracle_job(seed: int, index: int, verify_key: bytes):
     public, shares = vdaf.shard(meas, nonce, rand)
     shard_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    oracle = []
-    for agg_id in (0, 1):
-        state, pshare = vdaf.prep_init(verify_key, agg_id, nonce, public, shares[agg_id])
-        oracle.append((pshare.encode(vdaf), state.out_share, state.corrected_joint_rand_seed))
+    oracle = oracle_prep(vdaf, verify_key, (nonce, public, shares))
     return meas, (nonce, public, shares), oracle, shard_s, time.perf_counter() - t0
 
 
@@ -481,6 +532,60 @@ def histogram_shard_job(seed: int, worker: int, count: int):
     rng = np.random.default_rng([seed, 200 + worker])
     reports, meas = shard_reports(vdaf, rng, lambda r: int(r.integers(0, LENGTH)), count)
     return list(zip(meas, reports))
+
+
+def oracle_prep(vdaf, verify_key, report):
+    """The oracle's prep_init of both sides of one report: [(prep share
+    bytes, out share, joint-rand seed) per side]."""
+    nonce, public, shares = report
+    out = []
+    for agg_id in (0, 1):
+        state, pshare = vdaf.prep_init(verify_key, agg_id, nonce, public, shares[agg_id])
+        out.append((pshare.encode(vdaf), state.out_share, state.corrected_joint_rand_seed))
+    return out
+
+
+def fixedpoint_shard_job(seed: int, worker: int, count: int, verify_key: bytes):
+    """``count`` distinct FP_DESC reports, each with the oracle's prep_init
+    of both sides, and one report whose claimed norm is 0 over entries of
+    norm > 0, sharded by the port's oracle (run in a worker process).
+    Returns ([(measurement, (nonce, public share, input shares), oracle)],
+    norm-lie report, seconds)."""
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+
+    t0 = time.perf_counter()
+    vdaf = vdaf_from_instance(FP_DESC)
+    valid = vdaf.flp.valid
+    rng = np.random.default_rng([seed, 300 + worker])
+    scale = 1 << (valid.bits_per_entry - 1)
+    out = []
+    for _ in range(count):
+        reports, meas = shard_reports(
+            vdaf, rng, lambda r: [int(k) / scale for k in r.integers(-FP_ENTRY_MAX, FP_ENTRY_MAX + 1, valid.entries)], 1
+        )
+        out.append((meas[0], reports[0], oracle_prep(vdaf, verify_key, reports[0])))
+    lie = valid.encode(out[0][0])
+    lie[valid.entries * valid.bits_per_entry :] = [0] * valid.bits_for_norm
+    vdaf.flp.encode = lambda _m: list(lie)  # the client lies: shadows the method
+    lies, _ = shard_reports(vdaf, rng, lambda r: None, 1)
+    return out, lies[0], time.perf_counter() - t0
+
+
+def multiproof_oracle_job(seed: int, index: int, verify_key: bytes):
+    """One distinct MP_DESC report sharded by the port's oracle, and the
+    oracle's prep_init of both sides (run in a worker process).  Returns
+    (measurement, (nonce, public share, input shares), oracle, shard
+    seconds, prep seconds)."""
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+
+    vdaf = vdaf_from_instance(MP_DESC)
+    rng = np.random.default_rng([seed, 400 + index])
+    t0 = time.perf_counter()
+    reports, meas = shard_reports(vdaf, rng, lambda r: [int(x) for x in r.integers(0, 2, MP_DESC["length"])], 1)
+    shard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = oracle_prep(vdaf, verify_key, reports[0])
+    return meas[0], reports[0], oracle, shard_s, time.perf_counter() - t0
 
 
 def build_batch(vdaf, reports, rng, batch, tampered):
@@ -516,12 +621,14 @@ def run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows):
     """Leader and helper prepare, combine and aggregate, as the executor
     drives them.  Returns (aggregate, accepted mask, results, prep messages,
     seconds per phase)."""
+    from janus_tpu_torch.ops.field import tensor_to_u32, u32_to_tensor
+
     secs = {}
     t0 = time.perf_counter()
-    lead = backend.prep_init_multi(0, [(verify_key, leader_rows)])[0]
+    lead = backend.prep_init_batch(verify_key, 0, leader_rows)
     secs["leader_prep_init"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    help_ = backend.prep_init_multi(1, [(verify_key, helper_rows)])[0]
+    help_ = backend.prep_init_batch(verify_key, 1, helper_rows)
     secs["helper_prep_init"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     msgs = backend.prep_shares_to_prep_batch([[lead[b][1], help_[b][1]] for b in range(len(lead))])
@@ -539,7 +646,13 @@ def run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows):
     aggs = []
     for side in (lead, help_):
         limbs = f.to_limbs([x for st, _ in side for x in st.out_share]).reshape(len(side), out_len, f.n)
-        aggs.append(backend.aggregate_batch(limbs, accepted))
+        if hasattr(backend, "aggregate_batch"):
+            aggs.append(backend.aggregate_batch(limbs, accepted))
+        else:
+            # HybridXofBackend has no aggregate surface: sum on the card
+            # through its BatchedPrio3
+            agg = backend.bp.aggregate(u32_to_tensor(limbs, DEVICE), torch.from_numpy(accepted).to(DEVICE))
+            aggs.append(f.from_limbs(tensor_to_u32(agg)))
     secs["aggregate"] = time.perf_counter() - t0
     return aggs, accepted, (lead, help_), msgs, secs
 
@@ -1007,7 +1120,9 @@ def keccak_path_checks(bp, lead, helper, usage: int, elems: int, plain_rounds: i
     stream ``usage`` names) and, where the circuit has joint randomness, K2
     at its leader's joint-rand-part absorb of agg_id || nonce || enc(meas),
     on the path's staged inputs, the whole batch, against their plain
-    versions on the card; timed, with their bounds.  Returns {kernel: entry}."""
+    versions on the card; timed, with their bounds.  ``plain_rounds`` 0
+    times the plain version on the one call that is compared (it takes
+    seconds a call at the longest shapes).  Returns {kernel: entry}."""
     from janus_tpu_torch.ops import keccak_kernels
     from janus_tpu_torch.ops.field import words
     from janus_tpu_torch.ops.keccak import words_to_bytes
@@ -1030,13 +1145,30 @@ def keccak_path_checks(bp, lead, helper, usage: int, elems: int, plain_rounds: i
     shapes = {}
     for name, fn, plain, inp, out_words, perms, shape in checks:
         got = fn(inp, out_words)
+        if plain_rounds:
+            want = plain(inp, out_words)
+            plain_ms = cuda_time_ms(lambda plain=plain, inp=inp, w=out_words: plain(inp, w), 1, rounds=plain_rounds)
+        else:
+            want, plain_ms = one_call_ms(lambda plain=plain, inp=inp, w=out_words: plain(inp, w))
         shapes[name] = {
-            "max_abs_err": max_abs_err(got, plain(inp, out_words)),
+            "max_abs_err": max_abs_err(got, want),
             "ms": cuda_time_ms(lambda fn=fn, inp=inp, w=out_words: fn(inp, w), 10),
-            "plain_ms": cuda_time_ms(lambda plain=plain, inp=inp, w=out_words: plain(inp, w), 1, rounds=plain_rounds),
+            "plain_ms": plain_ms,
             **keccak_bound(inp.numel() * 4 + got.numel() * 4, perms, B), "shape": shape,
         }
+        del got, want
     return shapes
+
+
+def one_call_ms(fn):
+    """(result, device ms) of one call of ``fn`` between CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def count_phase(verify_key, rng, phases):
@@ -1247,11 +1379,13 @@ def check_byte_marshal(backend, rows) -> int:
     """The leader marshal of decoded shares (read from the bytes they
     arrived in) against ``to_limbs`` of the same shares' values, on one row
     per distinct share object.  Returns the rows held."""
+    from janus_tpu_torch.vdaf.backend import leader_limbs
+
     distinct = list({id(r[2]): r for r in rows}.values())
     if not all(r[2].encoded_vectors is not None for r in distinct):
         raise AssertionError("a decoded leader share does not carry its bytes")
     f, B = backend.bp.f, len(distinct)
-    got = backend._leader_limbs(distinct)
+    got = leader_limbs(backend.vdaf, distinct, backend.leader_marshal_rows)
     want = [f.to_limbs([x for r in distinct for x in getattr(r[2], name)]).reshape(B, -1, f.n)
             for name in ("meas_share", "proofs_share")]
     if not all(np.array_equal(g, w) for g, w in zip(got, want)):
@@ -1456,6 +1590,169 @@ def sumvec_executor_phase(vdaf, verify_key, batch, served_aggs, oracle, phases):
     return record
 
 
+def fixedpoint_phase(verify_key, rng, fp_done, phases):
+    """Phase 14: FixedPointBoundedL2VecSum(BitSize16, 1000) at B = 1024 on
+    the direct path and through the executor, both sides; K1/K2 at its
+    shapes.  Returns (record, K1/K2 entries at its shapes)."""
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+    from janus_tpu_torch.vdaf.prio3 import USAGE_MEAS_SHARE
+
+    t0 = time.perf_counter()
+    vdaf = vdaf_from_instance(FP_DESC)
+    shards = [x for done, _lie, _s in fp_done for x in done]
+    lies = [lie for _done, lie, _s in fp_done]
+    meas, reports, oracle = zip(*shards)
+    # Tiled valid rows and rows with a perturbed leader share, then the
+    # norm-lie rows, shuffled together.
+    leader_rows, helper_rows, bad, src = build_batch(vdaf, list(reports), rng, FP_BATCH - FP_LIE_ROWS, FP_TAMPERED)
+    lie_rows = [lies[i % len(lies)] for i in range(FP_LIE_ROWS)]
+    order = rng.permutation(FP_BATCH)
+    leader_rows = [(leader_rows + [(n, p, s[0]) for n, p, s in lie_rows])[j] for j in order]
+    helper_rows = [(helper_rows + [(n, p, s[1]) for n, p, s in lie_rows])[j] for j in order]
+    bad = np.concatenate([bad, np.ones(FP_LIE_ROWS, dtype=bool)])[order]
+    src = np.concatenate([src, -np.ones(FP_LIE_ROWS, dtype=src.dtype)])[order]
+    leader_rows = decoded_leader_rows(vdaf, leader_rows)
+    build_s = time.perf_counter() - t0
+
+    backend = CudaBackend(vdaf, device=DEVICE)
+    bp = backend.bp
+    require_route(backend, FP_BATCH, "prep_init")
+    t0 = time.perf_counter()
+    (aggs, accepted, results, _msgs, secs), launches = counted(
+        "fixedpoint served path", ("keccak_squeeze", "keccak_absorb"),
+        lambda: run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows),
+    )
+    e2e = time.perf_counter() - t0
+    no_flp_kernels("fixedpoint", launches)
+    valid = [meas[i] for i in src[~bad]]
+    want = [sum(m[j] for m in valid) for j in range(FP_DESC["length"])]
+    if vdaf.unshard(aggs, int(accepted.sum())) != want:
+        raise AssertionError("fixedpoint: aggregate differs from the exact sum of the valid rows' entries")
+    check_decisions(accepted, bad)
+    for b in rng.choice(np.flatnonzero(~bad), SAMPLED, replace=False):
+        for agg_id in (0, 1):
+            compare_row(vdaf, b, agg_id, results[agg_id][b], oracle[src[b]][agg_id])
+    if backend.leader_marshal_rows != {"bytes": FP_BATCH, "values": 0}:
+        raise AssertionError(f"fixedpoint: leader rows marshalled {backend.leader_marshal_rows}")
+    log(f"fixedpoint: {FP_BATCH} reports through prep_init; exact aggregate over {int(accepted.sum())} rows; "
+        f"{int(bad.sum())} tampered rows rejected ({FP_TAMPERED} perturbed, {FP_LIE_ROWS} norm lies); {SAMPLED} "
+        f"sampled rows equal the oracle on both sides; oracle recomputed rows {backend.oracle_recompute_rows}; "
+        f"{e2e:.3f} s")
+    phases["fixedpoint_served"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    staged = {a: backend.stage_prep_init_multi(a, [(verify_key, rows)]).placed
+              for a, rows in ((0, leader_rows), (1, helper_rows))}
+    torch.cuda.reset_peak_memory_stats()
+    # a call takes over a second here: one a round
+    dev_ms = staged_ms(bp, staged, "prep_init", 1)
+    peak = torch.cuda.max_memory_allocated()
+    profile = {side: profile_device(lambda a=a: device_prep(bp, staged[a], a, "prep_init"))
+               for side, a in (("leader", 0), ("helper", 1))}
+    log(f"fixedpoint: device ms at B = {FP_BATCH} {json.dumps(dev_ms)}; peak memory {peak} bytes")
+    phases["fixedpoint_device"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ex, backends, warm_s = executor_for(vdaf, FP_BATCH, warmup=True)
+    (ex_aggs, ex_accepted, ex_results, ex_record), _ = counted(
+        "fixedpoint executor path", ("keccak_squeeze", "keccak_absorb"),
+        lambda: executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, EXECUTOR_JOBS),
+    )
+    ex_record["warmup_s"] = warm_s
+    if ex_aggs != aggs or not np.array_equal(ex_accepted, accepted):
+        raise AssertionError("fixedpoint executor path: drained aggregate or decisions differ from the direct path")
+    for b in rng.choice(np.flatnonzero(~bad), SAMPLED, replace=False):
+        for agg_id in (0, 1):
+            compare_row(vdaf, b, agg_id, ex_results[agg_id][b], oracle[src[b]][agg_id], resident=True)
+    ex_record["byte_marshal_rows_checked"] = check_byte_marshal(backends[0], leader_rows)
+    log(f"fixedpoint executor path: one flush a side of {EXECUTOR_JOBS} jobs; drained aggregate equals the direct "
+        f"path's; no out-share readback; job {ex_record['seconds']:.3f} s")
+    phases["fixedpoint_executor"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    del ex, backends
+    shapes = keccak_path_checks(bp, staged[0], staged[1], USAGE_MEAS_SHARE, vdaf.flp.MEAS_LEN, plain_rounds=0)
+    phases["fixedpoint_kernel_checks"] = time.perf_counter() - t0
+    record = {
+        "reports": FP_BATCH, "distinct": len(shards), "tampered": int(bad.sum()), "route": "prep_init",
+        "seconds": e2e, "reports_per_s": FP_BATCH / e2e, "phases_s": secs, "batch_build_s": build_s,
+        "shard_s": [s for _d, _l, s in fp_done],
+        "device_prep_init_ms": dev_ms, "device_prep_init_profile": profile, "device_peak_memory_bytes": peak,
+        "host_seconds": dict(backend.host_seconds), "executor": ex_record,
+    }
+    return record, shapes
+
+
+def multiproof_phase(verify_key, rng, mp_done, phases):
+    """Phase 15: the HMAC multiproof SumVec at B = 128 through
+    ``make_backend``'s ``HybridXofBackend``, both sides.  Returns the
+    record."""
+    from janus_tpu_torch.vdaf.backend import HybridXofBackend, make_backend
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+
+    t_phase = time.perf_counter()
+    log(f"shard: {MP_DISTINCT} multiproof reports in {json.dumps([d[3] for d in mp_done])} s (worker processes); "
+        f"oracle prep_init of both sides {json.dumps([d[4] for d in mp_done])} s")
+    vdaf = vdaf_from_instance(MP_DESC)
+    meas = [d[0] for d in mp_done]
+    leader_rows, helper_rows, tampered, src = build_batch(vdaf, [d[1] for d in mp_done], rng, MP_BATCH, MP_TAMPERED)
+    t0 = time.perf_counter()
+    leader_rows = decoded_leader_rows(vdaf, leader_rows)
+    decode_s = time.perf_counter() - t0
+    backend = make_backend(vdaf, "cuda", device=DEVICE)
+    if not isinstance(backend, HybridXofBackend) or backend.bp.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"multiproof: make_backend gave {type(backend).__name__} on {backend.bp.device}")
+    # Keep each side's query_batch inputs (on the card) to time and
+    # profile the FLP alone afterwards.
+    query_batch = backend.bp.query_batch
+    inputs = []
+
+    def keep_inputs(*args):
+        inputs.append(args)
+        return query_batch(*args)
+
+    backend.bp.query_batch = keep_inputs
+    t0 = time.perf_counter()
+    (aggs, accepted, results, _msgs, secs), launches = counted(
+        "multiproof served path", (), lambda: run_main_path(vdaf, backend, verify_key, leader_rows, helper_rows)
+    )
+    e2e = time.perf_counter() - t0
+    backend.bp.query_batch = query_batch
+    if any(launches.values()):
+        raise AssertionError(f"multiproof: the host-XOF path launched port kernels: {launches}")
+    valid_sum = np.sum([meas[i] for i in src[~tampered]], axis=0).tolist()
+    if vdaf.unshard(aggs, int(accepted.sum())) != valid_sum:
+        raise AssertionError("multiproof: aggregate differs from the exact sum of the valid rows")
+    check_decisions(accepted, tampered)
+    for i in range(MP_DISTINCT):
+        b = int(np.flatnonzero((src == i) & ~tampered)[0])
+        for agg_id in (0, 1):
+            compare_row(vdaf, b, agg_id, results[agg_id][b], mp_done[i][2][agg_id])
+    if backend.leader_marshal_rows != {"bytes": MP_BATCH, "values": 0} or backend.oracle_recompute_rows:
+        raise AssertionError(f"multiproof: leader rows marshalled {backend.leader_marshal_rows}, "
+                             f"oracle recomputed {backend.oracle_recompute_rows}")
+    host_seconds = dict(backend.host_seconds)
+    bp = backend.bp
+    query_ms = {side: cuda_time_ms(lambda a=a: query_batch(*inputs[a]), 2) for side, a in (("leader", 0), ("helper", 1))}
+    profile = {side: profile_device(lambda a=a: query_batch(*inputs[a])) for side, a in (("leader", 0), ("helper", 1))}
+    if any(not p.get("device_activities") for p in profile.values()):
+        raise AssertionError(f"multiproof: a profiled query_batch call holds no device activity: {profile}")
+    del inputs
+    log(f"multiproof: {MP_BATCH} reports through HybridXofBackend, FLP on {bp.device}; exact aggregate over "
+        f"{int(accepted.sum())} rows; {int(tampered.sum())} tampered rows rejected; one row per side per report "
+        f"equals the oracle; leader rows from bytes; host seconds {json.dumps(host_seconds)}; query_batch device ms "
+        f"{json.dumps(query_ms)}; {e2e:.3f} s")
+    phases["multiproof"] = time.perf_counter() - t_phase
+    return {
+        "reports": MP_BATCH, "route": "cuda-hybrid", "flp_device": str(bp.device), "seconds": e2e,
+        "reports_per_s": MP_BATCH / e2e, "phases_s": secs, "leader_decode_s": decode_s,
+        "shard_s": [d[3] for d in mp_done], "host_seconds": host_seconds,
+        "leader_marshal_rows": dict(backend.leader_marshal_rows), "device_query_ms": query_ms,
+        "device_query_profile": profile, "phase_s": phases["multiproof"],
+    }
+
+
 def tamper(vdaf, shares):
     """The input shares with the leader's first measurement element
     perturbed, which the proof then fails."""
@@ -1597,10 +1894,12 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
             backends = {}
             for agg_id, side in enumerate(ds):
                 b = backends[side] = ex[side].backend_for(key, lambda: make_backend(vdaf, "cuda", device=DEVICE))
-                ex[side].warmup_backend(b, agg_ids=(agg_id,), pad_to=min(PAIR_JOB_SIZE, len(shards)))
-                b.outshare_readback_rows = 0
-                b.leader_marshal_rows = {"bytes": 0, "values": 0}
-                b.oracle.rows = {"init": 0, "combine": 0}
+                # a backend with no executor surface (HybridXofBackend) has
+                # no launch to warm
+                if ex[side].warmup_backend(b, agg_ids=(agg_id,), pad_to=min(PAIR_JOB_SIZE, len(shards))):
+                    b.outshare_readback_rows = 0
+                    b.leader_marshal_rows = {"bytes": 0, "values": 0}
+                    b.oracle.rows = {"init": 0, "combine": 0}
             secs["warmup"] = time.perf_counter() - t0
             zero_counters()
             configs = [tasks[side].hpke_keys[0].config for side in ("leader", "helper")]
@@ -1662,6 +1961,10 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
             secs["collection"] = time.perf_counter() - t0
             secs["end_to_end"] = time.perf_counter() - t_e2e
             await collection_driver.close()
+            # The helper calls a backend with no executor surface
+            # (HybridXofBackend) directly: its task aggregator's.
+            if not hasattr(backends["helper"], "stage_prep_init_multi"):
+                backends["helper"] = (await aggs["helper"].task_aggregator_for(task_id)).backend
             return result, backends, {s: ex[s].stats() for s in ex}, {s: ex[s].circuit_stats() for s in ex}
         finally:
             trace.unregister_span_sink(sink)
@@ -1678,11 +1981,14 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
     if result.report_count != len(valid) or result.aggregate_result != expect(valid):
         raise AssertionError(f"pair {name}: collected {result.report_count} reports, not the exact aggregate of the "
                              f"{len(valid)} untampered ones")
+    readback = {side: getattr(b, "outshare_readback_rows", 0) for side, b in backends.items()}
     for side, b in backends.items():
-        extra = [o.rows for o in b._oracles.values()]
-        if b.outshare_readback_rows or b.oracle_recompute_rows or any(any(r.values()) for r in [b.oracle.rows] + extra):
-            raise AssertionError(f"pair {name}: the {side} read back {b.outshare_readback_rows} out shares, "
+        extra = [o.rows for o in getattr(b, "_oracles", {}).values()]
+        if readback[side] or b.oracle_recompute_rows or any(any(r.values()) for r in [b.oracle.rows] + extra):
+            raise AssertionError(f"pair {name}: the {side} read back {readback[side]} out shares, "
                                  f"recomputed {b.oracle_recompute_rows} rows, oracle rows {b.oracle.rows} {extra}")
+        if b.bp.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"pair {name}: the {side}'s FLP ran on {b.bp.device}")
         if any(c["trips"] or c["state"] != "closed" for c in circuits[side].values()):
             raise AssertionError(f"pair {name}: a breaker of the {side} tripped: {circuits[side]}")
     marshal = backends["leader"].leader_marshal_rows
@@ -1699,7 +2005,7 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
         "seconds": secs, "uploads_per_s": len(shards) / secs["upload"], "reports_per_s": len(shards) / secs["end_to_end"],
         "helper_init_s": {"first": rec.pop("first_job_helper_init_s")},
         "prep_init_flushes": flushes, "executor_stats": stats, "leader_marshal_rows": marshal,
-        "outshare_readback_rows": {s: b.outshare_readback_rows for s, b in backends.items()},
+        "outshare_readback_rows": readback, "backend": type(backends["leader"]).__name__,
         "device_peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
         "report_count": result.report_count,
     })
@@ -1710,7 +2016,7 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
     return rec
 
 
-def pair_phase(verify_key, rng, hist_shards, sv_done, phases):
+def pair_phase(verify_key, rng, hist_shards, sv_done, fp_done, mp_done, mp_verify_key, phases):
     """Phase 13: one task a family through the leader/helper pair.  Returns
     the records by task."""
     from janus_tpu_torch.vdaf.instances import prio3_count, prio3_sum
@@ -1741,6 +2047,19 @@ def pair_phase(verify_key, rng, hist_shards, sv_done, phases):
         [(d[0], d[1]) for d in sv_done], [False] * len(sv_done),
         lambda valid: np.sum(valid, axis=0).tolist(), verify_key,
         ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires"))
+    torch.cuda.empty_cache()
+    fp_shards = [(m, r) for done, _lie, _s in fp_done for m, r, _o in done]
+    fp_lies = [(None, lie) for _d, lie, _s in fp_done][:PAIR_FP_LIES]
+    out["fixedpoint"] = pair_run(
+        "fixedpoint", FP_DESC, fp_shards + fp_lies, [False] * len(fp_shards) + [True] * len(fp_lies),
+        lambda valid: [sum(m[j] for m in valid) for j in range(FP_DESC["length"])], verify_key,
+        ("keccak_squeeze", "keccak_absorb"))
+    torch.cuda.empty_cache()
+    out["multiproof"] = pair_run(
+        "multiproof", MP_DESC, [(d[0], d[1]) for d in mp_done], [False] * len(mp_done),
+        lambda valid: np.sum(valid, axis=0).tolist(), mp_verify_key, ())
+    if any(out["multiproof"]["launches"].values()):
+        raise AssertionError(f"pair multiproof: the host-XOF path launched port kernels: {out['multiproof']['launches']}")
     phases["pair"] = time.perf_counter() - t0
     return out
 
@@ -1769,15 +2088,22 @@ def main() -> int:
         f"largest SM clock {sm_clock_hz() / 1e6:.0f} MHz")
     rng = np.random.default_rng(args.seed)
     verify_key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    # the HMAC multiproof's 32-byte key, from its own generator so that the
+    # earlier phases draw what they drew before it
+    mp_verify_key = np.random.default_rng([args.seed, 32]).integers(0, 256, 32, dtype=np.uint8).tobytes()
     phases = {}
     start = time.perf_counter()
 
-    # The pure-Python oracle takes about a minute to shard and prove each
-    # SumVec100k report; two worker processes do it during the build and the
-    # histogram sharding, and end before any timed phase starts.
-    workers = SV_DISTINCT + SV8_WORKERS + PAIR_HIST_WORKERS
+    # The pure-Python oracle takes tens of seconds to shard and prove each
+    # SumVec100k report (the multiproof's two proofs, the FixedPoint
+    # reports); worker processes do it during the build and the histogram
+    # sharding, the longest first, and end before any timed phase starts.
+    workers = MP_DISTINCT + SV_DISTINCT + SV8_WORKERS + PAIR_HIST_WORKERS + FP_WORKERS
     with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        mp_jobs = [pool.submit(multiproof_oracle_job, args.seed, i, mp_verify_key) for i in range(MP_DISTINCT)]
         jobs = [pool.submit(sumvec_oracle_job, args.seed, i, verify_key) for i in range(SV_DISTINCT)]
+        fp_jobs = [pool.submit(fixedpoint_shard_job, args.seed, w, FP_DISTINCT // FP_WORKERS, verify_key)
+                   for w in range(FP_WORKERS)]
         sv8_jobs = [pool.submit(sumvec_bits_shard_job, args.seed, w, SV8_REPORTS // SV8_WORKERS) for w in range(SV8_WORKERS)]
         extra = (PAIR_HIST_REPORTS - DISTINCT) // PAIR_HIST_WORKERS
         hist_jobs = [pool.submit(histogram_shard_job, args.seed, w, extra) for w in range(PAIR_HIST_WORKERS)]
@@ -1798,6 +2124,11 @@ def main() -> int:
         sv8_shards = [x for j in sv8_jobs for x in j.result()]
         hist_shards = list(zip(meas, reports)) + [x for j in hist_jobs for x in j.result()]
         phases["sumvec_shard_wait"] = time.perf_counter() - t0
+        fp_done = [j.result() for j in fp_jobs]
+        mp_done = [j.result() for j in mp_jobs]
+        phases["shard_wait_total"] = time.perf_counter() - t0
+    log(f"shard: FixedPoint reports {json.dumps([d[2] for d in fp_done])} s a worker; phases so far "
+        f"{json.dumps(phases)}")
     kernels, histogram, hist_batch = histogram_phases(hist_vdaf, reports, meas, verify_key, rng, phases)
     torch.cuda.empty_cache()
     sv_entry, sv_shapes, sumvec, sv_served = sumvec_phases(verify_key, rng, done, phases)
@@ -1813,7 +2144,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     sumvec_executor = sumvec_executor_phase(prio3_sum_vec(SV_LENGTH, 1, SV_CHUNK), verify_key, *sv_served, phases)
     torch.cuda.empty_cache()
-    pair = pair_phase(verify_key, rng, hist_shards, done, phases)
+    log(f"phases so far {json.dumps(phases)}; {time.perf_counter() - start:.1f} s since the start")
+    fixedpoint, path_shapes["fixedpoint"] = fixedpoint_phase(verify_key, rng, fp_done, phases)
+    torch.cuda.empty_cache()
+    multiproof = multiproof_phase(mp_verify_key, rng, mp_done, phases)
+    torch.cuda.empty_cache()
+    pair = pair_phase(verify_key, rng, hist_shards, done, fp_done, mp_done, mp_verify_key, phases)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]] for path, launches in PATH_LAUNCHES.items()}
         for path, shapes in path_shapes.items():
@@ -1830,7 +2166,8 @@ def main() -> int:
     log(json.dumps({"phases_s": phases, "profiler_traces": TRACE_TALLY}))
     log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec, "count": count, "sum": sum_record,
                                    "sumvec_bits8": sumvec_bits, "histogram_executor": histogram_executor,
-                                   "sumvec_executor": sumvec_executor, "pair": pair}}))
+                                   "sumvec_executor": sumvec_executor, "fixedpoint": fixedpoint,
+                                   "multiproof": multiproof, "pair": pair}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

@@ -176,11 +176,25 @@ def poly_eval(field: type, coeffs: Sequence[int], x: int) -> int:
     return acc
 
 
+#: From this many coefficients in each operand up, ``poly_mul`` multiplies
+#: through the NTT: the wide circuits' gadget polynomials (SumVec(100000)
+#: multiplies 316 wire pairs of 512 coefficients a proof) take a fraction of
+#: the naive convolution's time, with the same coefficients mod p.
+POLY_MUL_NTT_MIN = 64
+
+
 def poly_mul(field: type, a: Sequence[int], b: Sequence[int]) -> List[int]:
-    """Naive convolution; fine for the small polynomials in FLP proofs."""
+    """The product polynomial: the naive convolution, or for long operands
+    the inverse NTT of the pointwise product of the operands' NTTs."""
     p = field.MODULUS
     if not a or not b:
         return []
+    if min(len(a), len(b)) >= POLY_MUL_NTT_MIN:
+        n_out = len(a) + len(b) - 1
+        n = next_power_of_2(n_out)
+        fa = ntt(field, list(a) + [0] * (n - len(a)))
+        fb = ntt(field, list(b) + [0] * (n - len(b)))
+        return ntt(field, [x * y % p for x, y in zip(fa, fb)], inverse=True)[:n_out]
     out = [0] * (len(a) + len(b) - 1)
     for i, x in enumerate(a):
         if x == 0:

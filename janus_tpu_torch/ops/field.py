@@ -97,12 +97,17 @@ class TField:
 
     def to_limbs(self, values: Sequence[int]) -> np.ndarray:
         """Host: python ints in [0, 2^(32n)) -> (len, n) uint32 limbs."""
+        if self.n == 2:
+            # a Field64 element is one u64: numpy converts the list at once
+            return np.array(values, dtype="<u8").view("<u4").astype(np.uint32).reshape(-1, 2)
         size = 4 * self.n
         data = b"".join(int(v).to_bytes(size, "little") for v in values)
         return np.frombuffer(data, dtype="<u4").astype(np.uint32).reshape(-1, self.n)
 
     def from_limbs(self, limbs: np.ndarray) -> List[int]:
         """Host: (..., n) uint32 limbs -> python ints (flattened)."""
+        if self.n == 2:
+            return np.ascontiguousarray(limbs, dtype="<u4").view("<u8").ravel().tolist()
         size = 4 * self.n
         data = np.ascontiguousarray(limbs, dtype="<u4").tobytes()
         return [int.from_bytes(data[i : i + size], "little") for i in range(0, len(data), size)]

@@ -1,4 +1,5 @@
-"""Batched Prio3 prepare on the card: Count, Sum, SumVec and Histogram.
+"""Batched Prio3 prepare on the card: Count, Sum, SumVec, Histogram and
+FixedPointBoundedL2VecSum.
 
 Counterpart of ``janus_tpu/ops/prepare.py``.  Two prepares, each
 byte-identical to the oracle ``janus_tpu_torch.vdaf.prio3``:
@@ -9,8 +10,10 @@ byte-identical to the oracle ``janus_tpu_torch.vdaf.prio3``:
   the same memory as a stream of those elements.  The wire kernels (K3
   histogram, K5 SumVec) and the planar combine (K4) carry the heavy work.
 - ``prep_init`` (every circuit; the one path for Count, Sum, SumVec with
-  bits > 1, Histogram with MEAS_LEN > 65535 and any batch past 65535):
-  row-major (B, elems, n) tensors with the limb axis last.  The JAX
+  bits > 1, FixedPointBoundedL2VecSum, any circuit with more than one
+  proof, Histogram with MEAS_LEN > 65535 and any batch past 65535):
+  row-major (B, elems, n) tensors with the limb axis last, every gadget of
+  the circuit and every proof in turn.  The JAX
   package's limb-planar Count/Sum path exists for the TPU's lane layout;
   on the card the row path is the faster of the two (PERF.md), so the port
   has no such path.
@@ -24,8 +27,10 @@ verifiers, out shares) stay canonical; the per-report scalars that multiply
 them (joint rand r, query point t, Lagrange coefficients, constants) are in
 Montgomery form, so ``mont_mul(canonical, montgomery)`` lands canonical.
 
-Served: over TurboSHAKE128 with one proof; any other XOF, proof count or
-circuit raises ``NotImplementedError``.
+Served: every Prio3 circuit with any number of proofs.  The XOF runs on the
+card only for TurboSHAKE128; for another XOF (the HMAC multiproof SumVec)
+``BatchedPrio3(require_device_xof=False)`` serves the XOF-free
+``query_batch``/``decide_batch`` to ``vdaf.backend.HybridXofBackend``.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from ..fields import next_power_of_2
-from ..flp.circuits import Count, Histogram, Sum, SumVec
+from ..flp.circuits import Count, FixedPointBoundedL2VecSum, Histogram, Sum, SumVec
 from ..vdaf.prio3 import (
     USAGE_JOINT_RAND_PART,
     USAGE_JOINT_RAND_SEED,
@@ -98,11 +103,15 @@ class _GadgetPlan:
 
 
 class _DeviceCircuit:
-    """Device twin of one FLP validity circuit (single-gadget plans).
+    """Device twin of one FLP validity circuit, with one plan per gadget.
 
     Subclasses give ``inputs``, ``v``, ``truncate`` and
     ``gadget_eval_scaled`` on row-major tensors (B, ..., n): meas, gk and
-    wires canonical, jr_m Montgomery (None without joint randomness)."""
+    wires canonical, jr_m Montgomery (None without joint randomness).  The
+    single-gadget circuits keep gadget 0's plan under ``calls``, ``arity``,
+    ``P`` and ``glen``, which the planar path reads; a circuit with more
+    gadgets (FixedPointBoundedL2VecSum) overrides the per-gadget hooks
+    ``wire_evals_g`` and ``v_multi``."""
 
     def __init__(self, valid):
         self.valid = valid
@@ -113,6 +122,15 @@ class _DeviceCircuit:
         p0 = self.plans[0]
         self.calls, self.arity, self.degree = p0.calls, p0.arity, p0.degree
         self.P, self.glen = p0.P, p0.glen
+
+    def wire_evals_g(self, gi: int, f: TField, meas, jr_m, lag, seeds, consts) -> torch.Tensor:
+        """Wire evaluations of gadget ``gi`` (only 0 here)."""
+        return self.wire_evals(f, meas, jr_m, lag, seeds, consts)
+
+    def v_multi(self, f: TField, gks: List[torch.Tensor], meas, jr_m, consts) -> torch.Tensor:
+        """Circuit output from one (B, calls_g, n) gadget-output tensor per
+        gadget."""
+        return self.v(f, gks[0], meas, jr_m, consts)
 
     def wire_evals(self, f: TField, meas, jr_m, lag, seeds, consts) -> torch.Tensor:
         """Wire-polynomial evaluations at t, (B, arity, n) canonical, from
@@ -282,7 +300,64 @@ class _DSumVec(_DChunked):
         return f.sum(f.mont_mul(m, consts["pow2_m"][None, None]), axis=2)
 
 
+class _DFixedPointL2(_DSumVec):
+    """FixedPointBoundedL2VecSum: two gadgets.  Gadget 0 is the bit check
+    over every MEAS_LEN position on the SumVec pattern (a joint-rand weight
+    a call); gadget 1 is ParallelSum(Mul) over the entry pairs (X_i, X_i),
+    the entries recomposed from their bits on the card.  Both gadgets are
+    ParallelSum(Mul) over ``chunk``, so one ``gadget_eval_scaled`` decides
+    both.  The norm identity and the Schwartz-Zippel fold of the two checks
+    are in ``v_multi``."""
+
+    def __init__(self, valid):
+        super().__init__(valid)  # chunk and gadget 0's padding of MEAS_LEN
+        self.nbits = valid.bits_per_entry
+        self.entries = valid.entries
+        #: gadget 1's zero padding of the entries in its last call
+        self.pad_len1 = self.plans[1].calls * self.chunk - valid.entries
+
+    def _entries(self, f, meas, consts):
+        """X_i = sum_b 2^b meas[i * nbits + b] -> (B, entries, n) canonical."""
+        B = meas.shape[0]
+        m = meas[:, : self.entries * self.nbits].reshape(B, self.entries, self.nbits, f.n)
+        return f.sum(f.mont_mul(m, consts["pow2_m"][None, None]), axis=2)
+
+    def wire_evals_g(self, gi, f, meas, jr_m, lag, seeds, consts):
+        if gi == 0:
+            return self.wire_evals(f, meas, jr_m[:, : self.calls], lag, seeds, consts)
+        # Both wires of pair u evaluate to seed * lag_0 + sum_k X[k, u]
+        # lag_{k+1}: one contraction fills the even and the odd slot.
+        B = meas.shape[0]
+        x = self._entries(f, meas, consts)
+        if self.pad_len1:
+            x = torch.cat([x, torch.zeros((B, self.pad_len1, f.n), dtype=x.dtype, device=x.device)], dim=1)
+        xm = x.reshape(B, self.plans[1].calls, self.chunk, f.n)
+        s = f.sum(f.mont_mul(xm, lag[:, 1:, None, :]), axis=1)  # (B, chunk, n)
+        pair = torch.stack([s, s], dim=2).reshape(B, 2 * self.chunk, f.n)
+        return f.add(f.mont_mul(seeds, lag[:, 0, None, :]), pair)
+
+    def v_multi(self, f, gks, meas, jr_m, consts):
+        """rn * bit_check + rn^2 * norm_check, rn = jr[bit calls], where
+        norm_check = sum X_i^2 - 2^n sum X_i + d 2^(2n-2) / shares minus the
+        claimed norm's (2n-2)-bit decomposition."""
+        gk_bits, gk_sq = gks
+        bit_check = f.sum(gk_bits, axis=1)  # (B, n)
+        sumsq = f.sum(gk_sq, axis=1)
+        sum_x = f.sum(self._entries(f, meas, consts), axis=1)
+        norm_bits = meas[:, self.entries * self.nbits :]
+        claimed = f.sum(f.mont_mul(norm_bits, consts["pow2_norm_m"][None]), axis=1)
+        computed = f.add(f.sub(sumsq, f.mont_mul(sum_x, consts["pow2n_m"])), consts["offset_sq_c"])
+        norm_check = f.sub(computed, claimed)
+        rn = jr_m[:, self.calls]
+        return f.add(f.mont_mul(bit_check, rn), f.mont_mul(f.mont_mul(norm_check, rn), rn))
+
+    def truncate(self, f, meas, consts):
+        return self._entries(f, meas, consts)
+
+
 def _device_circuit(valid) -> _DeviceCircuit:
+    if isinstance(valid, FixedPointBoundedL2VecSum):
+        return _DFixedPointL2(valid)
     if isinstance(valid, Count):
         return _DCount(valid)
     if isinstance(valid, Sum):
@@ -292,23 +367,24 @@ def _device_circuit(valid) -> _DeviceCircuit:
     if isinstance(valid, Histogram):
         return _DHistogram(valid)
     raise NotImplementedError(
-        f"the CUDA prepare path serves Count, Sum, SumVec and Histogram, not {type(valid).__name__}"
+        f"the CUDA prepare path serves Count, Sum, SumVec, Histogram and FixedPointBoundedL2VecSum, "
+        f"not {type(valid).__name__}"
     )
 
 
 class BatchedPrio3:
-    """Device-batched prepare for one Prio3Count, Prio3Sum, Prio3SumVec or
-    Prio3Histogram instance (TurboSHAKE128, one proof).
+    """Device-batched prepare for one Prio3 instance: Count, Sum, SumVec,
+    Histogram or FixedPointBoundedL2VecSum, with any number of proofs.
 
     All entry points take and return tensors on ``device`` (default the
     card); the tests pass ``device="cpu"``, where every kernel wrapper takes
-    its plain PyTorch version."""
+    its plain PyTorch version.  With ``require_device_xof=False`` an XOF
+    other than TurboSHAKE128 is accepted, for the XOF-free
+    ``query_batch``/``decide_batch`` only."""
 
-    def __init__(self, prio3: Prio3, device="cuda"):
-        if prio3.xof is not XofTurboShake128:
+    def __init__(self, prio3: Prio3, device="cuda", require_device_xof: bool = True):
+        if require_device_xof and prio3.xof is not XofTurboShake128:
             raise NotImplementedError("the CUDA prepare path requires XofTurboShake128")
-        if prio3.num_proofs != 1:
-            raise NotImplementedError("the CUDA prepare path serves one proof")
         self.device = torch.device(device)
         self.prio3 = prio3
         self.flp = prio3.flp
@@ -316,13 +392,20 @@ class BatchedPrio3:
         self.circ = _device_circuit(self.flp.valid)
         self.consts_np = compute_consts(prio3, self.f, self.circ)
         self.consts = consts_from_numpy(self.consts_np, self.device)
-        self.log2_P = self.circ.P.bit_length() - 1
-        #: (bit-reversal (P,), per-stage twiddles) of the NTT, or None
-        self.ntt = None
-        if self.circ.P >= NTT_MIN_P:
-            bitrev, stages = compute_ntt(self.f, self.circ.P)
-            tw = consts_from_numpy(dict(enumerate(stages)), self.device)
-            self.ntt = (torch.from_numpy(bitrev).to(self.device), list(tw.values()))
+        #: per gadget: its constants (alpha_pows_m, bary_c_m, roots_m,
+        #: roots_all_m) on the device, log2 P and its NTT tables (bit
+        #: reversal (P,), per-stage twiddles) or None below NTT_MIN_P.
+        #: Gadget 0's constants are ``consts`` itself, where the planar path
+        #: reads them.
+        self.gadgets = []
+        for gi, plan in enumerate(self.circ.plans):
+            ntt = None
+            if plan.P >= NTT_MIN_P:
+                bitrev, stages = compute_ntt(self.f, plan.P)
+                tw = consts_from_numpy(dict(enumerate(stages)), self.device)
+                ntt = (torch.from_numpy(bitrev).to(self.device), list(tw.values()))
+            consts = self.consts if gi == 0 else consts_from_numpy(gadget_consts(self.f, plan), self.device)
+            self.gadgets.append({"consts": consts, "log2_P": plan.P.bit_length() - 1, "ntt": ntt})
 
     # -- XOF helpers ----------------------------------------------------
     def _dst(self, usage: int) -> bytes:
@@ -352,17 +435,19 @@ class BatchedPrio3:
         zero_seed = torch.zeros((B, prio3.xof.SEED_SIZE), dtype=torch.uint8, device=dev)
         corrected = self._xof_seed(zero_seed, self._dst(USAGE_JOINT_RAND_SEED), torch.cat(pieces, dim=-1))
         empty = torch.zeros((B, 0), dtype=torch.uint8, device=dev)
-        jr, ok = self._expand_vec(corrected, self._dst(USAGE_JOINT_RANDOMNESS), empty, self.flp.JOINT_RAND_LEN)
+        jr_len = self.flp.JOINT_RAND_LEN * prio3.num_proofs
+        jr, ok = self._expand_vec(corrected, self._dst(USAGE_JOINT_RANDOMNESS), empty, jr_len)
         return corrected, jr, ok
 
     def _query_rand(self, verify_key, nonces_u8) -> Tuple[torch.Tensor, torch.Tensor]:
         """Query randomness from the verify key (bytes or (B, 16) uint8) and
-        the nonces -> (qr (QUERY_RAND_LEN, n, B), ok (B,))."""
+        the nonces -> (qr (num_proofs * QUERY_RAND_LEN, n, B), ok (B,))."""
         B, dev = nonces_u8.shape[0], nonces_u8.device
         if isinstance(verify_key, (bytes, bytearray)):
             verify_key = torch.from_numpy(np.frombuffer(bytes(verify_key), dtype=np.uint8).copy()).to(dev)
         vk = verify_key.expand(B, verify_key.shape[-1]).contiguous()
-        return self._expand_vec(vk, self._dst(USAGE_QUERY_RANDOMNESS), nonces_u8, self.flp.QUERY_RAND_LEN)
+        qr_len = self.flp.QUERY_RAND_LEN * self.prio3.num_proofs
+        return self._expand_vec(vk, self._dst(USAGE_QUERY_RANDOMNESS), nonces_u8, qr_len)
 
     def planar_eligible(self, agg_id: int, batch: int) -> bool:
         """True when the planar path serves this prep: the JAX package's
@@ -374,8 +459,9 @@ class BatchedPrio3:
             # the lazy u16-half meas_sum is exact only up to 65535 terms
             circuit_ok = self.flp.MEAS_LEN <= LAZY_SUM_MAX
         else:
-            # bits > 1 would need a planar truncate (out_share != meas)
-            circuit_ok = isinstance(self.circ, _DSumVec) and self.flp.valid.bits == 1
+            # bits > 1 would need a planar truncate (out_share != meas);
+            # FixedPointBoundedL2VecSum's second gadget takes the row path
+            circuit_ok = type(self.circ) is _DSumVec and self.flp.valid.bits == 1
         return circuit_ok and self.prio3.num_proofs == 1 and batch <= LAZY_SUM_MAX
 
     def prep_route(self, agg_id: int, batch: int) -> str:
@@ -428,7 +514,7 @@ class BatchedPrio3:
         f, circ = self.f, self.circ
         one = _ones(f, t[0].shape[0], t[0].device)
         tp = t
-        for _ in range(self.log2_P):
+        for _ in range(self.gadgets[0]["log2_P"]):
             tp = f.mont_mul_limbs(tp, tp)
         z = f.sub_limbs(tp, one)
         nz = z[0]
@@ -466,19 +552,19 @@ class BatchedPrio3:
         return gk, self._gpoly_at_planes(gp, t)
 
     # -- row-major FLP helpers (limb axis last, (B, K, n)) ----------------
-    def _lagrange_coeffs(self, t_m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Barycentric Lagrange coefficients at t over the P-th roots:
-        z/(t - w^k) = prod_{j != k} (t - w^j), the exclusive mutual products.
-        t_m (B, n) Montgomery -> (lag (B, calls+1, n) Montgomery, t_ok (B,));
-        t_ok is False where t is a P-th root of unity."""
-        f = self.f
+    def _lagrange_coeffs(self, t_m: torch.Tensor, gi: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Barycentric Lagrange coefficients at t over gadget ``gi``'s P-th
+        roots: z/(t - w^k) = prod_{j != k} (t - w^j), the exclusive mutual
+        products.  t_m (B, n) Montgomery -> (lag (B, calls+1, n) Montgomery,
+        t_ok (B,)); t_ok is False where t is a P-th root of unity."""
+        f, g = self.f, self.gadgets[gi]
         t_pow = t_m
-        for _ in range(self.log2_P):
+        for _ in range(g["log2_P"]):
             t_pow = f.mont_mul(t_pow, t_pow)
         t_ok = ~f.is_zero(f.sub(t_pow, f.mont_one(t_m.device)))
-        denom = f.sub(t_m[:, None, :], self.consts["roots_all_m"][None])  # (B, P, n)
+        denom = f.sub(t_m[:, None, :], g["consts"]["roots_all_m"][None])  # (B, P, n)
         others = f.mutual_products_mont(denom, axis=1)
-        lag = f.mont_mul(others[:, : self.circ.calls + 1], self.consts["bary_c_m"][None])
+        lag = f.mont_mul(others[:, : self.circ.plans[gi].calls + 1], g["consts"]["bary_c_m"][None])
         return lag, t_ok
 
     def _gpoly_at(self, gpoly: torch.Tensor, t_m: torch.Tensor) -> torch.Tensor:
@@ -489,19 +575,19 @@ class BatchedPrio3:
             return self.f.poly_eval_mont(gpoly, t_m)
         return self.f.horner_mont(gpoly, t_m)
 
-    def _gadget_outputs(self, gpoly: torch.Tensor) -> torch.Tensor:
-        """gk (B, calls, n): the gadget polynomial at alpha^1..alpha^calls.
+    def _gadget_outputs(self, gpoly: torch.Tensor, gi: int = 0) -> torch.Tensor:
+        """gk (B, calls, n): gadget ``gi``'s polynomial at alpha^1..alpha^calls.
         An NTT over all P roots after folding the glen coefficients mod
         x^P - 1, or a Horner scan of every call at once below NTT_MIN_P."""
-        f, circ = self.f, self.circ
-        if self.ntt is not None:
-            P = circ.P
+        f, plan, g = self.f, self.circ.plans[gi], self.gadgets[gi]
+        if g["ntt"] is not None:
+            P = plan.P
             hi = gpoly[:, P:]
             pad = torch.zeros((hi.shape[0], P - hi.shape[1], f.n), dtype=hi.dtype, device=hi.device)
             folded = f.add(gpoly[:, :P], torch.cat([hi, pad], dim=1))
-            return f.ntt_eval_mont(folded, *self.ntt)[:, 1 : circ.calls + 1]
-        alpha = self.consts["alpha_pows_m"][None]  # (1, calls, n)
-        acc = torch.zeros((gpoly.shape[0], circ.calls, f.n), dtype=torch.int64, device=gpoly.device)
+            return f.ntt_eval_mont(folded, *g["ntt"])[:, 1 : plan.calls + 1]
+        alpha = g["consts"]["alpha_pows_m"][None]  # (1, calls, n)
+        acc = torch.zeros((gpoly.shape[0], plan.calls, f.n), dtype=torch.int64, device=gpoly.device)
         for j in range(gpoly.shape[1] - 1, -1, -1):
             acc = f.add(f.mont_mul(acc, alpha), gpoly[:, j : j + 1])
         return acc
@@ -653,7 +739,7 @@ class BatchedPrio3:
 
         r2 = self._const_limbs("r2")
         jr_m = limb_stack(f.mont_mul_limbs(limb_list(jr), r2))  # (JOINT_RAND_LEN, n, B)
-        t_m = f.mont_mul_limbs(limb_list(qr[0]), r2)
+        t_m = f.mont_mul_limbs(limb_list(qr[0]), r2)  # one gadget, one proof
 
         parts = self._histogram_parts if isinstance(circ, _DHistogram) else self._sumvec_parts
         ev, od, v, gpt, t_ok = parts(meas_st, proofs_st, jr_m, t_m)
@@ -673,28 +759,40 @@ class BatchedPrio3:
         return out
 
     def helper_shares(self, agg_id: int, share_seeds_u8: torch.Tensor):
-        """A helper's (meas (B, MEAS_LEN, n), proofs (B, PROOF_LEN, n)) int64
-        canonical shares from its seed (K1), and ok (B,)."""
+        """A helper's (meas (B, MEAS_LEN, n), proofs (B, num_proofs *
+        PROOF_LEN, n)) int64 canonical shares from its seed (K1), and ok (B,)."""
         B = share_seeds_u8.shape[0]
         binder = torch.full((B, 1), agg_id, dtype=torch.uint8, device=share_seeds_u8.device)
+        proofs_len = self.flp.PROOF_LEN * self.prio3.num_proofs
         meas, ok1 = self._expand_vec(share_seeds_u8, self._dst(USAGE_MEAS_SHARE), binder, self.flp.MEAS_LEN)
-        proofs, ok2 = self._expand_vec(share_seeds_u8, self._dst(USAGE_PROOF_SHARE), binder, self.flp.PROOF_LEN)
+        proofs, ok2 = self._expand_vec(share_seeds_u8, self._dst(USAGE_PROOF_SHARE), binder, proofs_len)
         return meas.permute(2, 0, 1), proofs.permute(2, 0, 1), ok1 & ok2
 
     def _query_one(self, meas, proof, jr_m, t_m) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Row-major FLP query of one proof: meas (B, MEAS_LEN, n) and proof
-        (B, PROOF_LEN, n) canonical, jr_m (B, JOINT_RAND_LEN, n) Montgomery
-        or None, t_m (B, n) Montgomery -> (verifier (B, VERIFIER_LEN, n)
-        canonical, t_ok (B,)).  The oracle's FlpGeneric.query layout:
-        [v, wire evaluations, gpoly(t)]."""
+        """Row-major FLP query of one proof over every gadget: meas (B,
+        MEAS_LEN, n) and proof (B, PROOF_LEN, n) canonical, jr_m (B,
+        JOINT_RAND_LEN, n) Montgomery or None, t_m (B, QUERY_RAND_LEN, n)
+        Montgomery, gadget g's query point at t_m[:, g] -> (verifier (B,
+        VERIFIER_LEN, n) canonical, t_ok (B,)).  The oracle's
+        FlpGeneric.query layouts: the proof is per gadget [wire seeds, gadget
+        polynomial], the verifier [v] and per gadget [wire evaluations,
+        gpoly(t)]."""
         f, circ = self.f, self.circ
-        seeds = proof[:, : circ.arity]
-        gpoly = proof[:, circ.arity : circ.arity + circ.glen]
-        lag, t_ok = self._lagrange_coeffs(t_m)
-        wires = circ.wire_evals(f, meas, jr_m, lag, seeds, self.consts)
-        v = circ.v(f, self._gadget_outputs(gpoly), meas, jr_m, self.consts)
-        verifier = torch.cat([v[:, None], wires, self._gpoly_at(gpoly, t_m)[:, None]], dim=1)
-        return verifier, t_ok
+        B = meas.shape[0]
+        ok = torch.ones((B,), dtype=torch.bool, device=meas.device)
+        gks, segs = [], []
+        idx = 0
+        for gi, plan in enumerate(circ.plans):
+            seeds = proof[:, idx : idx + plan.arity]
+            gpoly = proof[:, idx + plan.arity : idx + plan.arity + plan.glen]
+            idx += plan.arity + plan.glen
+            gks.append(self._gadget_outputs(gpoly, gi))
+            lag, t_ok = self._lagrange_coeffs(t_m[:, gi], gi)
+            ok = ok & t_ok
+            wires = circ.wire_evals_g(gi, f, meas, jr_m, lag, seeds, self.consts)
+            segs += [wires, self._gpoly_at(gpoly, t_m[:, gi])[:, None]]
+        v = circ.v_multi(f, gks, meas, jr_m, self.consts)
+        return torch.cat([v[:, None]] + segs, dim=1), ok
 
     def prep_init(
         self,
@@ -738,25 +836,44 @@ class BatchedPrio3:
         return out
 
     def query_batch(self, meas, proofs, jr, qr) -> Dict[str, torch.Tensor]:
-        """The FLP query with every XOF output given: meas (B, MEAS_LEN, n),
-        proofs (B, PROOF_LEN, n), jr (B, JOINT_RAND_LEN, n) or None and qr
-        (B, QUERY_RAND_LEN, n), all canonical int64.  Returns ``verifiers``
-        (B, VERIFIER_LEN, n) int64, ``out_share`` (B, OUTPUT_LEN, n) int32
-        and ``ok`` (rows whose query point hit a root of unity are False)."""
-        f = self.f
+        """The FLP query of every proof with every XOF output given: meas
+        (B, MEAS_LEN, n), proofs (B, num_proofs * PROOF_LEN, n), jr (B,
+        num_proofs * JOINT_RAND_LEN, n) or None and qr (B, num_proofs *
+        QUERY_RAND_LEN, n), all canonical int64; proof i takes the i-th
+        slice of each.  Returns ``verifiers`` (B, num_proofs * VERIFIER_LEN,
+        n) int64, ``out_share`` (B, OUTPUT_LEN, n) int32 and ``ok`` (rows
+        where a query point hit a root of unity are False)."""
+        f, flp = self.f, self.flp
         jr_m = None if jr is None else f.to_mont(jr)
-        verifiers, t_ok = self._query_one(meas, proofs, jr_m, f.to_mont(qr[:, 0]))
+        ok = torch.ones((meas.shape[0],), dtype=torch.bool, device=meas.device)
+        verifiers = []
+        for i in range(self.prio3.num_proofs):
+            proof = proofs[:, i * flp.PROOF_LEN : (i + 1) * flp.PROOF_LEN]
+            t_m = f.to_mont(qr[:, i * flp.QUERY_RAND_LEN : (i + 1) * flp.QUERY_RAND_LEN])
+            ji = None if jr_m is None else jr_m[:, i * flp.JOINT_RAND_LEN : (i + 1) * flp.JOINT_RAND_LEN]
+            ver, t_ok = self._query_one(meas, proof, ji, t_m)
+            verifiers.append(ver)
+            ok = ok & t_ok
         out_share = storage(self.circ.truncate(f, meas, self.consts)).contiguous()
-        return {"verifiers": verifiers, "out_share": out_share, "ok": t_ok}
+        return {"verifiers": torch.cat(verifiers, dim=1), "out_share": out_share, "ok": ok}
 
     def decide_batch(self, combined: torch.Tensor) -> torch.Tensor:
-        """Decide from the combined (summed) verifier (B, VERIFIER_LEN, n):
-        v == 0 and the gadget on the combined wires equals gpoly(t)."""
-        f, circ = self.f, self.circ
-        x = combined[:, 1 : 1 + circ.arity]
-        # g*R^-1 == y*R^-1 is the predicate g == y (R is invertible).
-        y_scaled = f.from_mont(combined[:, 1 + circ.arity])
-        return f.is_zero(combined[:, 0]) & f.eq(circ.gadget_eval_scaled(f, x), y_scaled)
+        """Decide from the combined (summed) verifiers (B, num_proofs *
+        VERIFIER_LEN, n): for every proof, v == 0 and each gadget on its
+        combined wires equals its gpoly(t)."""
+        f, flp, circ = self.f, self.flp, self.circ
+        decide = torch.ones((combined.shape[0],), dtype=torch.bool, device=combined.device)
+        for i in range(self.prio3.num_proofs):
+            ver = combined[:, i * flp.VERIFIER_LEN : (i + 1) * flp.VERIFIER_LEN]
+            decide = decide & f.is_zero(ver[:, 0])
+            idx = 1
+            for gi, plan in enumerate(circ.plans):
+                x = ver[:, idx : idx + plan.arity]
+                # g*R^-1 == y*R^-1 is the predicate g == y (R is invertible).
+                y_scaled = f.from_mont(ver[:, idx + plan.arity])
+                decide = decide & f.eq(circ.gadget_eval_scaled(f, x), y_scaled)
+                idx += plan.arity + 1
+        return decide
 
     @staticmethod
     def _zip_planes_to_rows(ev: torch.Tensor, od: torch.Tensor) -> torch.Tensor:
@@ -823,24 +940,40 @@ class BatchedPrio3:
         return self.f.sum(masked, axis=0)
 
 
-def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, np.ndarray]:
-    """The instance's host constants as uint32 limb arrays (``BatchedPrio3``
-    of the JAX package holds the same values under the same names)."""
-    field = prio3.flp.field
-    p = field.MODULUS
-    plan = circ.plans[0]
-    w = field.root(plan.P)
+def gadget_consts(f: TField, plan: _GadgetPlan) -> Dict[str, np.ndarray]:
+    """One gadget's host constants over its own P-th roots w, as uint32 limb
+    arrays: alpha^k (k = 1..calls), the barycentric weights w^k / P and the
+    roots w^k (k = 0..calls), and every P-th root (the JAX package's
+    per-gadget constants, under the same names)."""
+    p = f.p
+    w = f.oracle.root(plan.P)
     p_inv = pow(plan.P, p - 2, p)
+
+    def mont_np(x: int) -> np.ndarray:
+        return f._int_to_limbs_np(f.mont_int(x))
+
+    return {
+        "alpha_pows_m": np.stack([mont_np(pow(w, k, p)) for k in range(1, plan.calls + 1)]),
+        "bary_c_m": np.stack([mont_np(pow(w, k, p) * p_inv % p) for k in range(plan.calls + 1)]),
+        "roots_m": np.stack([mont_np(pow(w, k, p)) for k in range(plan.calls + 1)]),
+        "roots_all_m": np.stack([mont_np(pow(w, k, p)) for k in range(plan.P)]),
+    }
+
+
+def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, np.ndarray]:
+    """The instance's host constants as uint32 limb arrays, gadget 0's among
+    them (``BatchedPrio3`` of the JAX package holds the same values under the
+    same names)."""
+    p = f.p
+    plan = circ.plans[0]
+    w = f.oracle.root(plan.P)
 
     def mont_np(x: int) -> np.ndarray:
         return f._int_to_limbs_np(f.mont_int(x))
 
     consts = {
         "shares_inv_c": f._int_to_limbs_np(pow(prio3.num_shares, p - 2, p)),
-        "alpha_pows_m": np.stack([mont_np(pow(w, k, p)) for k in range(1, plan.calls + 1)]),
-        "bary_c_m": np.stack([mont_np(pow(w, k, p) * p_inv % p) for k in range(plan.calls + 1)]),
-        "roots_m": np.stack([mont_np(pow(w, k, p)) for k in range(plan.calls + 1)]),
-        "roots_all_m": np.stack([mont_np(pow(w, k, p)) for k in range(plan.P)]),
+        **gadget_consts(f, plan),
         "r2": f.r2_np.copy(),
     }
     if isinstance(circ, _DHistogram):
@@ -850,7 +983,19 @@ def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, n
         consts["alpha_mat_m"] = np.stack(
             [np.stack([mont_np(pow(w, k * j, p)) for j in range(plan.glen)]) for k in range(1, plan.calls + 1)]
         )
-    bits = getattr(circ.valid, "bits", 1)
+    valid = circ.valid
+    if isinstance(circ, _DFixedPointL2):
+        nb = valid.bits_per_entry
+        shares_inv = pow(prio3.num_shares, p - 2, p)
+        # the entry recomposition weights 2^b (b < bits_per_entry), the
+        # claimed norm's 2^b (b < 2n - 2), the cross term's 2^n and the
+        # offset d 2^(2n-2) / shares of the norm identity (canonical)
+        consts["pow2_m"] = np.stack([mont_np(1 << b) for b in range(nb)])
+        consts["pow2_norm_m"] = np.stack([mont_np(1 << b) for b in range(valid.bits_for_norm)])
+        consts["pow2n_m"] = mont_np(1 << nb)
+        consts["offset_sq_c"] = f._int_to_limbs_np(shares_inv * (valid.entries % p) * (1 << (2 * nb - 2)) % p)
+        return consts
+    bits = getattr(valid, "bits", 1)
     if isinstance(circ, _DSum) or bits > 1:
         # the bit weights 2^b (b < bits) of the weighted truncate
         consts["pow2_m"] = np.stack([mont_np(1 << b) for b in range(bits)])

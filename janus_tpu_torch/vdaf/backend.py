@@ -1,12 +1,13 @@
 """Execution backends for Prio3 preparation: CPU oracle and CUDA batch.
 
 Counterpart of ``janus_tpu/vdaf/backend.py`` (``StagedPrepInit``,
-``OracleBackend``, ``TpuBackend`` and the module functions the executor and
-the aggregator call).  ``CudaBackend`` has the same duck-typed surface the
-executor calls: it marshals a flush of reports into tensors on the card,
-runs one batched prepare through the CUDA kernels, reads the results back
-and hands out oracle-level types (``Prio3PrepareState``,
-``Prio3PrepareShare``), byte-identical to the oracle.  With a
+``OracleBackend``, ``TpuBackend``, ``HybridXofBackend`` and the module
+functions the executor and the aggregator call).  ``CudaBackend`` has the
+same duck-typed surface the executor calls: it marshals a flush of reports
+into tensors on the card, runs one batched prepare through the CUDA
+kernels, reads the results back and hands out oracle-level types
+(``Prio3PrepareState``, ``Prio3PrepareShare``), byte-identical to the
+oracle.  With a
 ``retain_store`` (``executor/accumulator.py``) the flush's out-share matrix
 stays on the card and each state carries a ``ResidentRef``.
 
@@ -20,6 +21,10 @@ A row whose device ``ok`` flag is False (an XOF candidate >= p that the
 protocol's rejection sampling skips, or a query point on a root of unity) is
 recomputed by the oracle: that is the protocol's exact rule for the row, not
 a device fallback, and ``oracle_recompute_rows`` counts such rows.
+
+A Prio3 whose XOF is not TurboSHAKE128 (the HMAC-SHA256-AES128 multiproof
+SumVec) has no XOF on the card: ``HybridXofBackend`` runs its XOF on the
+host and its FLP query and decide on the card.
 """
 
 from __future__ import annotations
@@ -33,10 +38,21 @@ import torch
 
 from ..core import faults
 from ..fields import next_power_of_2
-from ..ops.field import tensor_to_u32, u32_to_tensor
+from ..ops.field import tensor_to_u32, u32_to_tensor, words
 from ..ops.prepare import BatchedPrio3
 from ..xof import XofTurboShake128
-from .prio3 import Prio3, Prio3InputShare, Prio3PrepareShare, Prio3PrepareState, VdafError
+from .prio3 import (
+    USAGE_JOINT_RAND_PART,
+    USAGE_JOINT_RANDOMNESS,
+    USAGE_MEAS_SHARE,
+    USAGE_PROOF_SHARE,
+    USAGE_QUERY_RANDOMNESS,
+    Prio3,
+    Prio3InputShare,
+    Prio3PrepareShare,
+    Prio3PrepareState,
+    VdafError,
+)
 
 #: A per-report prepare outcome: either a result or the error that rejected it.
 PrepOutcome = Union[Tuple[Prio3PrepareState, Prio3PrepareShare], VdafError]
@@ -202,31 +218,12 @@ class CudaBackend:
             ).reshape(pad_to, vdaf.num_shares, seed_size)
             kw["blinds_u8"] = stack_bytes([r[2].joint_rand_blind for r in reports], seed_size)
         if agg_id == 0:
-            meas, proofs = self._leader_limbs(reports)
+            meas, proofs = leader_limbs(self.vdaf, reports, self.leader_marshal_rows)
             kw["meas_limbs"] = pad_rows(meas)
             kw["proofs_limbs"] = pad_rows(proofs)
         else:
             kw["share_seeds_u8"] = stack_bytes([r[2].share_seed for r in reports], seed_size)
         return kw
-
-    def _leader_limbs(self, reports: Sequence[Report]) -> Tuple[np.ndarray, np.ndarray]:
-        """The leader shares' (B, MEAS_LEN, n) and (B, PROOF_LEN, n) uint32
-        limbs: the shares' encodings joined and read by one
-        ``np.frombuffer``.  A decoded share's encoding is the bytes it
-        arrived in (``decode_vec`` has refused any element >= p, so they are
-        canonical limbs); any other share is encoded here."""
-        flp, field, B = self.vdaf.flp, self.vdaf.flp.field, len(reports)
-        width = flp.MEAS_LEN + flp.PROOF_LEN * self.vdaf.num_proofs
-        kept = [getattr(r[2], "encoded_vectors", None) for r in reports]
-        encoded = b"".join(
-            k or field.encode_vec(r[2].meas_share) + field.encode_vec(r[2].proofs_share)
-            for k, r in zip(kept, reports)
-        )
-        n_kept = sum(k is not None for k in kept)
-        self.leader_marshal_rows["bytes"] += n_kept
-        self.leader_marshal_rows["values"] += B - n_kept
-        both = np.frombuffer(encoded, dtype="<u4").reshape(B, width, self.bp.f.n)
-        return both[:, : flp.MEAS_LEN], both[:, flp.MEAS_LEN :]
 
     def _pad_to(self, B: int) -> int:
         """Power-of-two buckets, as the JAX backend pads."""
@@ -486,6 +483,195 @@ class CudaBackend:
         return self.bp.f.from_limbs(tensor_to_u32(agg))
 
 
+def leader_limbs(vdaf: Prio3, reports: Sequence[Report], marshal_rows: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """The leader shares' (B, MEAS_LEN, n) and (B, num_proofs * PROOF_LEN, n)
+    uint32 limbs: the shares' encodings joined and read by one
+    ``np.frombuffer``.  A decoded share's encoding is the bytes it arrived
+    in (``decode_vec`` has refused any element >= p, so they are canonical
+    limbs); any other share is encoded here.  ``marshal_rows`` counts the
+    rows of each kind ("bytes", "values")."""
+    flp, field, B = vdaf.flp, vdaf.flp.field, len(reports)
+    width = flp.MEAS_LEN + flp.PROOF_LEN * vdaf.num_proofs
+    kept = [getattr(r[2], "encoded_vectors", None) for r in reports]
+    encoded = b"".join(
+        k or field.encode_vec(r[2].meas_share) + field.encode_vec(r[2].proofs_share)
+        for k, r in zip(kept, reports)
+    )
+    n_kept = sum(k is not None for k in kept)
+    marshal_rows["bytes"] += n_kept
+    marshal_rows["values"] += B - n_kept
+    both = np.frombuffer(encoded, dtype="<u4").reshape(B, width, field.ENCODED_SIZE // 4)
+    return both[:, : flp.MEAS_LEN], both[:, flp.MEAS_LEN :]
+
+
+class HybridXofBackend:
+    """Host XOF and card FLP for a Prio3 whose XOF has no device twin: the
+    HMAC-SHA256-AES128 multiproof SumVec (reference: core/src/vdaf.rs:178-
+    195).  Per report the host derives, as ``Prio3.prep_init`` does, the
+    helper's expanded shares, the query randomness and the joint-rand part,
+    seed and vector, each vector read in bulk as limbs; the FLP queries of
+    every proof (``BatchedPrio3.query_batch``) and the decide
+    (``decide_batch``) run on the card over the batch padded to the next
+    power of two.  No executor surface: the control plane calls
+    ``prep_init_batch`` and ``prep_shares_to_prep_batch`` directly, and the
+    out shares come back to the host.  Byte for byte the oracle's, as
+    ``CudaBackend`` is."""
+
+    name = "cuda-hybrid"
+
+    def __init__(self, vdaf: Prio3, device="cuda"):
+        self.vdaf = vdaf
+        self.device = torch.device(device)
+        self.bp = BatchedPrio3(vdaf, device=self.device, require_device_xof=False)
+        self.oracle = OracleBackend(vdaf)
+        #: rows whose device ok flag was False, recomputed by the oracle
+        self.oracle_recompute_rows = 0
+        #: leader rows marshalled from the bytes their shares arrived in
+        #: (``bytes``) and from their field values (``values``)
+        self.leader_marshal_rows = {"bytes": 0, "values": 0}
+        #: host seconds of the XOF (``xof``: shares, randomness, joint-rand
+        #: part and seed), of the conversions from limbs (``from_limbs``)
+        #: and of the card's query and decide up to their readback
+        #: (``device``)
+        self.host_seconds = {"xof": 0.0, "from_limbs": 0.0, "device": 0.0}
+        mask = next_power_of_2(self.bp.f.p) - 1
+        self._top_mask = (mask >> (32 * (self.bp.f.n - 1))) & 0xFFFFFFFF
+
+    def _expand(self, seed: bytes, usage: int, binder: bytes, length: int) -> np.ndarray:
+        """``vdaf.xof.expand_into_vec`` as (length, n) uint32 limbs: the
+        candidates are read in bulk and those >= p skipped, as ``next_vec``
+        skips them, so the stream position and the result are the same."""
+        f = self.bp.f
+        xof = self.vdaf.xof(seed, self.vdaf._dst(usage), binder)
+        parts, need = [], length
+        while need:
+            cand = np.frombuffer(xof.next(need * 4 * f.n), dtype="<u4").reshape(need, f.n).copy()
+            cand[:, -1] &= self._top_mask
+            # canonical: below p, compared limb by limb from the top
+            below, equal = np.zeros(need, dtype=bool), np.ones(need, dtype=bool)
+            for limb, p_limb in reversed(list(zip(cand.T, f.p_limbs))):
+                below |= equal & (limb < p_limb)
+                equal &= limb == p_limb
+            keep = cand[below]
+            parts.append(keep)
+            need -= len(keep)
+        return np.concatenate(parts)
+
+    def _to_device(self, rows: np.ndarray, pad_to: int) -> torch.Tensor:
+        """(B, L, n) uint32 limbs padded to ``pad_to`` rows by repeating the
+        last -> canonical int64 words on the card."""
+        rows = np.concatenate([rows, np.repeat(rows[-1:], pad_to - len(rows), axis=0)])
+        return words(u32_to_tensor(np.ascontiguousarray(rows), self.device))
+
+    def prep_init_batch(self, verify_key: bytes, agg_id: int, reports: Sequence[Report]) -> List[PrepOutcome]:
+        if not reports:
+            return []
+        vdaf, flp, f = self.vdaf, self.vdaf.flp, self.bp.f
+        t_start = time.monotonic()
+        B, P = len(reports), vdaf.num_proofs
+        has_jr = flp.JOINT_RAND_LEN > 0
+        if agg_id == 0:
+            meas, proofs = leader_limbs(vdaf, reports, self.leader_marshal_rows)
+        t0 = time.perf_counter()
+        if agg_id > 0:
+            binder = bytes([agg_id])
+            meas = np.stack([self._expand(r[2].share_seed, USAGE_MEAS_SHARE, binder, flp.MEAS_LEN) for r in reports])
+            proofs = np.stack(
+                [self._expand(r[2].share_seed, USAGE_PROOF_SHARE, binder, flp.PROOF_LEN * P) for r in reports]
+            )
+        qr = np.stack([self._expand(verify_key, USAGE_QUERY_RANDOMNESS, r[0], flp.QUERY_RAND_LEN * P) for r in reports])
+        parts: List[Optional[bytes]] = [None] * B
+        corrected: List[Optional[bytes]] = [None] * B
+        jr = None
+        if has_jr:
+            jr_rows = []
+            for b, (nonce, public_share, share) in enumerate(reports):
+                # enc(meas) is the limbs' little-endian bytes
+                binder = bytes([agg_id]) + nonce + meas[b].astype("<u4").tobytes()
+                parts[b] = vdaf.xof(share.joint_rand_blind, vdaf._dst(USAGE_JOINT_RAND_PART), binder).next(
+                    vdaf.xof.SEED_SIZE
+                )
+                public = list(public_share)
+                public[agg_id] = parts[b]
+                corrected[b] = vdaf._joint_rand_seed(public)
+                jr_rows.append(self._expand(corrected[b], USAGE_JOINT_RANDOMNESS, b"", flp.JOINT_RAND_LEN * P))
+            jr = np.stack(jr_rows)
+        self.host_seconds["xof"] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        pad_to = next_power_of_2(B)
+        out = self.bp.query_batch(
+            self._to_device(meas, pad_to),
+            self._to_device(proofs, pad_to),
+            None if jr is None else self._to_device(jr, pad_to),
+            self._to_device(qr, pad_to),
+        )
+        ok = out["ok"][:B].cpu().numpy()
+        verifiers = tensor_to_u32(out["verifiers"][:B])
+        out_shares = tensor_to_u32(out["out_share"][:B])
+        del out
+        self.host_seconds["device"] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        results: List[PrepOutcome] = []
+        for b in range(B):
+            if not ok[b]:
+                # The protocol's rule for the row, inside this batch's
+                # measured span: the oracle's seconds are not attributed a
+                # second time to the task.
+                from ..core import costs
+
+                self.oracle_recompute_rows += 1
+                results.extend(
+                    costs.run_in_task_scope(
+                        None, lambda b=b: self.oracle.prep_init_batch(verify_key, agg_id, [reports[b]])
+                    )
+                )
+                continue
+            state = Prio3PrepareState(out_share=f.from_limbs(out_shares[b]), corrected_joint_rand_seed=corrected[b])
+            share = Prio3PrepareShare(verifiers_share=f.from_limbs(verifiers[b]), joint_rand_part=parts[b])
+            results.append((state, share))
+        self.host_seconds["from_limbs"] += time.perf_counter() - t0
+        _observe_prepare(self.name, "init", B, time.monotonic() - t_start)
+        return results
+
+    def prep_shares_to_prep_batch(
+        self, prep_shares: Sequence[Sequence[Prio3PrepareShare]]
+    ) -> List[Union[Optional[bytes], VdafError]]:
+        """Combine on the host, decide on the card, per report."""
+        if not prep_shares:
+            return []
+        vdaf, flp, f = self.vdaf, self.vdaf.flp, self.bp.f
+        S = vdaf.num_shares
+        bad_rows = {i for i, row in enumerate(prep_shares) if len(row) != S}
+        if bad_rows:
+            good = iter(self.prep_shares_to_prep_batch([r for i, r in enumerate(prep_shares) if i not in bad_rows]))
+            return [
+                VdafError("wrong number of prepare shares") if i in bad_rows else next(good)
+                for i in range(len(prep_shares))
+            ]
+        t_start = time.monotonic()
+        B = len(prep_shares)
+        ver_len = flp.VERIFIER_LEN * vdaf.num_proofs
+        combined = [row[0].verifiers_share for row in prep_shares]
+        for a in range(1, S):
+            combined = [flp.field.vec_add(prev, row[a].verifiers_share) for prev, row in zip(combined, prep_shares)]
+        limbs = f.to_limbs([x for row in combined for x in row]).reshape(B, ver_len, f.n)
+        t0 = time.perf_counter()
+        decide = self.bp.decide_batch(self._to_device(limbs, next_power_of_2(B)))[:B].cpu().numpy()
+        self.host_seconds["device"] += time.perf_counter() - t0
+        results: List[Union[Optional[bytes], VdafError]] = []
+        for b in range(B):
+            if not decide[b]:
+                results.append(VdafError("proof verification failed"))
+            elif flp.JOINT_RAND_LEN > 0:
+                results.append(vdaf._joint_rand_seed([row.joint_rand_part for row in prep_shares[b]]))
+            else:
+                results.append(None)
+        _observe_prepare(self.name, "combine", B, time.monotonic() - t_start)
+        return results
+
+
 BACKENDS = {"oracle": OracleBackend, "cuda": CudaBackend}
 
 
@@ -523,30 +709,33 @@ def vdaf_shape_key(vdaf) -> tuple:
 
 #: Circuits the port's device prepare serves (``ops/prepare.py``
 #: ``_device_circuit``), as a name set so that a control-plane process can
-#: classify a VDAF without building anything.  FixedPointBoundedL2VecSum
-#: joins with the multi-gadget plane (ROADMAP.md queue 1 item 5).
-DEVICE_CIRCUITS = {"Count", "Sum", "SumVec", "Histogram"}
+#: classify a VDAF without building anything: every Prio3 circuit.
+DEVICE_CIRCUITS = {"Count", "Sum", "SumVec", "Histogram", "FixedPointBoundedL2VecSum"}
 
 
 def device_supported(vdaf) -> Tuple[bool, str]:
-    """Whether the port's CUDA prepare serves this VDAF: (ok, reason).
+    """Whether the port's CUDA prepare serves this VDAF: (ok, reason).  A
+    Prio3 whose XOF is not TurboSHAKE128 is served by ``HybridXofBackend``
+    (host XOF, card FLP); any number of proofs is served.
 
     Duck-typed (a Prio3 is anything with an ``flp``), so it classifies the
     reference's VDAF objects too."""
     if getattr(vdaf, "flp", None) is None:
         name = type(vdaf).__name__
         if name == "Poplar1":
-            return False, "Poplar1 has no device path in the port yet (ROADMAP.md queue 1 item 8)"
+            return False, "Poplar1 has no device path in the port yet (ROADMAP.md queue 1)"
         return False, f"{name} is not a Prio3 VDAF"
     circuit = type(vdaf.flp.valid).__name__
     if circuit not in DEVICE_CIRCUITS:
         return False, f"no device circuit for {circuit}"
-    xof = getattr(vdaf.xof, "__name__", str(vdaf.xof))
-    if xof != XofTurboShake128.__name__:
-        return False, f"{xof} has no device path in the port yet (ROADMAP.md queue 1 item 7, the HMAC multiproof)"
-    if vdaf.num_proofs != 1:
-        return False, f"the device prepare serves one proof, not {vdaf.num_proofs}"
     return True, ""
+
+
+def _host_xof(vdaf) -> bool:
+    """True for a Prio3 whose XOF has no device twin (served by
+    ``HybridXofBackend``)."""
+    xof = getattr(vdaf, "xof", None) if getattr(vdaf, "flp", None) is not None else XofTurboShake128
+    return getattr(xof, "__name__", None) != XofTurboShake128.__name__
 
 
 def device_path_label(vdaf) -> str:
@@ -555,15 +744,20 @@ def device_path_label(vdaf) -> str:
     ok, reason = device_supported(vdaf)
     if not ok:
         return f"cpu-oracle ({reason})"
+    if _host_xof(vdaf):
+        return "cuda-hybrid: host XOF + card FLP, no executor (direct prep_init/combine)"
+    if type(vdaf.flp.valid).__name__ == "FixedPointBoundedL2VecSum":
+        return "cuda: multi-gadget batched device prepare (gradient aggregation), executor kind=prep_init/combine"
     return "cuda: batched device prepare, executor kind=prep_init/combine"
 
 
 def make_backend(vdaf, backend: str = "cuda", device=None):
-    """Backend factory: ``"cuda"`` (the default: ``CudaBackend`` on
-    ``device``, the card unless the caller names another) or ``"oracle"``
-    (the CPU oracle, only when named).  An unknown name raises VdafError,
-    and so does ``"cuda"`` with no card to run on: there is no quiet
-    fallback to the oracle."""
+    """Backend factory: ``"cuda"`` (the default, on ``device``, the card
+    unless the caller names another: ``CudaBackend``, or for a Prio3 whose
+    XOF is not TurboSHAKE128 ``HybridXofBackend``) or ``"oracle"`` (the CPU
+    oracle, only when named).  An unknown name raises VdafError, and so does
+    ``"cuda"`` with no card to run on: there is no quiet fallback to the
+    oracle."""
     if backend not in BACKENDS:
         raise VdafError(f"unknown backend {backend!r}")
     if backend == "oracle":
@@ -571,4 +765,6 @@ def make_backend(vdaf, backend: str = "cuda", device=None):
     device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise VdafError("the cuda backend needs a CUDA card, and none is available")
+    if _host_xof(vdaf):
+        return HybridXofBackend(vdaf, device=device)
     return CudaBackend(vdaf, device=device)

@@ -4,29 +4,32 @@ and ``vdaf_dispatch!`` gate (reference: core/src/vdaf.rs:65-108, 516-532).
 Each constructor returns a configured ``Prio3`` over the port's own FLP and
 XOF copies.  The registry maps the serialized instance description (as
 stored in the task model / DB ``tasks.vdaf`` column) to a constructor; the
-execution backend (the card's ``CudaBackend`` or the CPU oracle) is chosen
-for the result by ``aggregator.resolve_backend``.  The HMAC multiproof family and Poplar1 raise
-``VdafError`` until their slices land (ROADMAP queue 1 items 7 and 8).
+execution backend (the card's ``CudaBackend`` or ``HybridXofBackend``, or
+the CPU oracle) is chosen for the result by ``aggregator.resolve_backend``.
+Poplar1 raises ``VdafError`` until its slice lands (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
-from ..fields import Field128
+from ..fields import Field64, Field128
 from ..flp import Count, FixedPointBoundedL2VecSum, FlpGeneric, Histogram, Sum, SumVec
+from ..xof import XofHmacSha256Aes128
 from .prio3 import (
     ALG_PRIO3_COUNT,
     ALG_PRIO3_FIXEDPOINT_BOUNDED_L2_VEC_SUM,
     ALG_PRIO3_HISTOGRAM,
     ALG_PRIO3_SUM,
     ALG_PRIO3_SUMVEC,
+    ALG_PRIO3_SUMVEC_FIELD64_MULTIPROOF_HMACSHA256_AES128,
     Prio3,
     VdafError,
 )
 
-# Verify-key size, as in the reference (core/src/vdaf.rs:16).
+# Verify-key sizes, as in the reference (core/src/vdaf.rs:16,24).
 VERIFY_KEY_LENGTH = 16
+VERIFY_KEY_LENGTH_HMACSHA256_AES128 = 32
 
 
 def prio3_count(num_shares: int = 2) -> Prio3:
@@ -53,11 +56,18 @@ def prio3_histogram(length: int, chunk_length: int, num_shares: int = 2) -> Prio
     )
 
 
-def prio3_sum_vec_field64_multiproof_hmacsha256_aes128(**_params) -> Prio3:
+def prio3_sum_vec_field64_multiproof_hmacsha256_aes128(
+    proofs: int, length: int, bits: int, chunk_length: int, num_shares: int = 2
+) -> Prio3:
     """The custom Daphne-interop VDAF (reference: core/src/vdaf.rs:178-195)."""
-    raise VdafError(
-        "Prio3SumVecField64MultiproofHmacSha256Aes128 is not in the port yet "
-        "(ROADMAP queue 1 item 7, the HMAC multiproof)"
+    if proofs < 2:
+        raise ValueError("multiproof variant requires at least 2 proofs")
+    return Prio3(
+        FlpGeneric(SumVec(length=length, bits=bits, chunk_length=chunk_length, field=Field64)),
+        ALG_PRIO3_SUMVEC_FIELD64_MULTIPROOF_HMACSHA256_AES128,
+        num_shares=num_shares,
+        num_proofs=proofs,
+        xof=XofHmacSha256Aes128,
     )
 
 
@@ -69,8 +79,7 @@ def prio3_fixedpoint_bounded_l2_vec_sum(
     ``bitsize``: 16 | 32 | "BitSize16" | "BitSize32" (the reference's enum).
     A ``dp_strategy`` key in the instance description is handled by the DP
     layer (core/dp.py), not the circuit — vdaf_from_instance strips it
-    before construction.  The CPU oracle serves it until the multi-gadget
-    device plane lands (ROADMAP queue 1 item 5).
+    before construction.
     """
     bits = {16: 16, 32: 32, "BitSize16": 16, "BitSize32": 32}.get(bitsize)
     if bits is None:

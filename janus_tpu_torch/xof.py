@@ -1,10 +1,14 @@
-"""TurboSHAKE128 and ``XofTurboShake128`` — bit-exact CPU oracle.
+"""TurboSHAKE128, ``XofTurboShake128`` and ``XofHmacSha256Aes128`` — the
+bit-exact CPU oracles of the Prio3 XOFs.
 
 Implements the TurboSHAKE128 sponge (Keccak-p[1600,12], rate 168, domain
 separation byte) and the Prio3 XOF built on it (draft-irtf-cfrg-vdaf-08
 §6.2.1, seed size 16).  Pure Python: this is the truth the batched CUDA
 Keccak kernels in ``janus_tpu_torch.ops.keccak_kernels`` are held against,
 and the per-row path the CUDA backend takes for rows the device flagged.
+``XofHmacSha256Aes128`` is libprio-rs's non-standard XOF of the HMAC
+multiproof VDAF (Daphne interop); it has no device twin and runs on the
+host for ``HybridXofBackend``.
 """
 
 from __future__ import annotations
@@ -156,3 +160,33 @@ class XofTurboShake128(Xof):
 
     def next(self, length: int) -> bytes:
         return self._sponge.squeeze(length)
+
+
+class XofHmacSha256Aes128(Xof):
+    """libprio-rs XofHmacSha256Aes128 (non-standard; Daphne interop): HMAC-
+    SHA256 over len(dst) || dst || binder keyed by the seed gives an AES-128
+    key and IV, and the stream is AES-128-CTR of zeros."""
+
+    SEED_SIZE = 32
+
+    def __init__(self, seed: bytes, dst: bytes, binder: bytes):
+        import hashlib
+        import hmac
+
+        from .utils.softaes import aes128_ctr_encryptor
+
+        if len(seed) != self.SEED_SIZE:
+            raise ValueError("bad seed size")
+        if len(dst) > 255:
+            raise ValueError("dst too long")
+        mac = hmac.new(seed, digestmod=hashlib.sha256)
+        mac.update(bytes([len(dst)]))
+        mac.update(dst)
+        mac.update(binder)
+        key_block = mac.digest()
+        # `cryptography`'s AES-NI CTR where it works, the numpy soft AES
+        # otherwise
+        self._enc = aes128_ctr_encryptor(key_block[:16], key_block[16:])
+
+    def next(self, length: int) -> bytes:
+        return self._enc.update(b"\x00" * length)

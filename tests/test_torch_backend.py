@@ -158,18 +158,22 @@ class _OtherXof(XofTurboShake128):
 @pytest.mark.parametrize(
     "make,error",
     [
-        (lambda: Prio3(FlpGeneric(Count()), ALG_PRIO3_COUNT, num_proofs=2), NotImplementedError),
+        (lambda: Prio3(FlpGeneric(Count()), ALG_PRIO3_COUNT, num_proofs=2), None),
         (lambda: Prio3(FlpGeneric(Count()), ALG_PRIO3_COUNT, xof=_OtherXof), VdafError),
-        (lambda: Prio3(FlpGeneric(FixedPointBoundedL2VecSum(4, 3)), ALG_PRIO3_FIXEDPOINT_BOUNDED_L2_VEC_SUM),
-         NotImplementedError),
+        (lambda: Prio3(FlpGeneric(FixedPointBoundedL2VecSum(4, 3)), ALG_PRIO3_FIXEDPOINT_BOUNDED_L2_VEC_SUM), None),
     ],
     ids=["two-proofs", "other-xof", "fixedpoint"],
 )
 def test_unported_circuits_raise(make, error):
-    """What the CUDA backend still refuses: more than one proof, an XOF
-    other than TurboSHAKE128, FixedPointBoundedL2VecSum."""
-    with pytest.raises(error):
-        CudaBackend(make(), device="cpu")
+    """What the CUDA backend refuses: an XOF other than TurboSHAKE128
+    (``make_backend`` gives such a VDAF ``HybridXofBackend``).  More than
+    one proof and FixedPointBoundedL2VecSum build and take the row path."""
+    if error is None:
+        backend = CudaBackend(make(), device="cpu")
+        assert all(backend._prep_fn(a, 8).__name__ == "prep_init" for a in (0, 1))
+    else:
+        with pytest.raises(error):
+            CudaBackend(make(), device="cpu")
 
 
 def test_sumvec_backend_pair_matches_jax_oracle_backend():
@@ -203,35 +207,30 @@ def test_vdaf_shape_key_equals_the_jax_package(shape):
 
 
 @pytest.mark.parametrize(
-    "shape,ok,reason",
+    "shape,ok,label",
     [
-        ("count", True, ""),
-        ("sum8", True, ""),
-        ("sumvec", True, ""),
-        ("histogram", True, ""),
-        ("fixedpoint", False, "no device circuit for FixedPointBoundedL2VecSum"),
-        ("hmac-multiproof", False, "XofHmacSha256Aes128 has no device path in the port yet (ROADMAP.md queue 1 item 7"),
+        ("count", True, "cuda: batched device prepare"),
+        ("sum8", True, "cuda: batched device prepare"),
+        ("sumvec", True, "cuda: batched device prepare"),
+        ("histogram", True, "cuda: batched device prepare"),
+        ("fixedpoint", True, "cuda: multi-gadget batched device prepare"),
+        ("hmac-multiproof", True, "cuda-hybrid: host XOF + card FLP"),
     ],
 )
-def test_device_supported_and_path_label(shape, ok, reason):
-    """What the port's device path serves, and the reason it states for
-    what it does not (the two unported families are the JAX package's
-    instances: the port has neither constructor yet)."""
+def test_device_supported_and_path_label(shape, ok, label):
+    """Every Prio3 family of the port is served, each with the label of its
+    route; FixedPointBoundedL2VecSum on the multi-gadget row path and the
+    HMAC multiproof SumVec on the hybrid (host XOF, card FLP)."""
     from janus_tpu_torch.vdaf.backend import device_path_label, device_supported
 
     if shape == "fixedpoint":
-        vdaf = Prio3(FlpGeneric(FixedPointBoundedL2VecSum(4, 3)), ALG_PRIO3_FIXEDPOINT_BOUNDED_L2_VEC_SUM)
+        vdaf = instances.prio3_fixedpoint_bounded_l2_vec_sum("BitSize16", 3)
     elif shape == "hmac-multiproof":
-        vdaf = jax_instances.prio3_sum_vec_field64_multiproof_hmacsha256_aes128(2, 4, 1, 2)
+        vdaf = instances.prio3_sum_vec_field64_multiproof_hmacsha256_aes128(2, 4, 1, 2)
     else:
         vdaf = SHAPES[shape][0](instances)
-    got_ok, got_reason = device_supported(vdaf)
-    assert got_ok == ok and got_reason.startswith(reason)
-    label = device_path_label(vdaf)
-    if ok:
-        assert label.startswith("cuda: batched device prepare")
-    else:
-        assert label == f"cpu-oracle ({got_reason})"
+    assert device_supported(vdaf) == (ok, "")
+    assert device_path_label(vdaf).startswith(label)
 
 
 @pytest.mark.parametrize("shape", ["count", "histogram"])

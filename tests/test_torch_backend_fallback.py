@@ -3,9 +3,9 @@
 The driver, provisioning and metrics cases of tests/test_backend_fallback.py
 on the port's copy.  The port's rule differs from the reference's in one
 way: the oracle serves a task only where ``device_supported`` is False
-(FixedPointBoundedL2VecSum and the Fake* VDAFs here), logged and counted;
-for a circuit the card serves, an error from building ``CudaBackend``
-propagates instead of landing on the oracle."""
+(the Fake* VDAFs here), logged and counted; for a circuit the card serves,
+an error from building ``CudaBackend`` propagates instead of landing on the
+oracle."""
 
 import asyncio
 import logging
@@ -19,8 +19,9 @@ from janus_tpu_torch.core.hpke import HpkeKeypair
 from janus_tpu_torch.core.time import MockClock
 from janus_tpu_torch.datastore import AggregatorTask, TaskQueryType
 from janus_tpu_torch.datastore.test_util import EphemeralDatastore
+from janus_tpu_torch.datastore.task import vdaf_verify_key_length
 from janus_tpu_torch.messages import Duration, Role, TaskId, Time
-from janus_tpu_torch.vdaf.backend import CudaBackend, OracleBackend, device_path_label
+from janus_tpu_torch.vdaf.backend import CudaBackend, HybridXofBackend, OracleBackend, device_path_label
 
 FALLBACK_LOG = "falls back to the CPU oracle"
 
@@ -32,7 +33,7 @@ def make_task(vdaf, role=Role.LEADER):
         query_type=TaskQueryType.time_interval(),
         vdaf=vdaf,
         role=role,
-        vdaf_verify_key=b"\x01" * 16,
+        vdaf_verify_key=b"\x01" * vdaf_verify_key_length(vdaf),
         min_batch_size=10,
         time_precision=Duration(3600),
         aggregator_auth_token=AuthenticationToken.new_bearer("token-abc") if role == Role.LEADER else None,
@@ -71,16 +72,17 @@ def test_driver_fallback_is_logged(caplog):
 
 
 def test_driver_fpvec_resolves_to_the_oracle_and_served_circuits_to_the_card(caplog):
-    """FixedPointBoundedL2VecSum has no device plane in the port yet
-    (ROADMAP queue 1 item 5): the driver resolves it to the oracle, loudly.
-    A served circuit resolves to ``CudaBackend`` (here on the CPU) without
-    a warning, and resolving again hits the cache."""
+    """FixedPointBoundedL2VecSum rides the multi-gadget row path: the driver
+    resolves it to ``CudaBackend`` (here on the CPU) without a warning, as
+    it does a served single-gadget circuit, and resolving again hits the
+    cache."""
     driver = _driver()
     task = make_task({"type": "Prio3FixedPointBoundedL2VecSum", "bitsize": "BitSize16", "length": 3})
     with caplog.at_level(logging.WARNING):
-        assert isinstance(driver._backend_for(task, task.vdaf_instance()), OracleBackend)
-    assert any(FALLBACK_LOG in r.message for r in caplog.records)
-    caplog.clear()
+        backend = driver._backend_for(task, task.vdaf_instance())
+    assert isinstance(backend, CudaBackend) and backend.device.type == "cpu"
+    assert backend.bp.prep_route(0, 8) == "prep_init"
+    assert not caplog.records
     task = make_task({"type": "Prio3Histogram", "length": 4, "chunk_length": 2})
     with caplog.at_level(logging.WARNING):
         backend = driver._backend_for(task, task.vdaf_instance())
@@ -125,15 +127,17 @@ def test_default_backend_is_the_card():
 
 def test_provisioning_warns_for_oracle_only_vdaf(caplog):
     """A provisioned task's first use resolves its backend: the Fake test
-    double and FixedPointBoundedL2VecSum warn and take the oracle, and
-    their ``device_path_label`` says so; Prio3Count takes the card's
-    backend without a warning.  (The management API that prints these
+    double warns and takes the oracle, and its ``device_path_label`` says
+    so; Prio3Count and FixedPointBoundedL2VecSum take ``CudaBackend`` and
+    the HMAC multiproof SumVec ``HybridXofBackend``, without a warning.  (The management API that prints these
     labels comes with the port's binaries, ROADMAP queue 1 item 11.)"""
     eds = EphemeralDatastore(MockClock(Time(1_600_002_000)))
     agg = aggregator_mod.Aggregator(eds.datastore, eds.clock, aggregator_mod.Config(vdaf_device="cpu"))
     cases = [
         ({"type": "Fake"}, OracleBackend, "cpu-oracle"),
-        ({"type": "Prio3FixedPointBoundedL2VecSum", "bitsize": 16, "length": 3}, OracleBackend, "cpu-oracle"),
+        ({"type": "Prio3FixedPointBoundedL2VecSum", "bitsize": 16, "length": 3}, CudaBackend, "cuda: multi-gadget"),
+        ({"type": "Prio3SumVecField64MultiproofHmacSha256Aes128", "proofs": 2, "length": 4, "bits": 1,
+          "chunk_length": 2}, HybridXofBackend, "cuda-hybrid:"),
         ({"type": "Prio3Count"}, CudaBackend, "cuda:"),
     ]
     try:

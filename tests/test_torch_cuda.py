@@ -269,6 +269,58 @@ def test_field64_plain_ops_on_the_card_match_the_cpu(card, op):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize(
+    "desc,measure",
+    [
+        ({"type": "Prio3FixedPointBoundedL2VecSum", "bitsize": "BitSize16", "length": 3},
+         lambda r: [float(x) for x in r.choice([-0.25, 0.0, 0.5], 3)]),
+        ({"type": "Prio3SumVecField64MultiproofHmacSha256Aes128", "proofs": 2, "length": 4, "bits": 1,
+          "chunk_length": 2}, lambda r: [int(x) for x in r.integers(0, 2, 4)]),
+    ],
+    ids=["fixedpoint", "multiproof"],
+)
+def test_served_on_the_card_matches_the_cpu(card, desc, measure):
+    """FixedPointBoundedL2VecSum(16, 3) (``CudaBackend``, the multi-gadget
+    row path) and the HMAC multiproof SumVec(4, 1, 2) at 2 proofs
+    (``HybridXofBackend``, its FLP on the card), each ``make_backend``'s
+    choice on the card and on the CPU, at B = 64 with 2 tampered rows: every
+    prepare share, out share and decision of the card equals the CPU's, and
+    exactly the tampered rows are rejected."""
+    from janus_tpu_torch.datastore.task import vdaf_verify_key_length
+    from janus_tpu_torch.vdaf.backend import make_backend
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+    from janus_tpu_torch.vdaf.prio3 import Prio3InputShare
+
+    vdaf = vdaf_from_instance(desc)
+    rng = np.random.default_rng(64)
+    reports = []
+    for i in range(64):
+        nonce = rng.bytes(16)
+        public, shares = vdaf.shard(measure(rng), nonce, rng.bytes(vdaf.RAND_SIZE))
+        if i in (5, 40):
+            lead = shares[0]
+            bad = [(lead.meas_share[0] + 1) % vdaf.flp.field.MODULUS] + list(lead.meas_share[1:])
+            shares = [Prio3InputShare(bad, lead.proofs_share, None, lead.joint_rand_blind), shares[1]]
+        reports.append((nonce, public, shares))
+    vk = bytes(range(vdaf_verify_key_length(desc)))
+    on_card, on_cpu = make_backend(vdaf, device=card), make_backend(vdaf, device="cpu")
+    assert type(on_card) is type(on_cpu) and on_card.bp.device.type == "cuda"
+    got, want = {}, {}
+    for agg_id in (0, 1):
+        rows = [(nonce, public, shares[agg_id]) for nonce, public, shares in reports]
+        got[agg_id] = on_card.prep_init_batch(vk, agg_id, rows)
+        want[agg_id] = on_cpu.prep_init_batch(vk, agg_id, rows)
+        assert [s.encode(vdaf) for _, s in got[agg_id]] == [s.encode(vdaf) for _, s in want[agg_id]]
+        assert [st.out_share for st, _ in got[agg_id]] == [st.out_share for st, _ in want[agg_id]]
+    pairs = [[got[0][b][1], got[1][b][1]] for b in range(64)]
+    msgs, cpu_msgs = on_card.prep_shares_to_prep_batch(pairs), on_cpu.prep_shares_to_prep_batch(pairs)
+    assert [m if isinstance(m, bytes) else type(m) for m in msgs] == [
+        m if isinstance(m, bytes) else type(m) for m in cpu_msgs
+    ]
+    assert [b for b, m in enumerate(msgs) if not isinstance(m, bytes)] == [5, 40]
+    assert on_card.oracle_recompute_rows == 0
+
+
 @pytest.mark.parametrize("circuit", ["count", "sum32"])
 def test_row_path_on_the_card_matches_the_cpu(card, circuit):
     """prep_init on the card against prep_init on the CPU at B = 1024

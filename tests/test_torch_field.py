@@ -236,3 +236,18 @@ def test_word64_field_core_matches_u32_limbs(op, fn):
         lo, hi = fn((x & _M64, x >> 64), (y & _M64, y >> 64))
         got.append(lo | (hi << 64))
     assert got == want
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.__name__)
+@pytest.mark.parametrize("lengths", [(64, 64), (64, 200), (129, 300), (63, 500)], ids=lambda n: "x".join(map(str, n)))
+def test_oracle_poly_mul_matches_the_jax_oracle(field, lengths):
+    """The port's oracle ``poly_mul`` (through the NTT from
+    ``POLY_MUL_NTT_MIN`` coefficients up, the convolution below) against
+    the JAX package's convolution, edge values included."""
+    from janus_tpu.fields import poly_mul as jax_poly_mul
+    from janus_tpu_torch import fields as port_fields
+
+    port_field = getattr(port_fields, field.__name__)
+    rng = np.random.default_rng(sum(lengths))
+    a, b = (_values(field, rng, n)[:n] for n in lengths)
+    assert port_fields.poly_mul(port_field, a, b) == jax_poly_mul(field, a, b)

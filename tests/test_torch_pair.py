@@ -20,6 +20,7 @@ from janus_tpu_torch.client import seal_report
 from janus_tpu_torch.collector import Collector
 from janus_tpu_torch.core.auth_tokens import AuthenticationToken
 from janus_tpu_torch.core.hpke import HpkeKeypair
+from janus_tpu_torch.datastore.task import vdaf_verify_key_length
 from janus_tpu_torch.messages import Duration, Interval, Query, ReportId, Time
 from janus_tpu_torch.vdaf.instances import vdaf_from_instance
 
@@ -36,6 +37,15 @@ FAMILIES = {
         {"type": "Prio3SumVec", "length": 10, "bits": 1, "chunk_length": 3},
         lambda r: [int(x) for x in r.integers(0, 2, 10)],
     ),
+    "fixedpoint": (
+        {"type": "Prio3FixedPointBoundedL2VecSum", "bitsize": "BitSize16", "length": 3},
+        lambda r: [float(x) for x in r.choice([-0.25, 0.0, 0.5], 3)],
+    ),
+    "multiproof": (
+        {"type": "Prio3SumVecField64MultiproofHmacSha256Aes128", "proofs": 2, "length": 4, "bits": 1,
+         "chunk_length": 2},
+        lambda r: [int(x) for x in r.integers(0, 2, 4)],
+    ),
 }
 VALID = 5
 
@@ -46,7 +56,7 @@ def jax_oracle_aggregate(desc, measurements):
     from janus_tpu.vdaf.instances import vdaf_from_instance as jax_vdaf_from_instance
 
     vdaf = jax_vdaf_from_instance(desc)
-    vk = b"\x2a" * 16
+    vk = b"\x2a" * vdaf_verify_key_length(desc)
     out = [[], []]
     for m in measurements:
         nonce = secrets.token_bytes(vdaf.NONCE_SIZE)
@@ -90,6 +100,10 @@ class Pair:
         self.transport = transport
         self.oracle = oracle
         self.executors = {}
+        #: each port side's backend of the task after the run: the one its
+        #: executor caches, else (a backend with no executor surface, which
+        #: the helper calls directly) its task aggregator's
+        self.backends = {}
 
     def _mod(self, side, name):
         return importlib.import_module(f"{self.pkgs[side]}.{name}")
@@ -120,7 +134,7 @@ class Pair:
             task_id=M.TaskId(self.task_id.data),
             query_type=dsm.TaskQueryType.time_interval(),
             vdaf=self.desc,
-            vdaf_verify_key=b"\x2a" * 16,
+            vdaf_verify_key=b"\x2a" * vdaf_verify_key_length(self.desc),
             min_batch_size=1,
             time_precision=M.Duration(TIME_PRECISION),
             collector_hpke_config=M.HpkeConfig.get_decoded(collector_config.get_encoded()),
@@ -201,6 +215,12 @@ class Pair:
                 )
             finally:
                 await session.close()
+            from janus_tpu_torch.vdaf.backend import vdaf_shape_key
+
+            for side, agg in (("leader", leader), ("helper", helper)):
+                if side in self.executors:
+                    cached = self.executors[side].cached_backend(vdaf_shape_key(vdaf))
+                    self.backends[side] = cached or (await agg.task_aggregator_for(self.task_id)).backend
             return result, meas
         finally:
             await leader.shutdown()
@@ -272,27 +292,33 @@ def test_port_pair_collects_the_oracle_aggregate(family, transport):
     """Upload, aggregate through both sides' executors on ``CudaBackend``,
     collect: the aggregate is the JAX oracle's over the valid reports, the
     tampered report is rejected, and no out share is read back, recomputed
-    on the oracle or marshalled from field values."""
+    on the oracle or marshalled from field values.  The HMAC multiproof
+    SumVec takes ``HybridXofBackend``, which the driver and the helper call
+    directly (no executor flush; its out shares come back to the host)."""
     desc, measure = FAMILIES[family]
     pair = Pair(desc, "janus_tpu_torch", "janus_tpu_torch", transport)
     result, meas = run_pair(pair, measure, seed=hash(family) % 1000)
     assert result.report_count == len(meas) == VALID
     assert result.aggregate_result == jax_oracle_aggregate(desc, meas)
-    from janus_tpu_torch.vdaf.backend import CudaBackend, vdaf_shape_key
+    from janus_tpu_torch.vdaf.backend import CudaBackend, HybridXofBackend
 
-    key = vdaf_shape_key(vdaf_from_instance(desc))
+    hybrid = family == "multiproof"
     for side, ex in pair.executors.items():
-        backend = ex.cached_backend(key)
-        assert isinstance(backend, CudaBackend) and backend.device.type == "cpu", side
-        assert backend.outshare_readback_rows == 0 and backend.oracle_recompute_rows == 0, side
+        backend = pair.backends[side]
+        assert isinstance(backend, HybridXofBackend if hybrid else CudaBackend), side
+        assert backend.bp.device.type == "cpu" and backend.oracle_recompute_rows == 0, side
+        assert not any(backend.oracle.rows.values()), side
         flushes = {k: v for k, v in ex.stats().items() if "/prep_init#" in k}
-        assert flushes and all(v["flushes"] >= 1 for v in flushes.values()), (side, flushes)
-    leader = pair.executors["leader"].cached_backend(key)
-    assert leader.leader_marshal_rows == {"bytes": VALID + 1, "values": 0}
+        if hybrid:
+            assert not flushes, (side, flushes)
+        else:
+            assert backend.outshare_readback_rows == 0, side
+            assert flushes and all(v["flushes"] >= 1 for v in flushes.values()), (side, flushes)
+    assert pair.backends["leader"].leader_marshal_rows == {"bytes": VALID + 1, "values": 0}
 
 
 @pytest.mark.parametrize("leader_pkg,helper_pkg", [("janus_tpu_torch", "janus_tpu"), ("janus_tpu", "janus_tpu_torch")])
-@pytest.mark.parametrize("family", ["sum", "histogram"])
+@pytest.mark.parametrize("family", ["sum", "histogram", "fixedpoint", "multiproof"])
 def test_mixed_pair_collects_the_same_aggregate(family, leader_pkg, helper_pkg):
     """The port's leader with the JAX package's helper, and the reverse,
     over aiohttp on the oracle: the wire formats and prepare shares of the

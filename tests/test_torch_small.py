@@ -215,7 +215,7 @@ def test_constants_equal_jax(port_ctor, jax_ctor):
         np.testing.assert_array_equal(port.consts_np[k], np.asarray(v), err_msg=k)
     c, jc = port.circ, jbp.circ
     assert (c.calls, c.arity, c.P, c.glen) == (jc.calls, jc.arity, jc.P, jc.glen)
-    assert (port.ntt is None) == (jbp._ntt is None)
+    assert (port.gadgets[0]["ntt"] is None) == (jbp._ntt is None)
 
 
 def served_pair_matches_jax_oracle(vdaf, jvdaf, measure, count=5, seed=0, tamper=(1,)):

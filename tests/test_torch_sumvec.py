@@ -44,7 +44,7 @@ def test_prep_init_planar_matches_jax_oracle(length, chunk, ntt, agg_id):
     """(200, 4) has 50 calls, so P = 64 and the gadget outputs take the NTT."""
     jvdaf = jax_instances.prio3_sum_vec(length, 1, chunk)
     bp = BatchedPrio3(instances.prio3_sum_vec(length, 1, chunk), device="cpu")
-    assert (bp.ntt is not None) == ntt
+    assert (bp.gadgets[0]["ntt"] is not None) == ntt
     reports = _shard(jvdaf, 4, seed=length + agg_id)
     out = bp.prep_init_planar(agg_id, VK, **_inputs(bp, reports, agg_id))
     assert bool(out["ok"].all())
@@ -75,9 +75,9 @@ def test_constants_equal_jax():
     jbp = JaxBatchedPrio3(jax_instances.prio3_sum_vec(200, 1, 4))
     bp = BatchedPrio3(instances.prio3_sum_vec(200, 1, 4), device="cpu")
     bitrev, stages = jbp._ntt
-    np.testing.assert_array_equal(bp.ntt[0].numpy(), bitrev)
-    assert len(bp.ntt[1]) == len(stages)
-    for got, want in zip(bp.ntt[1], stages):
+    np.testing.assert_array_equal(bp.gadgets[0]["ntt"][0].numpy(), bitrev)
+    assert len(bp.gadgets[0]["ntt"][1]) == len(stages)
+    for got, want in zip(bp.gadgets[0]["ntt"][1], stages):
         np.testing.assert_array_equal(got.numpy().astype(np.uint32), np.asarray(want))
     c = bp.circ
     assert (c.calls, c.P, c.glen, c.pad_len) == (jbp.circ.calls, jbp.circ.P, jbp.circ.glen, jbp.circ.pad_len)
@@ -106,7 +106,7 @@ def test_row_helpers_match_oracle_integers(length, ntt):
     (7, 4) pads its last call; (200, 4) has P = 64 and takes the NTT and the
     baby-step/giant-step evaluation."""
     bp = BatchedPrio3(instances.prio3_sum_vec(length, 1, 4), device="cpu")
-    assert (bp.ntt is not None) == ntt
+    assert (bp.gadgets[0]["ntt"] is not None) == ntt
     f, c = bp.f, bp.circ
     p = f.p
     field = bp.flp.field
