@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Drives the port's paths once each, 2 shares each, over TurboSHAKE128 with
-1 proof (Field128, and Field64 for Count) and over HMAC-SHA256-AES128 with
-2 proofs (Field64), and checks them:
+1 proof (Field128, and Field64 for Count), over HMAC-SHA256-AES128 with
+2 proofs (Field64) and for Poplar1 (Field64 and Field255), and checks
+them:
 
 1. builds the CUDA kernels from ``janus_tpu_torch/csrc`` (one nvcc per
    source, all at once) and shards 64 distinct histogram reports from
@@ -122,7 +123,33 @@ Drives the port's paths once each, 2 shares each, over TurboSHAKE128 with
     tampered rows are rejected, one row per side per report equals the
     oracle, every leader row is marshalled from its bytes, no port kernel
     launches; host-XOF and device seconds; a profiled ``query_batch`` call
-    a side must hold device activities.
+    a side must hold device activities;
+16. **Poplar1 prepare on the card**: Poplar1(bits=16) at 1,024 reports a
+    side (measurements skewed over 64 distinct values, sharded by worker
+    processes during the build; 8 with a flipped leader IDPF key) at level
+    8 over 64 candidate prefixes (Field64) and at the leaf over the 64
+    values (Field255), and Poplar1(bits=256) at its leaf over 16 prefixes
+    (16 reports tiled to 256 rows): ``Poplar1Backend`` with the walk on
+    the card and on the host, both sides, direct and through an executor
+    (4 jobs a side, one flush, the deferred accumulator).  Every state and
+    share of the card walk equals the host walk's, 16 sampled rows (4 at
+    bits 256) equal ``Poplar1Oracle``, the decided sketch accepts exactly
+    the untampered rows, no row goes to the oracle, the executor's card
+    walk keeps its vectors on the card (no readback) and the drained sums
+    equal the host walk's; the walk's and the sketch's device ms (CUDA
+    events), seconds a job, the device activities and idle share of one
+    profiled flush (bits 16, level 8), peak memory.  No port kernel
+    launches;
+17. **The pair collects heavy hitters**: phase 13's pair with a
+    Poplar1(bits=16) task, both sides walking on the card, the leader's
+    accumulator deferred, aggregation jobs of 256; phase 16's 1,024
+    reports uploaded; a collection at level 7 over the 8-bit prefixes of
+    the 64 values (padded to 64), then one at the leaf over the values
+    under the prefixes counted at least 16 times.  Every prefix count is
+    the plain count of the uploads, both sides' ``poplar_init/L7`` and
+    ``/L15`` buckets flushed more jobs than flushes, no row goes to the
+    oracle, no breaker trips, the leader reads no sketch vector back and
+    no journal row is left.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -204,6 +231,28 @@ MP_DISTINCT, MP_TAMPERED, MP_BATCH = 2, 8, 128
 #: The pair's FixedPoint task: phase 14's distinct reports and this many of
 #: its norm-lie reports.
 PAIR_FP_LIES = 2
+#: Phase 16: Poplar1(bits=16) at POPLAR_REPORTS reports a side (the JAX
+#: package's poplar1_hh row, bench.py:688-692, at 4x its 256 reports), the
+#: measurements drawn with a skew from POPLAR_VALUES distinct values and
+#: sharded by POPLAR_WORKERS worker processes during the build; level 8
+#: over 64 candidate prefixes (Field64) and the leaf over the 64 values
+#: (Field255); POPLAR_TAMPERED rows with a flipped leader IDPF key;
+#: executor submissions a side.  Poplar1(bits=256), heavy hitters over
+#: hashed strings, at its leaf over 16 prefixes: 16 distinct reports tiled
+#: to 256 rows, a quarter of them tampered, POPLAR_WIDE_SAMPLED rows held
+#: against the oracle (whose walk is 256 levels of Python a prefix).
+POPLAR_BITS, POPLAR_VALUES, POPLAR_REPORTS, POPLAR_WORKERS = 16, 64, 1024, 2
+POPLAR_INNER_LEVEL, POPLAR_PREFIXES, POPLAR_TAMPERED, POPLAR_JOBS = 8, 64, 8, 4
+POPLAR_WIDE_BITS, POPLAR_WIDE_DISTINCT, POPLAR_WIDE_ROWS, POPLAR_WIDE_SAMPLED = 256, 16, 256, 4
+#: Phase 17: the pair's aggregation-job size, its two collection levels,
+#: the count a level-7 prefix needs for its leaves to be collected, and
+#: the leader's deferred-drain interval (seconds; longer than a level's
+#: job steps, so no bucket drains while a job is still committing into it).
+POPLAR_PAIR_JOB_SIZE, POPLAR_PAIR_LEVELS, POPLAR_THRESHOLD = 256, (7, 15), 16
+POPLAR_DRAIN_S = 2.0
+#: Phase 17's executor flush window, seconds (a flush closes earlier once
+#: it holds every report of the level).
+POPLAR_FLUSH_WINDOW_S = 1.0
 #: Where the paths run (the card; a CPU rehearsal of the script sets "cpu").
 DEVICE = "cuda"
 #: Largest |kernel - plain| allowed over u32 words: the arithmetic is exact
@@ -2064,6 +2113,497 @@ def pair_phase(verify_key, rng, hist_shards, sv_done, fp_done, mp_done, mp_verif
     return out
 
 
+def poplar_value_set(seed: int):
+    """The POPLAR_VALUES distinct 16-bit values of phases 16-17 and their
+    skewed weights (value i draws with weight 1 / (i + 1))."""
+    rng = np.random.default_rng([seed, 16])
+    values = sorted(int(v) for v in rng.choice(1 << POPLAR_BITS, POPLAR_VALUES, replace=False))
+    weights = 1.0 / np.arange(1, POPLAR_VALUES + 1)
+    order = rng.permutation(POPLAR_VALUES)  # the heavy values spread over the tree
+    return values, (weights / weights.sum())[order]
+
+
+def poplar_shard_job(seed: int, worker: int, count: int):
+    """``count`` Poplar1(bits=16) reports of skewed measurements sharded by
+    the port's oracle (run in a worker process): [(measurement, (nonce,
+    public share, input shares))], each nonce distinct."""
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1
+
+    vdaf = Poplar1(POPLAR_BITS)
+    values, weights = poplar_value_set(seed)
+    rng = np.random.default_rng([seed, 300 + worker])
+    reports, meas = shard_reports(vdaf, rng, lambda r: int(r.choice(values, p=weights)), count)
+    return list(zip(meas, reports))
+
+
+def poplar_prefixes(values, bits: int, level: int, count: int):
+    """The ``level`` prefixes of ``values``, padded with the smallest other
+    prefixes to ``count`` candidates, sorted."""
+    have = {v >> (bits - 1 - level) for v in values}
+    pad = (p for p in range(1 << (level + 1)) if p not in have)
+    while len(have) < count:
+        have.add(next(pad))
+    return tuple(sorted(have))
+
+
+def poplar_side_rows(shards, tampered):
+    """Each side's (nonce, public share, input share) rows; a tampered row's
+    leader IDPF key is flipped (its sketch then fails)."""
+    import dataclasses
+
+    rows = {0: [], 1: []}
+    for (_m, (nonce, public, shares)), bad in zip(shards, tampered):
+        lead = shares[0]
+        if bad:
+            lead = dataclasses.replace(lead, idpf_key=bytes(b ^ 0x5A for b in lead.idpf_key))
+        rows[0].append((nonce, public, lead))
+        rows[1].append((nonce, public, shares[1]))
+    return rows
+
+
+def poplar_decide(vdaf, ap, lead, help_):
+    """Both sides' round-0 outcomes through the two sketch rounds: (B,)
+    accepted mask (an honest row's sketch verifies, a tampered one's
+    fails)."""
+    from janus_tpu_torch.vdaf.prio3 import VdafError
+
+    accepted = np.zeros(len(lead), dtype=bool)
+    for b, ((ls, lsh), (hs, hsh)) in enumerate(zip(lead, help_)):
+        msg = vdaf.ping_pong_prep_shares_to_prep(ap, [lsh, hsh], round=0)
+        sigma = [vdaf.ping_pong_decode_prep_share(vdaf.ping_pong_prep_next(st, msg)[2], round=1) for st in (ls, hs)]
+        try:
+            vdaf.ping_pong_prep_shares_to_prep(ap, sigma, round=1)
+            accepted[b] = True
+        except VdafError:
+            pass
+    return accepted
+
+
+def poplar_equal(what, got, want, values=True):
+    """Per-row prepare outcomes equal: shares and (a, b, c, zs); with
+    ``values`` the states' prefix values too (host vectors both)."""
+    for b, ((gs, gsh), (ws, wsh)) in enumerate(zip(got, want)):
+        if gsh.encode() != wsh.encode() or (gs.a, gs.b, gs.c, gs.zs_share) != (ws.a, ws.b, ws.c, ws.zs_share):
+            raise AssertionError(f"{what}: row {b} differs")
+        if values and gs.y_flat != ws.y_flat:
+            raise AssertionError(f"{what}: row {b}'s prefix values differ")
+
+
+def poplar_executor(vdaf, backend, verify_key, ap, rows, jobs):
+    """Both sides' rows through a ``DeviceExecutor`` with the accumulator
+    (deferred, so a card walk's vectors stay resident): ``jobs``
+    submissions a side with ``retain_out_shares``, one flush a side.
+    Returns ({side: outcomes}, executor stats, seconds, store)."""
+    import asyncio
+
+    from janus_tpu_torch.executor import KIND_POPLAR_INIT, AccumulatorConfig, DeviceExecutor, ExecutorConfig
+    from janus_tpu_torch.vdaf.backend import vdaf_shape_key
+
+    B = len(rows[0])
+    size = B // jobs
+    ex = DeviceExecutor(ExecutorConfig(flush_max_rows=B, flush_window_s=0.05,
+                                       accumulator=AccumulatorConfig(enabled=True, drain_interval_s=3600.0)))
+    key = vdaf_shape_key(vdaf)
+
+    async def side(agg_id):
+        outs = await asyncio.gather(*[
+            ex.submit(key, KIND_POPLAR_INIT, (verify_key, ap, rows[agg_id][j * size:(j + 1) * size]), backend=backend,
+                      agg_id=agg_id, retain_out_shares=True, agg_param_key=ap.level)
+            for j in range(jobs)
+        ])
+        return [o for job in outs for o in job]
+
+    async def both():
+        return {a: await side(a) for a in (0, 1)}
+
+    t0 = time.perf_counter()
+    try:
+        outs = asyncio.run(both())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stats = ex.stats()
+    except BaseException:
+        ex.shutdown()
+        raise
+    for a in (0, 1):
+        label = next(k for k in stats if f"/a{a}/poplar_init/L{ap.level}#" in k)
+        if stats[label]["flushes"] != 1 or stats[label]["flushed_jobs"] != jobs:
+            ex.shutdown()
+            raise AssertionError(f"poplar executor: {label} ran {stats[label]} (one flush of {jobs} jobs expected)")
+    return outs, stats, secs, ex
+
+
+def poplar_case(name, vdaf, shards, tampered, level, prefixes, verify_key, rng, sampled, walk_rounds=3,
+                profile=False):
+    """One Poplar1 shape on the card, both sides: the card walk direct and
+    through the executor, and the host walk (the reference) direct.
+    Raises unless every state and share of the card walk equals the host
+    walk's, ``sampled`` rows equal ``Poplar1Oracle``, the decided sketch
+    accepts exactly the untampered rows, no row went to the oracle, the
+    executor's flush kept its vectors on the card (no readback) and the
+    drained sums equal the host walk's.  The card walk is timed over
+    ``walk_rounds`` calls; with ``profile`` one flush is traced (a trace
+    of a 100k-activity flush takes the profiler about a minute to read).
+    Returns the record."""
+    from janus_tpu_torch.executor import ResidentRef
+    from janus_tpu_torch.ops.poplar1_batch import sketch_limbs
+    from janus_tpu_torch.vdaf.backend import make_backend
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1AggregationParam
+
+    ap = Poplar1AggregationParam(level, tuple(prefixes))
+    rows = poplar_side_rows(shards, tampered)
+    B = len(shards)
+    card = make_backend(vdaf, "cuda", device=DEVICE)
+    rec = {"bits": vdaf.bits, "level": level, "prefixes": len(prefixes), "rows": B, "tampered": int(sum(tampered)),
+           "field": vdaf.field_for_agg_param(ap).__name__}
+    secs = {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def direct(walk, prep):
+        out = {}
+        for a in (0, 1):
+            t0 = time.perf_counter()
+            out[a] = prep(verify_key, a, ap, rows[a])
+            torch.cuda.synchronize()
+            secs[f"{walk} walk direct a{a}"] = time.perf_counter() - t0
+        return out
+
+    card_out = direct("cuda", card.prep_init_batch_poplar)
+    host_out = direct("host", card.bp.prep_init_batch_host)
+    for a in (0, 1):
+        poplar_equal(f"{name} a{a} card walk vs host walk", card_out[a], host_out[a])
+    accepted = poplar_decide(vdaf, ap, card_out[0], card_out[1])
+    if not np.array_equal(accepted, ~np.asarray(tampered)):
+        raise AssertionError(f"{name}: the sketch accepted {int(accepted.sum())} rows, not the "
+                             f"{B - int(sum(tampered))} untampered ones")
+    t0 = time.perf_counter()
+    for b in rng.choice(B, sampled, replace=False):
+        for a in (0, 1):
+            want = card.oracle.prep_init_batch_poplar(verify_key, a, ap, [rows[a][b]])
+            poplar_equal(f"{name} a{a} card walk vs the oracle", [card_out[a][b]], want)
+    secs["oracle_sample"] = time.perf_counter() - t0
+    card.oracle.rows["init"] = 0
+
+    # device times: the card walk (CUDA events around the whole walk: the
+    # host's key derivation and marshalling included) and the sketch's
+    # device half alone on its staged inputs
+    bp = card.bp
+    nonces = [r[0] for r in rows[0]]
+    pubs = [r[1] for r in rows[0]]
+    keys = [r[2].idpf_key for r in rows[0]]
+    rec["walk_ms"] = cuda_time_ms(
+        lambda: bp._eval_batch_dev(0, pubs, keys, level, list(prefixes), nonces), 1, walk_rounds
+    )
+    t0 = time.perf_counter()
+    bp.eval_batch_host(0, pubs, keys, level, list(prefixes), nonces)
+    rec["host_walk_ms"] = (time.perf_counter() - t0) * 1e3
+    walk = bp._walk_rows(0, ap, rows[0])
+    tf = bp._tfield(walk.field)
+
+    def put(arr):
+        return torch.from_numpy(np.asarray(arr, dtype=np.uint32).astype(np.int64)).to(DEVICE)
+
+    r_l = put(bp._verify_rands([verify_key] * B, nonces, ap))
+    a_l = put(tf.to_limbs([int(a) for a, _b, _c in walk.abc]))
+    b_l = put(tf.to_limbs([int(b) for _a, b, _c in walk.abc]))
+    rec["sketch_ms"] = cuda_time_ms(lambda: sketch_limbs(tf, walk.y_limbs, r_l, a_l, b_l), 5, 3)
+    t0 = time.perf_counter()
+    bp._verify_rands([verify_key] * B, nonces, ap)
+    secs["verify_rands_host"] = time.perf_counter() - t0
+    if profile:
+        rec["profiled_flush"] = profile_device(lambda: card.prep_init_batch_poplar(verify_key, 0, ap, rows[0]))
+
+    # through the executor with the accumulator, 4 jobs a side, each walk
+    field = vdaf.field_for_agg_param(ap)
+    want = {a: [0] * len(prefixes) for a in (0, 1)}
+    for a in (0, 1):
+        for b in np.flatnonzero(accepted):
+            want[a] = field.vec_add(want[a], host_out[a][b][0].y_flat)
+    readback0 = bp.sketch_readback_rows
+    outs, stats, seconds, ex = poplar_executor(vdaf, card, verify_key, ap, rows, POPLAR_JOBS)
+    try:
+        for a in (0, 1):
+            poplar_equal(f"{name} a{a} executor", outs[a], card_out[a], values=False)
+        if not np.array_equal(poplar_decide(vdaf, ap, outs[0], outs[1]), accepted):
+            raise AssertionError(f"{name}: the executor decided differently")
+        store = ex.accumulator
+        t0 = time.perf_counter()
+        for a in (0, 1):
+            refs = [outs[a][b][0].y_flat for b in range(B)]
+            if not all(isinstance(r, ResidentRef) for r in refs):
+                raise AssertionError(f"{name}: the executor's vectors left the card")
+            ids = [int(b).to_bytes(4, "big") for b in np.flatnonzero(accepted)]
+            store.commit_rows(("poplar", a), card, [refs[b] for b in np.flatnonzero(accepted)],
+                              job_token=0, report_ids=ids)
+            store.release_refs([refs[b] for b in np.flatnonzero(~accepted)])
+            if store.drain(("poplar", a), field)[0] != want[a]:
+                raise AssertionError(f"{name}: the executor's drained sum a{a} differs from the host walk's")
+        commit_s = time.perf_counter() - t0
+        store_stats = store.stats()
+    finally:
+        ex.shutdown()
+    if store_stats["flushes_resident"] or store_stats["resident_bytes"]:
+        raise AssertionError(f"{name}: the store still holds state after the drain: {store_stats}")
+    rec["executor"] = {
+        "seconds": seconds, "seconds_a_job": seconds / (2 * POPLAR_JOBS), "commit_drain_s": commit_s,
+        "flushes": {k.split("#")[0]: v["flushes"] for k, v in stats.items()},
+    }
+    if bp.sketch_readback_rows != readback0:
+        raise AssertionError(f"{name}: the executor's card walk read back "
+                             f"{bp.sketch_readback_rows - readback0} sketch rows")
+    if card.oracle_recompute_rows or card.oracle.rows["init"]:
+        raise AssertionError(f"{name}: rows went to the oracle")
+    rec.update({"seconds": secs, "oracle_recompute_rows": 0, "executor_sketch_readback_rows": 0,
+                "device_peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    log(f"poplar1 {name}: {B} rows a side ({rec['tampered']} tampered, rejected), card walk = host walk on every "
+        f"row, {sampled} rows = oracle; walk {rec['walk_ms']:.2f} ms (host walk {rec['host_walk_ms']:.2f} ms), "
+        f"sketch {rec['sketch_ms']:.3f} ms on the card; "
+        f"executor {rec['executor']['seconds_a_job']:.4f} s a job")
+    return rec
+
+
+def poplar_phase(seed, verify_key, rng, shards16, phases):
+    """Phase 16: Poplar1 prepare on the card at three shapes.  Returns the
+    records by shape."""
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1
+
+    t0 = time.perf_counter()
+    out = {}
+    vdaf = Poplar1(POPLAR_BITS)
+    values, _w = poplar_value_set(seed)
+    tampered = np.zeros(len(shards16), dtype=bool)
+    tampered[rng.choice(len(shards16), POPLAR_TAMPERED, replace=False)] = True
+    inner = poplar_prefixes(values, POPLAR_BITS, POPLAR_INNER_LEVEL, POPLAR_PREFIXES)
+
+    def run():
+        out["bits16_level8"] = poplar_case("bits16 level 8", vdaf, shards16, tampered.tolist(), POPLAR_INNER_LEVEL,
+                                           inner, verify_key, rng, SAMPLED, profile=True)
+        out["bits16_leaf"] = poplar_case("bits16 leaf", vdaf, shards16, tampered.tolist(), POPLAR_BITS - 1,
+                                         values, verify_key, rng, SAMPLED)
+        wide = Poplar1(POPLAR_WIDE_BITS)
+        t1 = time.perf_counter()
+        reports, meas = shard_reports(wide, rng, lambda r: int.from_bytes(r.bytes(32), "big"), POPLAR_WIDE_DISTINCT)
+        shard_s = time.perf_counter() - t1
+        tile = POPLAR_WIDE_ROWS // POPLAR_WIDE_DISTINCT
+        wide_shards = list(zip(meas, reports)) * tile
+        wide_tampered = [i < POPLAR_WIDE_DISTINCT // 4 for i in range(POPLAR_WIDE_DISTINCT)] * tile
+        out["bits256_leaf"] = poplar_case("bits256 leaf", wide, wide_shards, wide_tampered, POPLAR_WIDE_BITS - 1,
+                                          sorted(meas), verify_key, rng, POPLAR_WIDE_SAMPLED, walk_rounds=1)
+        out["bits256_leaf"]["shard_s"] = shard_s
+
+    _, launches = counted("poplar1 prepare", (), run)
+    if any(launches.values()):
+        raise AssertionError(f"poplar1 prepare launched port kernels: {launches}")
+    phases["poplar1"] = time.perf_counter() - t0
+    return out
+
+
+def poplar_pair_phase(seed, verify_key, shards16, phases):
+    """Phase 17: the leader/helper pair collects heavy hitters.  A
+    Poplar1(bits=16) task, both sides' ``Poplar1Backend`` walking on the
+    card behind their own executor (the leader's accumulator deferred, so
+    its sketch vectors stay on the card across the WAITING_LEADER hop),
+    ``max_agg_param_job_size`` 256; the 1,024 reports uploaded; a
+    collection at level 7 over the 8-bit prefixes of the 64 values (padded
+    to 64 candidates), then one at the leaf over the values under the
+    prefixes whose count reached POPLAR_THRESHOLD.  Each collection
+    creates its level's 4 jobs; the driver steps them together.  Raises
+    unless every prefix count is the plain count of the uploads, both
+    sides' level buckets coalesced jobs, no row went to the oracle, no
+    breaker tripped, the leader read no sketch vector back and no journal
+    row is left.  The harness waits out the drain interval before it steps
+    the collection job (a collection step that finds journal rows replays
+    them on the oracle); a level's ``seconds`` include those waits, its
+    ``seconds_without_waits`` do not.  Returns the record."""
+    import asyncio
+
+    from janus_tpu_torch.aggregator import AggregationJobDriver, Aggregator, CollectionJobDriver, Config, DriverConfig
+    from janus_tpu_torch.aggregator.test_util import InProcessNetwork
+    from janus_tpu_torch.client import seal_report
+    from janus_tpu_torch.collector import Collector
+    from janus_tpu_torch.core.auth_tokens import AuthenticationToken
+    from janus_tpu_torch.core.hpke import HpkeKeypair
+    from janus_tpu_torch.core.time import MockClock
+    from janus_tpu_torch.datastore import AggregatorTask, TaskQueryType
+    from janus_tpu_torch.datastore.test_util import EphemeralDatastore
+    from janus_tpu_torch.executor import AccumulatorConfig, DeviceExecutor, ExecutorConfig
+    from janus_tpu_torch.messages import Duration, Interval, Query, ReportId, Role, TaskId, Time
+    from janus_tpu_torch.vdaf.backend import Poplar1Backend, vdaf_shape_key
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1AggregationParam
+
+    t_phase = time.perf_counter()
+    desc = {"type": "Poplar1", "bits": POPLAR_BITS}
+    precision, now = 3600, 1_600_002_000
+    start = now - now % precision
+    agg_token, col_token = AuthenticationToken.new_bearer("hh-agg"), AuthenticationToken.new_bearer("hh-col")
+    vdaf = vdaf_from_instance(desc)
+    values, _w = poplar_value_set(seed)
+    meas = [m for m, _r in shards16]
+    secs, levels, replays = {}, {}, {}
+    undo = []
+
+    async def run():
+        clock = MockClock(Time(now))
+        ds = {side: EphemeralDatastore(clock) for side in ("leader", "helper")}
+        acc = {"leader": AccumulatorConfig(enabled=True, drain_interval_s=POPLAR_DRAIN_S),
+               "helper": AccumulatorConfig(enabled=True)}
+        # a level's jobs flush together once all their rows are in (or
+        # at the window's end): each side's requests arrive spread by
+        # their HPKE opens and decodes
+        ex = {side: DeviceExecutor(ExecutorConfig(flush_max_rows=len(shards16), flush_window_s=POPLAR_FLUSH_WINDOW_S,
+                                                  accumulator=acc[side])) for side in ds}
+        aggs = {side: Aggregator(ds[side].datastore, clock, Config(
+            vdaf_device=DEVICE, device_executor=ex[side], max_upload_batch_write_delay=0.02,
+            max_agg_param_job_size=POPLAR_PAIR_JOB_SIZE)) for side in ds}
+        net = InProcessNetwork()
+        urls = {side: net.add(side, agg) for side, agg in aggs.items()}
+        try:
+            task_id = TaskId.random()
+            collector_keys = HpkeKeypair.generate(9)
+            common = dict(task_id=task_id, query_type=TaskQueryType.time_interval(), vdaf=desc,
+                          vdaf_verify_key=verify_key, min_batch_size=1, time_precision=Duration(precision),
+                          collector_hpke_config=collector_keys.config)
+            tasks = {
+                "leader": AggregatorTask(peer_aggregator_endpoint=urls["helper"], role=Role.LEADER,
+                                         aggregator_auth_token=agg_token, collector_auth_token_hash=col_token.hash(),
+                                         hpke_keys=[HpkeKeypair.generate(1)], **common),
+                "helper": AggregatorTask(peer_aggregator_endpoint=urls["leader"], role=Role.HELPER,
+                                         aggregator_auth_token_hash=agg_token.hash(),
+                                         hpke_keys=[HpkeKeypair.generate(2)], **common),
+            }
+            for side in ds:
+                ds[side].datastore.run_tx("put", lambda tx, t=tasks[side]: tx.put_aggregator_task(t))
+            configs = [tasks[side].hpke_keys[0].config for side in ("leader", "helper")]
+            sealed = [seal_report(vdaf, task_id, *configs, ReportId(nonce), Time(start), public, shares)
+                      for _m, (nonce, public, shares) in shards16]
+            session = net.session()
+            t0 = time.perf_counter()
+
+            async def upload(report):
+                async with session.put(f"{urls['leader']}tasks/{task_id}/reports", data=report.get_encoded()) as r:
+                    if r.status != 201:
+                        raise AssertionError(f"poplar pair: upload answered {r.status}: {await r.text()}")
+
+            for i in range(0, len(sealed), PAIR_UPLOAD_WAVE):
+                await asyncio.gather(*[upload(r) for r in sealed[i:i + PAIR_UPLOAD_WAVE]])
+            secs["upload"] = time.perf_counter() - t0
+            driver = AggregationJobDriver(ds["leader"].datastore, net.session, DriverConfig(
+                vdaf_device=DEVICE, device_executor=ex["leader"]))
+            collection_driver = CollectionJobDriver(ds["leader"].datastore, net.session)
+            undo.append(tally_calls(collection_driver, "_replay_journal_entry", replays, "journal replays"))
+            collector = Collector(task_id=task_id, leader_endpoint=urls["leader"], vdaf=vdaf, auth_token=col_token,
+                                  hpke_keypair=collector_keys, poll_interval=0.02, max_poll_time=600.0)
+            query = Query.new_time_interval(Interval(Time(start), Duration(precision)))
+
+            async def drive(done):
+                rounds = {"job_steps": [], "drain_s": [], "collection_step_s": [], "waits_s": 0.0}
+
+                async def wait(seconds):
+                    t0 = time.perf_counter()
+                    await asyncio.sleep(seconds)
+                    rounds["waits_s"] += time.perf_counter() - t0
+
+                while not done.is_set():
+                    t0 = time.perf_counter()
+                    leases = await ds["leader"].datastore.run_tx_async(
+                        "acquire", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(600), 64))
+                    await asyncio.gather(*[driver.step_aggregation_job(lease) for lease in leases])
+                    clock.advance(Duration(30))
+                    if leases:
+                        rounds["job_steps"].append([len(leases), time.perf_counter() - t0])
+                        continue
+                    # every job of the level has finished: its bucket comes
+                    # due and drains, with no commit beside it, before the
+                    # collection job looks for journal rows
+                    await wait(POPLAR_DRAIN_S)
+                    t0 = time.perf_counter()
+                    await driver.run_accumulator_maintenance()
+                    rounds["drain_s"].append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    for lease in await ds["leader"].datastore.run_tx_async(
+                            "acquire_coll", lambda tx: tx.acquire_incomplete_collection_jobs(Duration(600), 8)):
+                        await collection_driver.step_collection_job(lease)
+                    rounds["collection_step_s"].append(time.perf_counter() - t0)
+                    await wait(0.01)
+                return rounds
+
+            async def collect_level(level, prefixes):
+                ap = Poplar1AggregationParam(level, tuple(prefixes))
+                done = asyncio.Event()
+
+                async def collect():
+                    try:
+                        return await collector.collect(query, vdaf.encode_agg_param(ap), session=session)
+                    finally:
+                        done.set()
+
+                t0 = time.perf_counter()
+                result, rounds = await asyncio.gather(collect(), drive(done))
+                secs[f"level {level}"] = time.perf_counter() - t0
+                want = [sum(1 for m in meas if m >> (POPLAR_BITS - 1 - level) == p) for p in prefixes]
+                if result.report_count != len(meas) or result.aggregate_result != want:
+                    raise AssertionError(f"poplar pair: level {level} counts are not the plain counts")
+                levels[level] = {"prefixes": len(prefixes), "seconds": secs[f"level {level}"],
+                                 "seconds_without_waits": secs[f"level {level}"] - rounds["waits_s"],
+                                 "top_counts": sorted(want, reverse=True)[:8], **rounds}
+                return result.aggregate_result
+
+            coarse = poplar_prefixes(values, POPLAR_BITS, POPLAR_PAIR_LEVELS[0], POPLAR_PREFIXES)
+            counts = await collect_level(POPLAR_PAIR_LEVELS[0], coarse)
+            heavy = {p for p, c in zip(coarse, counts) if c >= POPLAR_THRESHOLD}
+            shift = POPLAR_BITS - 1 - POPLAR_PAIR_LEVELS[0]
+            leaves = [v for v in values if v >> shift in heavy]
+            await collect_level(POPLAR_PAIR_LEVELS[1], leaves)
+            await driver.close()
+            await collection_driver.close()
+            backends = {s: ex[s].cached_backend(vdaf_shape_key(vdaf)) for s in ex}
+            journal = ds["leader"].datastore.run_tx("journal", lambda tx: tx.count_accumulator_journal_entries(task_id))
+            return backends, {s: ex[s].stats() for s in ex}, {s: ex[s].circuit_stats() for s in ex}, journal
+        finally:
+            for u in undo:
+                u()
+            for side in ds:
+                await aggs[side].shutdown()
+                ex[side].shutdown()
+                ds[side].cleanup()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (backends, stats, circuits, journal), launches = counted("poplar1 pair", (), lambda: asyncio.run(run()))
+    secs["end_to_end"] = time.perf_counter() - t0
+    if any(launches.values()):
+        raise AssertionError(f"poplar pair launched port kernels: {launches}")
+    for side, b in backends.items():
+        if not isinstance(b, Poplar1Backend) or b.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"poplar pair: the {side} did not walk on the card: {b}")
+        if b.oracle_recompute_rows or b.oracle.rows["init"]:
+            raise AssertionError(f"poplar pair: the {side} sent rows to the oracle")
+        if any(c["trips"] or c["state"] != "closed" for c in circuits[side].values()):
+            raise AssertionError(f"poplar pair: a breaker of the {side} tripped: {circuits[side]}")
+        for level in POPLAR_PAIR_LEVELS:
+            label = [k for k in stats[side] if f"/poplar_init/L{level}#" in k]
+            if len(label) != 1 or stats[side][label[0]]["flushed_jobs"] <= stats[side][label[0]]["flushes"]:
+                raise AssertionError(f"poplar pair: the {side}'s level {level} bucket did not coalesce jobs: "
+                                     f"{[stats[side][k] for k in label]}")
+    if backends["leader"].sketch_readback_rows:
+        raise AssertionError(f"poplar pair: the leader read back {backends['leader'].sketch_readback_rows} sketch rows")
+    if journal or replays.get("journal replays", [0])[0]:
+        raise AssertionError(f"poplar pair: {journal} journal rows left, {replays} replayed on the oracle")
+    rec = {
+        "reports": len(shards16), "levels": levels, "seconds": secs, "uploads_per_s": len(shards16) / secs["upload"],
+        "executor_stats": stats, "sketch_readback_rows": {s: b.sketch_readback_rows for s, b in backends.items()},
+        "device_peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+    }
+    phases["poplar1_pair"] = time.perf_counter() - t_phase
+    level_s = ", ".join("%.3f s (%.3f s without waits)" % (v["seconds"], v["seconds_without_waits"])
+                        for v in levels.values())
+    log(f"poplar1 pair: {len(shards16)} reports; level {POPLAR_PAIR_LEVELS[0]} over {levels[POPLAR_PAIR_LEVELS[0]]['prefixes']} "
+        f"prefixes and level {POPLAR_PAIR_LEVELS[1]} over {levels[POPLAR_PAIR_LEVELS[1]]['prefixes']} leaves, counts exact; "
+        f"upload {secs['upload']:.3f} s, levels {level_s}, end to end {secs['end_to_end']:.3f} s")
+    return rec
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -2098,7 +2638,7 @@ def main() -> int:
     # SumVec100k report (the multiproof's two proofs, the FixedPoint
     # reports); worker processes do it during the build and the histogram
     # sharding, the longest first, and end before any timed phase starts.
-    workers = MP_DISTINCT + SV_DISTINCT + SV8_WORKERS + PAIR_HIST_WORKERS + FP_WORKERS
+    workers = MP_DISTINCT + SV_DISTINCT + SV8_WORKERS + PAIR_HIST_WORKERS + FP_WORKERS + POPLAR_WORKERS
     with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as pool:
         mp_jobs = [pool.submit(multiproof_oracle_job, args.seed, i, mp_verify_key) for i in range(MP_DISTINCT)]
         jobs = [pool.submit(sumvec_oracle_job, args.seed, i, verify_key) for i in range(SV_DISTINCT)]
@@ -2107,6 +2647,8 @@ def main() -> int:
         sv8_jobs = [pool.submit(sumvec_bits_shard_job, args.seed, w, SV8_REPORTS // SV8_WORKERS) for w in range(SV8_WORKERS)]
         extra = (PAIR_HIST_REPORTS - DISTINCT) // PAIR_HIST_WORKERS
         hist_jobs = [pool.submit(histogram_shard_job, args.seed, w, extra) for w in range(PAIR_HIST_WORKERS)]
+        poplar_jobs = [pool.submit(poplar_shard_job, args.seed, w, POPLAR_REPORTS // POPLAR_WORKERS)
+                       for w in range(POPLAR_WORKERS)]
         t0 = time.perf_counter()
         _build.build()
         phases["build"] = time.perf_counter() - t0
@@ -2126,6 +2668,7 @@ def main() -> int:
         phases["sumvec_shard_wait"] = time.perf_counter() - t0
         fp_done = [j.result() for j in fp_jobs]
         mp_done = [j.result() for j in mp_jobs]
+        poplar_shards = [x for j in poplar_jobs for x in j.result()]
         phases["shard_wait_total"] = time.perf_counter() - t0
     log(f"shard: FixedPoint reports {json.dumps([d[2] for d in fp_done])} s a worker; phases so far "
         f"{json.dumps(phases)}")
@@ -2150,6 +2693,10 @@ def main() -> int:
     multiproof = multiproof_phase(mp_verify_key, rng, mp_done, phases)
     torch.cuda.empty_cache()
     pair = pair_phase(verify_key, rng, hist_shards, done, fp_done, mp_done, mp_verify_key, phases)
+    torch.cuda.empty_cache()
+    poplar1 = poplar_phase(args.seed, verify_key, rng, poplar_shards, phases)
+    torch.cuda.empty_cache()
+    poplar1_pair = poplar_pair_phase(args.seed, verify_key, poplar_shards, phases)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]] for path, launches in PATH_LAUNCHES.items()}
         for path, shapes in path_shapes.items():
@@ -2167,7 +2714,8 @@ def main() -> int:
     log(json.dumps({"end_to_end": {"histogram": histogram, "sumvec": sumvec, "count": count, "sum": sum_record,
                                    "sumvec_bits8": sumvec_bits, "histogram_executor": histogram_executor,
                                    "sumvec_executor": sumvec_executor, "fixedpoint": fixedpoint,
-                                   "multiproof": multiproof, "pair": pair}}))
+                                   "multiproof": multiproof, "pair": pair, "poplar1": poplar1,
+                                   "poplar1_pair": poplar1_pair}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

@@ -117,6 +117,13 @@ class AggregationJobCreator:
         self, tx: Transaction, task: AggregatorTask
     ) -> Tuple[int, List[dict]]:
         vdaf = task.vdaf_instance()
+        if getattr(vdaf, "REQUIRES_AGG_PARAM", False):
+            # VDAFs with a real aggregation parameter (Poplar1) get their
+            # jobs from collection requests, not from this periodic creator
+            # (the reference gates this path behind test-util:
+            # aggregation_job_creator.rs:741).
+            logger.debug("skipping agg-param task %s", task.task_id)
+            return 0, []
         metas = tx.get_unaggregated_client_reports_for_task(
             task.task_id, self.config.reports_per_round
         )

@@ -428,9 +428,11 @@ class AggregationJobDriver:
         executor's cache when there is one).  A VDAF the card does not
         serve takes the CPU oracle, logged and counted
         (aggregator.resolve_backend); for a served circuit a failure to
-        build the card's backend propagates.  None for non-Prio3 VDAFs,
-        which step per report."""
-        if not isinstance(vdaf, Prio3):
+        build the card's backend propagates.  A Poplar1 gets its
+        ``Poplar1Backend`` (None when the oracle is configured: it then
+        steps per report); other non-Prio3 VDAFs step per report (None)."""
+        poplar = type(vdaf).__name__ == "Poplar1" and self.config.vdaf_backend != "oracle"
+        if not isinstance(vdaf, Prio3) and not poplar:
             return None
         key = self._vdaf_shape_key(vdaf)
         b = self._backends.get(key)
@@ -538,6 +540,55 @@ class AggregationJobDriver:
             # and the lease machinery owns the retry.
             raise JobStepError(f"prepare launch failed: {e}", retryable=True)
 
+    async def _coalesced_poplar_init(self, backend, verify_key: bytes, agg_param, prep_in, task_ident=None):
+        """Poplar1 round-0 prepare, through the process-wide executor when
+        there is one: the submission lands in the agg-param-keyed
+        ``poplar_init`` bucket for this shape at ``agg_param.level``, so
+        concurrent jobs at one tree level coalesce into ONE walk and sketch
+        pass.  As for Prio3, an open circuit (peeked before submitting, or
+        raised by the flush), a launch failure and backpressure all refuse
+        the job as a retryable JobStepError; no served row lands on the
+        oracle."""
+        loop = asyncio.get_running_loop()
+        if self._executor is not None:
+            from ..executor import KIND_POPLAR_INIT, CircuitOpenError, ExecutorOverloadedError
+
+            shape_key = self._vdaf_shape_key(backend.vdaf)
+            if self._executor.circuit_open(shape_key):
+                raise JobStepError(f"circuit for shape {shape_key[0]} is open", retryable=True)
+            # Sketch vectors kept on the card: only with DEFERRED drains —
+            # the refs cross the WAITING_LEADER persistence hop, and only
+            # deferred mode keeps the StartLeader payloads that make a dead
+            # ref (restart, eviction past recall) recoverable through the
+            # per-report oracle replay.
+            store = self._executor.accumulator
+            retain_sketch = store is not None and getattr(store.config, "deferred", False)
+            try:
+                return await self._executor.submit(
+                    shape_key,
+                    KIND_POPLAR_INIT,
+                    (verify_key, agg_param, prep_in),
+                    backend=backend,
+                    agg_id=0,
+                    retain_out_shares=retain_sketch,
+                    task_ident=task_ident,
+                    agg_param_key=getattr(agg_param, "level", None),
+                )
+            except CircuitOpenError as e:
+                raise JobStepError(f"device circuit open: {e}", retryable=True)
+            except ExecutorOverloadedError as e:
+                raise JobStepError(f"device executor overloaded: {e}", retryable=True)
+            except JobStepError:
+                raise
+            except Exception as e:
+                raise JobStepError(f"device launch failed: {e}", retryable=True)
+        try:
+            return await loop.run_in_executor(
+                None, lambda: backend.prep_init_batch_poplar(verify_key, 0, agg_param, prep_in)
+            )
+        except Exception as e:
+            raise JobStepError(f"prepare launch failed: {e}", retryable=True)
+
     async def _flush_prep(self, backend, key: int) -> None:
         bucket = self._pending_prep.pop(key, [])
         if not bucket:
@@ -598,15 +649,23 @@ class AggregationJobDriver:
             prep_in = [
                 (ra.report_id.data, public, share) for ra, public, share in rows
             ]
-            prep_out = await self._coalesced_prep_init(
-                backend,
-                task.vdaf_verify_key,
-                prep_in,
-                # per-task fairness quota: the DRR accounting domain
-                # WITHIN the shared shape bucket
-                # (executor._pick_entry_locked)
-                task_ident=task.task_id.data,
-            )
+            if hasattr(backend, "prep_init_batch_poplar"):
+                # Heavy hitters: round-0 prep through the executor's
+                # agg-param-keyed poplar_init plane (or the direct batched
+                # walk when no executor is configured).
+                prep_out = await self._coalesced_poplar_init(
+                    backend, task.vdaf_verify_key, agg_param, prep_in, task_ident=task.task_id.data
+                )
+            else:
+                prep_out = await self._coalesced_prep_init(
+                    backend,
+                    task.vdaf_verify_key,
+                    prep_in,
+                    # per-task fairness quota: the DRR accounting domain
+                    # WITHIN the shared shape bucket
+                    # (executor._pick_entry_locked)
+                    task_ident=task.task_id.data,
+                )
 
             def wrap_outcomes():
                 out = {}
@@ -663,7 +722,7 @@ class AggregationJobDriver:
 
     def _release_finished_refs(self, finished_now) -> None:
         """Release device-resident out shares held by finished-at-evaluate
-        rows (multi-round continue steps) after a step failure or a helper
+        rows (Poplar1 continue steps) after a step failure or a helper
         rejection dropped them short of the commit."""
         store = self._executor.accumulator if self._executor is not None else None
         if store is None or not finished_now:
@@ -686,6 +745,8 @@ class AggregationJobDriver:
                 continue
             state, _msg = outcome
             ref = getattr(getattr(state, "prep_state", None), "out_share", None)
+            if not isinstance(ref, ResidentRef):  # Poplar1 carries y_flat
+                ref = getattr(getattr(state, "prep_state", None), "y_flat", None)
             if isinstance(ref, ResidentRef):
                 refs.append(ref)
         if refs:
@@ -784,8 +845,8 @@ class AggregationJobDriver:
             )
         except BaseException:
             # A failure between evaluate and commit must not pin the flush
-            # matrices this step's device-resident rows (refs riding in
-            # finished_now) reference: redelivery re-evaluates
+            # matrices this step's device-resident rows (Poplar1 y refs
+            # riding in finished_now) reference: redelivery re-evaluates
             # the persisted transition, and a then-dead ref fails closed
             # into the per-report oracle replay.  Release is idempotent —
             # rows a partial commit already consumed are unaffected.
@@ -813,6 +874,21 @@ class AggregationJobDriver:
         by_id = {pr.report_id.data: pr for pr in resp.prepare_resps}
         new_ras: List[ReportAggregation] = []
         out_shares: Dict[bytes, Sequence[int]] = {}
+        # Multi-round deferred journaling (Poplar1): a report that will only
+        # FINISH at a later round must carry its StartLeader payload through
+        # every WAITING round — the payload is the journal's oracle-replay
+        # window, and with_state() clears it by default.  Costs storage only
+        # while the journal machinery is armed for this VDAF.
+        store_cfg = getattr(
+            self._executor.accumulator if self._executor is not None else None,
+            "config",
+            None,
+        )
+        retain_waiting_payload = (
+            store_cfg is not None
+            and getattr(store_cfg, "deferred", False)
+            and getattr(vdaf, "REQUIRES_AGG_PARAM", False)
+        )
         for ra in all_ras:
             rid = ra.report_id.data
             if ra.state in (
@@ -856,10 +932,16 @@ class AggregationJobDriver:
                 new_ras.append(ra.with_state(ReportAggregationState.FINISHED))
                 out_shares[rid] = value.out_share
             else:
+                keep = (
+                    dict(public_share=ra.public_share, leader_input_share=ra.leader_input_share)
+                    if retain_waiting_payload
+                    else {}
+                )
                 new_ras.append(
                     ra.with_state(
                         ReportAggregationState.WAITING_LEADER,
                         leader_prep_transition=value.transition.encode(vdaf),
+                        **keep,
                     )
                 )
 
@@ -882,8 +964,8 @@ class AggregationJobDriver:
         # deferred mode leaves it resident and persists a journal row in
         # the tx instead (crash recovery replays from the datastore).
         # finished-at-evaluate rows the helper rejected never reached
-        # out_shares: their device-resident refs must release or the
-        # retained flush matrix never frees
+        # out_shares: their device-resident refs (Poplar1) must release or
+        # the retained sketch matrix never frees
         self._release_finished_refs(
             {
                 rid: v
@@ -1072,12 +1154,15 @@ class AggregationJobDriver:
         # release the never-finished rows' refs regardless of outcome below
         # — but NOT the WAITING rows': a multi-round VDAF's pending rows
         # carry their refs through the persisted transition into the next
-        # step
+        # step (releasing them here would strand every Poplar1 row on the
+        # dead-ref oracle path at round 1)
         leftover = []
         for rid, st in states.items():
             if rid in out_shares or rid in waiting_rids:
                 continue
             ref = getattr(getattr(st, "prep_state", None), "out_share", None)
+            if not isinstance(ref, ResidentRef):  # Poplar1 carries y_flat
+                ref = getattr(getattr(st, "prep_state", None), "y_flat", None)
             if isinstance(ref, ResidentRef):
                 leftover.append(ref)
         if leftover:
@@ -1093,7 +1178,10 @@ class AggregationJobDriver:
 
         backend = self._backend_for(task, vdaf)
         shape_key = self._vdaf_shape_key(vdaf)
-        field = vdaf.field_for_agg_param(None)
+        agg_param = (
+            vdaf.decode_agg_param(job.aggregation_parameter) if getattr(vdaf, "REQUIRES_AGG_PARAM", False) else None
+        )
+        field = vdaf.field_for_agg_param(agg_param)
         loop = asyncio.get_running_loop()
 
         # Pre-tx collected check: reports aimed at an already-collected
@@ -1187,7 +1275,7 @@ class AggregationJobDriver:
                 replayed = await loop.run_in_executor(
                     None,
                     lambda rids=sorted(replay_rids): self._oracle_out_shares(
-                        task, vdaf, backend, [ra_by_rid[r] for r in rids]
+                        task, vdaf, backend, [ra_by_rid[r] for r in rids], agg_param=agg_param
                     ),
                 )
                 out_shares.update(replayed)
@@ -1230,10 +1318,14 @@ class AggregationJobDriver:
             deltas[ident] = (vector, frozenset(drained_rids))
         return deltas or None, journal_entries or None, touched
 
-    def _oracle_out_shares(self, task, vdaf, backend, ras):
+    def _oracle_out_shares(self, task, vdaf, backend, ras, agg_param=None):
         """Bit-exact CPU replay of finished reports' out shares (backend
-        contract: oracle == device, tests/test_torch_backend.py).  The
-        replay runs inside the task's cost scope, so crash-recovery CPU time shows on the task's
+        contract: oracle == device, tests/test_torch_backend.py).
+        Agg-param VDAFs (Poplar1) replay per report at the job's OWN
+        parameter — ``prep_init(...).y_flat`` is the value vector the
+        FINISHED verdict already vouched for (the sketch verified before
+        the ref was minted).  The replay runs inside the task's cost
+        scope, so crash-recovery CPU time shows on the task's
         ``path="oracle"`` series like any other oracle work."""
         from ..core import costs
         from ..vdaf.backend import OracleBackend, oracle_backend_for
@@ -1248,6 +1340,16 @@ class AggregationJobDriver:
                 )
             )
         out = {}
+        if getattr(vdaf, "REQUIRES_AGG_PARAM", False):
+
+            def poplar_replay():
+                res = {}
+                for rid, public, share in rows:  # the report id IS the nonce
+                    state, _sh = vdaf.prep_init(task.vdaf_verify_key, 0, agg_param, rid, public, share)
+                    res[rid] = list(state.y_flat)
+                return res
+
+            return costs.run_in_task_scope(task.task_id.data, poplar_replay)
         oracle = oracle_backend_for(backend, vdaf) or OracleBackend(vdaf)
         replayed = costs.run_in_task_scope(
             task.task_id.data,

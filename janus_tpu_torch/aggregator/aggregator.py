@@ -56,6 +56,7 @@ from ..messages import (
     Collection,
     CollectionJobId,
     CollectionReq,
+    Duration,
     FixedSizeQuery,
     HpkeConfigList,
     InputShareAad,
@@ -70,6 +71,7 @@ from ..messages import (
     ReportId,
     Role,
     TaskId,
+    Time,
 )
 from ..vdaf import pingpong as pp
 from ..vdaf.backend import BACKENDS, device_supported, make_backend
@@ -152,6 +154,13 @@ class Config:
     #: torch device of the "cuda" backend; None = "cuda" (tests name "cpu")
     vdaf_device: Optional[str] = None
     collection_job_retry_after: int = 10
+    #: Aggregation-job size for agg-param VDAFs (Poplar1), whose jobs are
+    #: created by the collection request (_create_agg_param_jobs) rather
+    #: than the periodic creator: one collection's reports split into
+    #: ceil(N/this) jobs per level.  With the device executor the split
+    #: costs nothing at prepare time — the jobs' rows re-coalesce in the
+    #: level-keyed poplar_init bucket.
+    max_agg_param_job_size: int = 256
     #: The process's device executor (executor.DeviceExecutor): when set,
     #: the HELPER's Prio3 prep_init/combine launches submit through the
     #: same continuous batcher the drivers feed, so the circuit breaker
@@ -736,6 +745,11 @@ class Aggregator:
             # so helper requests coalesce with driver traffic and the
             # circuit breaker guards this path too.
             results = await self._helper_prepare_batch_prio3_executor(ta, decoded)
+        elif self._executor is not None and hasattr(ta.backend, "prep_init_batch_poplar"):
+            # Heavy hitters through the same dispatch plane: the request's
+            # rows coalesce in the agg-param(level)-keyed poplar_init
+            # bucket, under the same breaker.
+            results = await self._helper_prepare_batch_poplar1_executor(ta, decoded, agg_param)
         else:
             # direct (non-executor) path: bind the task cost scope on the
             # worker thread so the backend's measured prepare seconds
@@ -960,13 +974,16 @@ class Aggregator:
     def _helper_prepare_batch(self, ta: TaskAggregator, decoded, agg_param):
         """Batched helper_initialized over the surviving reports.
 
-        Prio3 rides the backend seam (ONE batched device launch); other
-        VDAFs (the multi-round test doubles) step per report through
-        the generic ping-pong topology (reference mirror:
-        aggregator.rs:2022-2040 helper_initialized on rayon)."""
+        Prio3 rides the backend seam (ONE batched device launch), and so
+        does Poplar1 (one walk and one sketch pass); other VDAFs (the
+        multi-round test doubles) step per report through the generic
+        ping-pong topology (reference mirror: aggregator.rs:2022-2040
+        helper_initialized on rayon)."""
         vdaf = ta.vdaf
         if isinstance(vdaf, Prio3):
             return self._helper_prepare_batch_prio3(ta, decoded)
+        if hasattr(ta.backend, "prep_init_batch_poplar"):
+            return self._helper_prepare_batch_poplar1(ta, decoded, agg_param)
         results: Dict[int, object] = {}
         vk = ta.task.vdaf_verify_key
         for idx, (nonce, public_parts, input_share, leader_msg) in decoded:
@@ -987,6 +1004,99 @@ class Aggregator:
                     outbound,
                 )
         return results
+
+    def _helper_prepare_batch_poplar1(self, ta: TaskAggregator, decoded, agg_param):
+        """Heavy hitters through the batched backend: the round-0 IDPF tree
+        walk and sketch run once for the whole job (ops/poplar1_batch.py);
+        the per-report remainder is the combine and transition
+        helper_initialized performs."""
+        vdaf = ta.vdaf
+        results, rows = self._helper_decode_poplar_rows(vdaf, decoded)
+        if not rows:
+            return results
+        prep_out = ta.backend.prep_init_batch_poplar(
+            ta.task.vdaf_verify_key, 1, agg_param, [(n, p, s) for (_, n, p, s, _) in rows]
+        )
+        return self._helper_finish_poplar1(vdaf, agg_param, results, rows, prep_out)
+
+    @staticmethod
+    def _helper_decode_poplar_rows(vdaf, decoded):
+        """Decode the leader's round-0 sketch shares; (errors, rows)."""
+        results: Dict[int, object] = {}
+        rows = []
+        for idx, (nonce, public_parts, input_share, leader_msg) in decoded:
+            try:
+                if leader_msg.variant != pp.PingPongMessage.INITIALIZE:
+                    raise pp.PingPongError("expected initialize message")
+                leader_share = vdaf.ping_pong_decode_prep_share(leader_msg.prep_share, round=0)
+            except (VdafError, pp.PingPongError):
+                results[idx] = PrepareError.VDAF_PREP_ERROR
+                continue
+            rows.append((idx, nonce, public_parts, input_share, leader_share))
+        return results, rows
+
+    @staticmethod
+    def _helper_finish_poplar1(vdaf, agg_param, results, rows, prep_out):
+        """Combine the sketch shares and evaluate the transition a report
+        (the cheap sigma math after the batched walk and sketch)."""
+        for (idx, _n, _p, _s, leader_share), outcome in zip(rows, prep_out):
+            if isinstance(outcome, VdafError):
+                results[idx] = PrepareError.VDAF_PREP_ERROR
+                continue
+            prep_state, helper_share = outcome
+            try:
+                prep_msg = vdaf.ping_pong_prep_shares_to_prep(agg_param, [leader_share, helper_share], round=0)
+                trans = pp.PingPongTransition(prep_state, prep_msg, 0)
+                state, outbound = trans.evaluate(vdaf)
+            except (VdafError, pp.PingPongError):
+                results[idx] = PrepareError.VDAF_PREP_ERROR
+                continue
+            if isinstance(state, pp.PingPongFinished):
+                results[idx] = ("finished", state.out_share, outbound)
+            else:
+                results[idx] = ("continued", vdaf.ping_pong_encode_state(state.prep_state), outbound)
+        return results
+
+    async def _helper_prepare_batch_poplar1_executor(self, ta: TaskAggregator, decoded, agg_param):
+        """Helper Poplar1 prep through the process-wide device executor: the
+        request's rows submit into the agg-param-keyed ``poplar_init``
+        bucket (agg_id=1, the level as discriminant), coalescing with every
+        other helper request at the same tree level.  As on the Prio3
+        helper path, an open circuit and executor backpressure both answer
+        a retryable 503 to the leader; no served row lands on the oracle."""
+        from ..executor import KIND_POPLAR_INIT
+        from ..executor.service import CircuitOpenError, ExecutorOverloadedError
+        from .error import ServiceUnavailable
+
+        vdaf = ta.vdaf
+        shape_key, backend = self._executor_backend_for(ta)
+        task_ident = getattr(getattr(ta.task, "task_id", None), "data", None)
+        loop = asyncio.get_running_loop()
+        if self._executor.circuit_open(shape_key):
+            raise ServiceUnavailable(f"circuit for shape {shape_key[0]} is open")
+        if self._executor.warming(shape_key):
+            await loop.run_in_executor(None, lambda: self._executor.wait_warm(shape_key))
+        results, rows = await loop.run_in_executor(None, lambda: self._helper_decode_poplar_rows(vdaf, decoded))
+        if not rows:
+            return results
+        prep_in = [(nonce, public, share) for (_, nonce, public, share, _) in rows]
+        try:
+            prep_out = await self._executor.submit(
+                shape_key,
+                KIND_POPLAR_INIT,
+                (ta.task.vdaf_verify_key, agg_param, prep_in),
+                backend=backend,
+                agg_id=1,
+                task_ident=task_ident,
+                agg_param_key=getattr(agg_param, "level", None),
+            )
+        except CircuitOpenError as e:
+            raise ServiceUnavailable(f"device circuit open: {e}")
+        except ExecutorOverloadedError as e:
+            raise ServiceUnavailable(f"device executor overloaded: {e}")
+        return await loop.run_in_executor(
+            None, lambda: self._helper_finish_poplar1(vdaf, agg_param, results, rows, prep_out)
+        )
 
     @staticmethod
     def _helper_decode_leader_shares(vdaf, decoded):
@@ -1565,8 +1675,83 @@ class Aggregator:
                     trace_id=trace_id,
                 )
             )
+            if getattr(ta.vdaf, "REQUIRES_AGG_PARAM", False):
+                # Aggregation-parameter VDAFs (Poplar1): the collection
+                # request IS what names the parameter, so aggregation jobs
+                # are created here, re-reading the (never scrubbed) client
+                # reports for each level (the reference gates the analogous
+                # path behind test-util, aggregation_job_creator.rs:741).
+                self._create_agg_param_jobs(tx, ta, ident, req.aggregation_parameter, trace_id=trace_id)
 
         await self.datastore.run_tx_async("create_collection_job", tx_fn)
+
+    def _create_agg_param_jobs(
+        self,
+        tx,
+        ta: TaskAggregator,
+        collection_identifier: bytes,
+        agg_param: bytes,
+        trace_id: Optional[str] = None,
+    ) -> None:
+        """Create aggregation jobs for one (batch, aggregation parameter):
+        the interval's reports not yet aggregated at this level, in jobs
+        of ``max_agg_param_job_size``."""
+        task = ta.task
+        if task.query_type.kind != "TimeInterval":
+            raise BatchInvalid("aggregation-parameter VDAFs support TimeInterval tasks")
+        interval = Interval.get_decoded(collection_identifier)
+        reports = tx.get_client_reports_for_interval(task.task_id, interval, 50000)
+        if not reports:
+            return
+        conflict_key = ta.vdaf.agg_param_conflict_key(agg_param)
+        writer = AggregationJobWriter(
+            task,
+            ta.vdaf,
+            batch_aggregation_shard_count=self.config.batch_aggregation_shard_count,
+            initial_write=True,
+            backend=ta.backend,
+        )
+        params_by_report = tx.get_aggregation_params_by_report_for_interval(task.task_id, interval)
+        fresh = []
+        for report in reports:
+            params = params_by_report.get(report.report_id.data, [])
+            if any(ta.vdaf.agg_param_conflict_key(p) == conflict_key for p in params):
+                continue  # already aggregated at this level
+            fresh.append(report)
+        job_size = max(1, self.config.max_agg_param_job_size)
+        for i in range(0, len(fresh), job_size):
+            chunk = fresh[i : i + job_size]
+            job_id = AggregationJobId.random()
+            start = min(r.time.seconds for r in chunk)
+            end = max(r.time.seconds for r in chunk) + 1
+            job = AggregationJob(
+                task_id=task.task_id,
+                aggregation_job_id=job_id,
+                aggregation_parameter=agg_param,
+                partial_batch_identifier=None,
+                client_timestamp_interval=Interval(Time(start), Duration(end - start)),
+                state=AggregationJobState.IN_PROGRESS,
+                step=AggregationJobStep(0),
+                # collection-driven jobs inherit the collection's trace id
+                trace_id=trace_id,
+            )
+            ras = [
+                ReportAggregation(
+                    task_id=task.task_id,
+                    aggregation_job_id=job_id,
+                    report_id=r.report_id,
+                    time=r.time,
+                    ord=ord_,
+                    state=ReportAggregationState.START_LEADER,
+                    public_share=r.public_share,
+                    leader_extensions=r.leader_extensions,
+                    leader_input_share=r.leader_input_share,
+                    helper_encrypted_input_share=r.helper_encrypted_input_share,
+                )
+                for ord_, r in enumerate(chunk)
+            ]
+            writer.put(job, ras)
+        writer.write(tx)
 
     async def handle_get_collection_job(
         self,

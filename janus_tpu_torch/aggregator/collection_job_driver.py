@@ -43,7 +43,7 @@ from .aggregate_share import compute_aggregate_share
 from .aggregation_job_writer import merge_batch_aggregations
 from .error import InvalidBatchSize
 
-logger = logging.getLogger("janus_tpu.collection_job_driver")
+logger = logging.getLogger("janus_tpu_torch.collection_job_driver")
 
 
 # Strategy types live in core.dp (ZCdpDiscreteGaussian discrete-Gaussian
@@ -520,6 +520,19 @@ class CollectionJobDriver:
                 )
                 for ra in rows
             ]
+            if getattr(vdaf, "REQUIRES_AGG_PARAM", False):
+                # Agg-param VDAFs (Poplar1): replay at the journal row's
+                # OWN parameter — the row carries it precisely so two tree
+                # levels can never cross — re-walking each report's IDPF
+                # share and summing the prefix-value vectors the FINISHED
+                # verdict already vouched for (the sketch verified before
+                # the row was journaled).
+                total = None
+                for nonce, public, share in prep_in:
+                    state, _sh = vdaf.prep_init(task.vdaf_verify_key, 0, agg_param, nonce, public, share)
+                    out = list(state.y_flat)
+                    total = out if total is None else field.vec_add(total, out)
+                return total
             oracle = OracleBackend(vdaf)
             total = None
             for outcome in oracle.prep_init_batch(
@@ -639,7 +652,11 @@ class CollectionJobDriver:
     def _ready(self, tx, task: AggregatorTask, job) -> bool:
         """Readiness gate (reference: :124-262): no unaggregated reports in
         scope and all created aggregation jobs terminated."""
-        if task.query_type.kind == "TimeInterval":
+        vdaf = task.vdaf_instance()
+        if task.query_type.kind == "TimeInterval" and not getattr(vdaf, "REQUIRES_AGG_PARAM", False):
+            # agg-param VDAFs never mark reports aggregated (they are reused
+            # across levels); their jobs are all created with the collection
+            # request, so created==terminated alone gates readiness
             interval = Interval.get_decoded(job.batch_identifier)
             if tx.count_unaggregated_client_reports_for_interval(
                 task.task_id, interval

@@ -506,15 +506,16 @@ class Metrics:
             "LRU/memory-pressure evictions of resident accumulator state",
             registry=self.registry,
         )
-        # Device-resident IDPF (ops/poplar1_batch.py): which backend walks
-        # the Poplar1 AES tree (host AES-NI/soft-AES vs the jax kernel),
-        # and how many device-walked rows had their sketch y vectors
+        # Device-resident IDPF (ops/poplar1_batch.py): the rows the card
+        # walks through the Poplar1 AES tree (the label keeps the JAX
+        # package's series shape; the port serves only "cuda"), and how
+        # many card-walked rows had their sketch y vectors
         # materialized back to host — the device-resident path keeps the
         # readback at 0 (states carry ResidentRefs; drains read ONE vector
         # per level bucket).
         self.poplar_walk_rows = Counter(
             "janus_poplar_walk_rows_total",
-            "Poplar1 IDPF tree-walk rows by AES backend (host|jax)",
+            "Poplar1 IDPF tree-walk rows by AES backend (cuda)",
             ["backend"],
             registry=self.registry,
         )

@@ -17,6 +17,7 @@ from .accumulator import (
 )
 from .service import (
     KIND_COMBINE,
+    KIND_POPLAR_INIT,
     KIND_PREP_INIT,
     CircuitBreaker,
     CircuitOpenError,
@@ -38,6 +39,7 @@ __all__ = [
     "ExecutorConfig",
     "ExecutorOverloadedError",
     "KIND_COMBINE",
+    "KIND_POPLAR_INIT",
     "KIND_PREP_INIT",
     "ResidentRef",
     "StaleAccumulatorDelta",

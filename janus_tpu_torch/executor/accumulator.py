@@ -326,6 +326,11 @@ class DeviceAccumulatorStore:
                 ) from e
             # journal under the SAME lock as the buffer update, so a
             # drain's snapshot can never see the delta without its entry
+            # agg-param planes (Poplar1 sketch matrices) carry their drain
+            # field explicitly — the eviction/drain_all field resolution
+            # for minting faces with no vdaf.flp
+            if bucket.field is None:
+                bucket.field = getattr(mint, "accum_field", None)
             with self._lock:
                 if bucket.buffer_nbytes == 0:
                     bucket.buffer_nbytes = self._buffer_nbytes(bucket.buffer)
@@ -562,7 +567,11 @@ class DeviceAccumulatorStore:
                 t0 = time.monotonic()
                 drained = victim.backend.read_accum_buffer(victim.buffer)
                 self._attribute_drain(victim.key, time.monotonic() - t0)
-                field = victim.field or victim.backend.vdaf.flp.field
+                field = (
+                    victim.field
+                    or getattr(victim.backend, "accum_field", None)
+                    or victim.backend.vdaf.flp.field
+                )
                 victim.spilled_host = (
                     drained
                     if victim.spilled_host is None

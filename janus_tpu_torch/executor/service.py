@@ -3,10 +3,10 @@
 Copy of ``janus_tpu/executor/service.py`` for the PyTorch port.  What
 differs: the warmup builds the CUDA kernels (nvcc) and runs one launch at
 the warmup batch in place of an XLA compile; and the port keeps only what
-its one-card Prio3 backends use, so it has no mesh upgrade, no Poplar1
-submission kind or aggregation-parameter buckets, no canonical-shape twin
-requests and no per-shape quarantine (ROADMAP.md queue 1 items 5, 8 and 9
-bring them back with the callers that need them).
+its one-card backends use, so it has no mesh upgrade, no canonical-shape
+twin requests and no per-shape quarantine (ROADMAP.md queue 1 items 5 and
+9 bring them back with the callers that need them).  The Poplar1
+``poplar_init`` kind and its aggregation-parameter buckets are here.
 
 The chip is one wide pipeline; N concurrent aggregation jobs must not
 carve it into N narrow, contending ones.  Today each driver step
@@ -20,7 +20,7 @@ kernel pool — shaped like an inference-serving continuous batcher:
   other producer of prepare work) enqueues into a process-wide service
   that owns the device.
 * **Bucketed continuous batching**: submissions are grouped per
-  ``(vdaf_shape_key, kind, agg_id)`` bucket and flushed as ONE
+  ``(vdaf_shape_key, kind, agg_id, agg_param_key)`` bucket and flushed as ONE
   pow2-padded mega-batch when the bucket reaches ``flush_max_rows`` or
   its ``flush_window_s`` deadline expires — whichever comes first.
 * **Backend cache + warmup**: backends are shape-keyed and shared by
@@ -61,6 +61,11 @@ logger = logging.getLogger("janus_tpu_torch.executor")
 #: Submission kinds (the "phase" of the bucket key).
 KIND_PREP_INIT = "prep_init"
 KIND_COMBINE = "combine"
+#: Poplar1 heavy-hitters round-0 prepare: payload is (verify_key,
+#: agg_param, reports) and the flush runs ONE IDPF walk + sketch pass per
+#: aggregation parameter (Poplar1Backend.prep_init_multi_poplar).  Buckets
+#: of this kind carry the tree level as their agg-param discriminant.
+KIND_POPLAR_INIT = "poplar_init"
 
 
 class ExecutorOverloadedError(Exception):
@@ -317,16 +322,21 @@ class _Bucket:
         return self.flushed_rows / self.flushes if self.flushes else 0.0
 
 
-def bucket_label(backend, kind: str, agg_id: int, shape_key: tuple = None) -> str:
-    """Compact metric label: circuit/aggregator-side/phase.
+def bucket_label(backend, kind: str, agg_id: int, shape_key: tuple = None, agg_param_key=None) -> str:
+    """Compact metric label: circuit/aggregator-side/phase[/level].
 
     ``shape_key`` appends a stable digest so two parameterizations of the
     same circuit (e.g. Histogram length=4 vs length=1024) never share a
-    label — stats() and the per-bucket gauges key on it."""
+    label — stats() and the per-bucket gauges key on it.  ``agg_param_key``
+    (Poplar1 passes its tree level) renders as an ``L{k}`` segment, so
+    /statusz and the ``janus_executor_*`` series tell which level of a
+    heavy-hitters run a bucket serves."""
     vdaf = getattr(backend, "vdaf", None)
     valid = getattr(getattr(vdaf, "flp", None), "valid", None)
     circuit = type(valid).__name__ if valid is not None else type(vdaf).__name__
     label = f"{circuit}/a{agg_id}/{kind}"
+    if agg_param_key is not None:
+        label += f"/L{agg_param_key}"
     if shape_key is not None:
         label += "#" + _shape_digest(shape_key)
     return label
@@ -587,21 +597,30 @@ class DeviceExecutor:
         deadline_s: Optional[float] = None,
         retain_out_shares: bool = False,
         task_ident: Optional[object] = None,
+        agg_param_key: Optional[object] = None,
     ):
         """Enqueue prepare work; resolves when its mega-batch lands.
 
         kind=KIND_PREP_INIT: payload is (verify_key, report_rows) and the
         result is the per-row List[PrepOutcome].  kind=KIND_COMBINE:
         payload is the prep-share rows and the result is the per-row
-        combine outcomes.  Raises ExecutorOverloadedError on
+        combine outcomes.  kind=KIND_POPLAR_INIT: payload is (verify_key,
+        agg_param, report_rows) and the result is the per-row Poplar1
+        (state, share) outcomes.  Raises ExecutorOverloadedError on
         backpressure.  ``task_ident`` attributes the rows to a task for
         the per-task fairness quota within the bucket (None =
-        unattributed).
+        unattributed).  ``agg_param_key`` is the opaque agg-param bucket
+        discriminant (None for parameter-less VDAFs; Poplar1 passes the
+        tree level): submissions coalesce only within one value, so two
+        rounds of one task never share a mega-batch, while different jobs
+        at one level do.
         """
         if kind == KIND_PREP_INIT:
             rows = len(payload[1])
         elif kind == KIND_COMBINE:
             rows = len(payload)
+        elif kind == KIND_POPLAR_INIT:
+            rows = len(payload[2])
         else:
             raise ValueError(f"unknown submission kind {kind!r}")
         if rows == 0:
@@ -617,7 +636,7 @@ class DeviceExecutor:
         loop = asyncio.get_running_loop()
         now = time.monotonic()
         timeout = self.config.submit_timeout_s if deadline_s is None else deadline_s
-        key = (shape_key, kind, agg_id)
+        key = (shape_key, kind, agg_id, agg_param_key)
         with self._lock:
             bucket = self._buckets.get(key)
             if bucket is None:
@@ -626,7 +645,7 @@ class DeviceExecutor:
                     backend,
                     kind,
                     agg_id,
-                    bucket_label(backend, kind, agg_id, shape_key),
+                    bucket_label(backend, kind, agg_id, shape_key, agg_param_key),
                     breaker=breaker,
                 )
                 self._buckets[key] = bucket
@@ -1022,6 +1041,39 @@ class DeviceExecutor:
                         )
 
                     outs, still = await loop.run_in_executor(launch_pool, launch)
+                elif bucket.kind == KIND_POPLAR_INIT:
+                    # Poplar1 mega-batch: every submission's (verify_key,
+                    # agg_param, reports) payload IS a request row for the
+                    # multi-request walk — submissions sharing an agg param
+                    # (different jobs, one level) run as ONE walk + ONE
+                    # sketch pass with per-row verify keys.  The walk is the
+                    # STAGE half and the sketch the LAUNCH half, on the same
+                    # stage/launch threads as prep_init, so flush k+1's walk
+                    # overlaps flush k's sketch (expired-at-launch rows pay
+                    # the walk, the price of the overlap; their refs release
+                    # in the resolution loop).  Sketch vectors kept on the
+                    # device: when every submission opted in, the
+                    # accumulator store adopts the flush's y matrices and
+                    # states carry ResidentRefs.
+                    if self.accumulator is not None and all(s.retain for s in live):
+                        retain = self.accumulator
+                    t_stage = time.monotonic()
+                    staged = await loop.run_in_executor(
+                        stage_pool,
+                        lambda: bucket.backend.stage_poplar_init_multi(bucket.agg_id, [s.payload for s in live]),
+                    )
+                    t_launch = time.monotonic()
+                    stage_s = t_launch - t_stage
+
+                    def launch():
+                        still = self._reject_expired(bucket, live)
+                        if not still:
+                            return None, []
+                        if retain is not None:
+                            return bucket.backend.launch_poplar_init_multi(staged, retain_store=retain), still
+                        return bucket.backend.launch_poplar_init_multi(staged), still
+
+                    outs, still = await loop.run_in_executor(launch_pool, launch)
                 else:  # KIND_COMBINE: concatenate rows, launch once, slice
                     concat = [row for s in live for row in s.payload]
                     t_launch = time.monotonic()
@@ -1124,6 +1176,7 @@ class DeviceExecutor:
                 not launch_ok
                 and self.config.bisection_enabled
                 and not isinstance(e, faults.FaultInjectedError)
+                and bucket.kind in (KIND_PREP_INIT, KIND_COMBINE)
                 and rows >= 2
             ):
                 # Batch-level failure that is NOT an injected transient:
@@ -1358,8 +1411,8 @@ class DeviceExecutor:
     @staticmethod
     def _release_dropped_refs(store, outcomes) -> None:
         """Release the ResidentRefs inside a dropped submission's prepare
-        outcomes (each is (state, share) or a VdafError); a state carries
-        its ref as ``out_share``."""
+        outcomes (each is (state, share) or a VdafError).  Prio3 states
+        carry the ref as ``out_share``; Poplar1 states as ``y_flat``."""
         from .accumulator import ResidentRef
 
         refs = []
@@ -1367,6 +1420,8 @@ class DeviceExecutor:
             if not isinstance(o, tuple) or not o:
                 continue
             ref = getattr(o[0], "out_share", None)
+            if not isinstance(ref, ResidentRef):
+                ref = getattr(o[0], "y_flat", None)
             if isinstance(ref, ResidentRef):
                 refs.append(ref)
         if refs:

@@ -2,9 +2,11 @@
 
 In the port this is the block cipher under ``utils/gcm.py``'s AES-GCM
 fallback, which HPKE and the datastore's ``Crypter`` run on when the
-`cryptography` package is absent or not functional: a vectorized
-table-based AES encryptor over (N, 16) u8 blocks.  The Poplar1 AES walk
-and its backend seam come with the Poplar1 port.
+`cryptography` package is absent or not functional, and under the host
+walk of Poplar1's IDPF (the reference the card walk is held against): a
+vectorized table-based AES encryptor over (N, 16)
+u8 blocks, and a per-report multikey form over (B, K, 16).  The card
+walk's AES is ``ops/aes.py``.
 
 Performance posture: numpy table lookups run the whole batch per round
 (~20 vector ops per 10-round block set), plenty for tests and scaled
@@ -56,6 +58,9 @@ _MUL3 = _MUL2 ^ np.arange(256, dtype=np.uint8)
 _SHIFT = np.array(
     [(i % 4) + 4 * (((i // 4) + (i % 4)) % 4) for i in range(16)], dtype=np.intp
 )
+#: FIPS-197 appendix C.1: AES-128 of this plaintext under key 00..0f
+_C1_PLAIN = "00112233445566778899aabbccddeeff"
+_C1_CIPHER = "69c4e0d86a7b0430d8cdb78070b4c55a"
 _RCON = (0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40, 0x80, 0x1B, 0x36)
 
 
@@ -122,6 +127,18 @@ def encrypt_blocks(round_keys: np.ndarray, blocks: np.ndarray) -> np.ndarray:
         s = _SBOX[s][:, _SHIFT]
         s = _mix_columns(s) ^ round_keys[rnd]
     return _SBOX[s][:, _SHIFT] ^ round_keys[rounds]
+
+
+def encrypt_blocks_multikey(round_keys: np.ndarray, blocks: np.ndarray) -> np.ndarray:
+    """AES-128 with one key schedule a report: (B, 11, 16) u8 round keys over
+    (B, K, 16) u8 blocks -> (B, K, 16), all reports in one numpy pass."""
+    B, K = blocks.shape[0], blocks.shape[1]
+    rk = np.repeat(np.asarray(round_keys, dtype=np.uint8), K, axis=0)  # (B*K, 11, 16): a block's schedule
+    s = blocks.reshape(B * K, 16) ^ rk[:, 0]
+    for rnd in range(1, 10):
+        s = _SBOX[s][:, _SHIFT]
+        s = _mix_columns(s) ^ rk[:, rnd]
+    return (_SBOX[s][:, _SHIFT] ^ rk[:, 10]).reshape(B, K, 16)
 
 
 class SoftAesCtr:
@@ -192,6 +209,36 @@ def aes128_ctr_encryptor(key: bytes, iv: bytes):
     return SoftAesCtr(key, iv)
 
 
+#: cached known-answer probe of `cryptography`'s AES-ECB (None = not yet)
+_ECB_FUNCTIONAL = None
+
+
+def _ecb_functional() -> bool:
+    global _ECB_FUNCTIONAL
+    if _ECB_FUNCTIONAL is None:
+        try:
+            from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+
+            probe = Cipher(algorithms.AES(bytes(range(16))), modes.ECB()).encryptor()
+            _ECB_FUNCTIONAL = probe.update(bytes.fromhex(_C1_PLAIN)) == bytes.fromhex(_C1_CIPHER)
+        except Exception:
+            _ECB_FUNCTIONAL = False
+    return _ECB_FUNCTIONAL
+
+
+def aes128_ecb_encryptor(key: bytes):
+    """A host AES-128-ECB encryptor (``.update(bytes) -> bytes``):
+    `cryptography`'s when its Cipher passes the FIPS-197 known answer, the
+    numpy ``SoftAes128Ecb`` otherwise.  The per-report oracle
+    (``XofFixedKeyAes128``) and the batched host walk, the reference the
+    card walk is held against, run on it."""
+    if _ecb_functional():
+        from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+
+        return Cipher(algorithms.AES(key), modes.ECB()).encryptor()
+    return SoftAes128Ecb(key)
+
+
 class SoftAes128Ecb:
     """Duck-type of ``Cipher(AES(key), ECB()).encryptor()``: stateless ECB,
     so ``update`` just encrypts every 16-byte block of its input."""
@@ -209,9 +256,7 @@ class SoftAes128Ecb:
 
 
 # -- import-time anchor (FIPS-197 C.1) ---------------------------------------
-_vec = SoftAes128Ecb(bytes(range(16))).update(
-    bytes.fromhex("00112233445566778899aabbccddeeff")
-)
-if _vec != bytes.fromhex("69c4e0d86a7b0430d8cdb78070b4c55a"):  # pragma: no cover
+_vec = SoftAes128Ecb(bytes(range(16))).update(bytes.fromhex(_C1_PLAIN))
+if _vec != bytes.fromhex(_C1_CIPHER):  # pragma: no cover
     raise AssertionError("softaes self-test failed (table corruption)")
 del _vec

@@ -1,4 +1,4 @@
-"""Execution backends for Prio3 preparation: CPU oracle and CUDA batch.
+"""Execution backends for VDAF preparation: CPU oracle and CUDA batch.
 
 Counterpart of ``janus_tpu/vdaf/backend.py`` (``StagedPrepInit``,
 ``OracleBackend``, ``TpuBackend``, ``HybridXofBackend`` and the module
@@ -24,7 +24,9 @@ a device fallback, and ``oracle_recompute_rows`` counts such rows.
 
 A Prio3 whose XOF is not TurboSHAKE128 (the HMAC-SHA256-AES128 multiproof
 SumVec) has no XOF on the card: ``HybridXofBackend`` runs its XOF on the
-host and its FLP query and decide on the card.
+host and its FLP query and decide on the card.  A Poplar1 is served by
+``Poplar1Backend``: the IDPF walk and the sketch of ``ops/poplar1_batch.py``
+behind the executor's ``poplar_init`` kind.
 """
 
 from __future__ import annotations
@@ -672,6 +674,110 @@ class HybridXofBackend:
         return results
 
 
+class Poplar1Oracle:
+    """Scalar per-report Poplar1 prepare: the bit-exact CPU oracle of
+    ``Poplar1Backend`` (the replay of a lost resident row, and the rows the
+    batch's ``ok`` mask flags), as ``OracleBackend`` is for Prio3."""
+
+    name = "poplar1-oracle"
+
+    def __init__(self, vdaf):
+        self.vdaf = vdaf
+        #: rows this oracle prepared
+        self.rows = {"init": 0}
+
+    def prep_init_batch_poplar(self, verify_key, agg_id, agg_param, reports):
+        t0 = time.monotonic()
+        self.rows["init"] += len(reports)
+        out = []
+        for nonce, public_share, input_share in reports:
+            try:
+                out.append(self.vdaf.prep_init(verify_key, agg_id, agg_param, nonce, public_share, input_share))
+            except VdafError as e:
+                out.append(e)
+        _observe_prepare(self.name, "init", len(out), time.monotonic() - t0)
+        return out
+
+
+class Poplar1Backend:
+    """Batched prepare for Poplar1 (heavy hitters): the IDPF tree walk and
+    the sketch inner products on ``device`` — see ``ops/poplar1_batch.py``.
+    Through the device executor it serves the ``poplar_init`` submission
+    kind: mega-batches whose bucket carries the aggregation parameter's
+    tree level, so the jobs of one level coalesce into one walk and one
+    sketch pass (``prep_init_multi_poplar``).  The walk never degrades to
+    the host walk or the oracle: with no card it raises.  Its flushes may
+    keep the sketch vectors on the device (``retain_store``)."""
+
+    name = "poplar1-batch"
+
+    def __init__(self, vdaf, device="cuda"):
+        from ..ops.poplar1_batch import BatchedPoplar1
+
+        self.vdaf = vdaf
+        self.device = torch.device(device)
+        self.bp = BatchedPoplar1(vdaf, device=self.device)
+        #: the bit-exact per-report CPU oracle (the ``ok``-mask rows and the
+        #: replay of lost resident rows use the VDAF's own prep_init)
+        self.oracle = Poplar1Oracle(vdaf)
+
+    @property
+    def sketch_readback_rows(self) -> int:
+        """Rows whose y vectors were read back to the host (0 on the
+        device-resident path)."""
+        return self.bp.sketch_readback_rows
+
+    @property
+    def oracle_recompute_rows(self) -> int:
+        """Rows the ``ok`` mask flagged, prepared by the oracle."""
+        return self.bp.oracle_recompute_rows
+
+    def oracle_for(self, vdaf=None) -> "Poplar1Oracle":
+        """Uniform fallback-resolution face (``oracle_backend_for``)."""
+        return self.oracle
+
+    def prep_init_batch_poplar(self, verify_key, agg_id, agg_param, reports):
+        """Batched round-0 prep: per-report (state, share), oracle parity."""
+        return self.prep_init_multi_poplar(agg_id, [(verify_key, agg_param, reports)])[0]
+
+    def stage_poplar_init_multi(self, agg_id, requests):
+        """The WALK half of a poplar flush: the IDPF eval per agg-param
+        group, value shares staged on the card.  Runs
+        on the executor's staging thread so walk k+1 overlaps sketch k."""
+        return self.bp.stage_init_multi(agg_id, requests)
+
+    def launch_poplar_init_multi(self, staged, retain_store=None):
+        """The SKETCH half: the device inner products and state assembly
+        over a staged walk.  The named fault points fire here, so the
+        per-shape breaker treats a sick sketch as a sick launch.
+        ``retain_store`` (the accumulator store) adopts the walked y
+        matrices: states then carry ResidentRefs and the flush pays no
+        sketch readback."""
+        faults.fire("backend.launch")
+        faults.fire("backend.device_lost")
+        rows = sum(len(r) for _p, _i, _c, _v, r, _w in staged.groups)
+        from ..core.metrics import GLOBAL_METRICS
+        from ..core.trace import trace_span
+
+        if GLOBAL_METRICS.registry is not None:
+            GLOBAL_METRICS.device_launches.labels(backend=self.name).inc()
+            GLOBAL_METRICS.device_reports.labels(backend=self.name).inc(rows)
+        t0 = time.monotonic()
+        with trace_span("prep_launch", cat="device", backend=self.name, batch=rows):
+            out = self.bp.launch_init_multi(staged, retain_store=retain_store)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        _observe_prepare(self.name, "init", rows, time.monotonic() - t0)
+        return out
+
+    def prep_init_multi_poplar(self, agg_id, requests, retain_store=None):
+        """One walk and one sketch pass for rows of several jobs
+        (``requests``: (verify_key, agg_param, reports) a submission — the
+        executor's poplar_init flush form), composed from the stage and
+        launch halves."""
+        return self.launch_poplar_init_multi(self.stage_poplar_init_multi(agg_id, requests), retain_store=retain_store)
+
+
 BACKENDS = {"oracle": OracleBackend, "cuda": CudaBackend}
 
 
@@ -718,12 +824,15 @@ def device_supported(vdaf) -> Tuple[bool, str]:
     Prio3 whose XOF is not TurboSHAKE128 is served by ``HybridXofBackend``
     (host XOF, card FLP); any number of proofs is served.
 
+    A Poplar1 is served by ``Poplar1Backend`` (the IDPF walk and the
+    sketch on the card).
+
     Duck-typed (a Prio3 is anything with an ``flp``), so it classifies the
     reference's VDAF objects too."""
     if getattr(vdaf, "flp", None) is None:
         name = type(vdaf).__name__
         if name == "Poplar1":
-            return False, "Poplar1 has no device path in the port yet (ROADMAP.md queue 1)"
+            return True, ""
         return False, f"{name} is not a Prio3 VDAF"
     circuit = type(vdaf.flp.valid).__name__
     if circuit not in DEVICE_CIRCUITS:
@@ -744,6 +853,8 @@ def device_path_label(vdaf) -> str:
     ok, reason = device_supported(vdaf)
     if not ok:
         return f"cpu-oracle ({reason})"
+    if type(vdaf).__name__ == "Poplar1":
+        return "poplar1-batch: IDPF walk + sketch on the card, executor kind=poplar_init (level-keyed buckets)"
     if _host_xof(vdaf):
         return "cuda-hybrid: host XOF + card FLP, no executor (direct prep_init/combine)"
     if type(vdaf.flp.valid).__name__ == "FixedPointBoundedL2VecSum":
@@ -753,11 +864,12 @@ def device_path_label(vdaf) -> str:
 
 def make_backend(vdaf, backend: str = "cuda", device=None):
     """Backend factory: ``"cuda"`` (the default, on ``device``, the card
-    unless the caller names another: ``CudaBackend``, or for a Prio3 whose
-    XOF is not TurboSHAKE128 ``HybridXofBackend``) or ``"oracle"`` (the CPU
-    oracle, only when named).  An unknown name raises VdafError, and so does
-    ``"cuda"`` with no card to run on: there is no quiet fallback to the
-    oracle."""
+    unless the caller names another: ``CudaBackend``, for a Prio3 whose
+    XOF is not TurboSHAKE128 ``HybridXofBackend``, for a Poplar1
+    ``Poplar1Backend``) or ``"oracle"``
+    (the CPU oracle, only when named).  An unknown name raises VdafError,
+    and so does ``"cuda"`` with no card to run on: there is no quiet
+    fallback to the oracle."""
     if backend not in BACKENDS:
         raise VdafError(f"unknown backend {backend!r}")
     if backend == "oracle":
@@ -765,6 +877,8 @@ def make_backend(vdaf, backend: str = "cuda", device=None):
     device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise VdafError("the cuda backend needs a CUDA card, and none is available")
+    if type(vdaf).__name__ == "Poplar1":
+        return Poplar1Backend(vdaf, device=device)
     if _host_xof(vdaf):
         return HybridXofBackend(vdaf, device=device)
     return CudaBackend(vdaf, device=device)

@@ -2,11 +2,11 @@
 and ``vdaf_dispatch!`` gate (reference: core/src/vdaf.rs:65-108, 516-532).
 
 Each constructor returns a configured ``Prio3`` over the port's own FLP and
-XOF copies.  The registry maps the serialized instance description (as
-stored in the task model / DB ``tasks.vdaf`` column) to a constructor; the
-execution backend (the card's ``CudaBackend`` or ``HybridXofBackend``, or
-the CPU oracle) is chosen for the result by ``aggregator.resolve_backend``.
-Poplar1 raises ``VdafError`` until its slice lands (ROADMAP queue 1).
+XOF copies, or a ``Poplar1``.  The registry maps the serialized instance
+description (as stored in the task model / DB ``tasks.vdaf`` column) to a
+constructor; the execution backend (the card's ``CudaBackend``,
+``HybridXofBackend`` or ``Poplar1Backend``, or the CPU oracle) is chosen
+for the result by ``aggregator.resolve_backend``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from .prio3 import (
     ALG_PRIO3_SUMVEC,
     ALG_PRIO3_SUMVEC_FIELD64_MULTIPROOF_HMACSHA256_AES128,
     Prio3,
-    VdafError,
 )
 
 # Verify-key sizes, as in the reference (core/src/vdaf.rs:16,24).
@@ -95,8 +94,10 @@ def prio3_fixedpoint_bounded_l2_vec_sum(
     )
 
 
-def _poplar1(**_params):
-    raise VdafError("Poplar1 is not in the port yet (ROADMAP queue 1 item 8)")
+def _poplar1(bits: int):
+    from .poplar1 import Poplar1
+
+    return Poplar1(bits)
 
 
 def _fake(rounds: int = 1):

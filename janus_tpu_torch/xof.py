@@ -1,5 +1,5 @@
-"""TurboSHAKE128, ``XofTurboShake128`` and ``XofHmacSha256Aes128`` — the
-bit-exact CPU oracles of the Prio3 XOFs.
+"""TurboSHAKE128, ``XofTurboShake128``, ``XofFixedKeyAes128`` and
+``XofHmacSha256Aes128`` — the bit-exact CPU oracles of the VDAF XOFs.
 
 Implements the TurboSHAKE128 sponge (Keccak-p[1600,12], rate 168, domain
 separation byte) and the Prio3 XOF built on it (draft-irtf-cfrg-vdaf-08
@@ -8,11 +8,14 @@ Keccak kernels in ``janus_tpu_torch.ops.keccak_kernels`` are held against,
 and the per-row path the CUDA backend takes for rows the device flagged.
 ``XofHmacSha256Aes128`` is libprio-rs's non-standard XOF of the HMAC
 multiproof VDAF (Daphne interop); it has no device twin and runs on the
-host for ``HybridXofBackend``.
+host for ``HybridXofBackend``.  ``XofFixedKeyAes128`` is the IDPF tree
+walk's XOF (draft-irtf-cfrg-vdaf-08 §6.2.2); the batched walks in
+``janus_tpu_torch.ops.poplar1_batch`` are held against it.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List
 
 from .fields import next_power_of_2
@@ -160,6 +163,53 @@ class XofTurboShake128(Xof):
 
     def next(self, length: int) -> bytes:
         return self._sponge.squeeze(length)
+
+
+@lru_cache(maxsize=4096)
+def _fixed_key_aes128(dst: bytes, binder: bytes) -> bytes:
+    """The AES key of one (dst, binder) context: TurboSHAKE128 with domain
+    byte 2 over len(dst) || dst || binder."""
+    return turboshake128(bytes([len(dst)]) + dst + binder, 0x02, 16)
+
+
+class XofFixedKeyAes128(Xof):
+    """Fixed-key AES-128 XOF for the IDPF tree walk (draft-irtf-cfrg-vdaf-08
+    §6.2.2): one TurboSHAKE-derived AES key per (dst, binder) context, then
+    stream block i = hash_block(seed XOR le128(i)) with
+    hash_block(x) = AES128(k, sigma(x)) XOR sigma(x),
+    sigma(x_L || x_R) = x_R || (x_L XOR x_R).
+
+    The block cipher is always the host's (``cryptography`` where it works,
+    the numpy soft AES otherwise): this is the per-report oracle; the
+    batched walk runs its AES on the card (``ops/aes.py``)."""
+
+    SEED_SIZE = 16
+
+    def __init__(self, seed: bytes, dst: bytes, binder: bytes):
+        from .utils.softaes import aes128_ecb_encryptor
+
+        if len(seed) != self.SEED_SIZE:
+            raise ValueError("bad seed size")
+        if len(dst) > 255:
+            raise ValueError("dst too long")
+        # the key depends only on (dst, binder): two values per report for
+        # a whole IDPF walk, so the TurboSHAKE derivation is cached
+        self._enc = aes128_ecb_encryptor(_fixed_key_aes128(dst, binder))
+        self._seed = seed
+        self._index = 0
+        self._buf = b""
+
+    def _hash_block(self, x: bytes) -> bytes:
+        sigma = x[8:] + bytes(a ^ b for a, b in zip(x[:8], x[8:]))
+        return bytes(a ^ b for a, b in zip(self._enc.update(sigma), sigma))
+
+    def next(self, length: int) -> bytes:
+        while len(self._buf) < length:
+            block = bytes(a ^ b for a, b in zip(self._seed, self._index.to_bytes(16, "little")))
+            self._buf += self._hash_block(block)
+            self._index += 1
+        out, self._buf = self._buf[:length], self._buf[length:]
+        return out
 
 
 class XofHmacSha256Aes128(Xof):

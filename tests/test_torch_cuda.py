@@ -427,3 +427,89 @@ def test_small_pair_on_the_card(card, family):
     reports, meas = chip_smoke.shard_reports(vdaf_from_instance(desc), rng, measure, 6)
     rec = chip_smoke.pair_run(name, desc, list(zip(meas, reports)), [False] * 5 + [True], expect, bytes(16), needs)
     assert rec["report_count"] == 5
+
+
+def _poplar_rows(bits, count, seed):
+    import random
+
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1
+
+    vdaf = Poplar1(bits)
+    rng = random.Random(seed)
+    rows = []
+    for _ in range(count):
+        nonce = rng.randbytes(16)
+        public, shares = vdaf.shard(rng.randrange(1 << bits), nonce, rng.randbytes(vdaf.RAND_SIZE))
+        rows.append((nonce, public, shares))
+    return vdaf, rows
+
+
+@pytest.mark.parametrize("bits,level,prefixes", [(8, 4, 16), (8, 7, 32), (64, 63, 8)])
+def test_poplar1_card_walk_matches_the_host_walk(card, bits, level, prefixes):
+    """Poplar1's card walk (AES and sketch on the card) against the host
+    walk on the CPU on every row of both sides, at Field64 levels and at
+    the leaf (Field255), over ``prefixes`` distinct prefixes spread over
+    the level, with no row sent to the oracle."""
+    from janus_tpu_torch.ops.poplar1_batch import BatchedPoplar1
+    from janus_tpu_torch.vdaf.backend import make_backend
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1AggregationParam
+
+    vdaf, rows = _poplar_rows(bits, 64, seed=bits + level)
+    step = (1 << (level + 1)) // prefixes
+    ap = Poplar1AggregationParam(level, tuple(range(step // 2, 1 << (level + 1), step)))
+    assert len(ap.prefixes) == prefixes
+    on_card = make_backend(vdaf, "cuda", device=card)
+    on_host = BatchedPoplar1(vdaf, device="cpu")
+    for a in (0, 1):
+        reports = [(n, p, s[a]) for n, p, s in rows]
+        got = on_card.prep_init_batch_poplar(b"\x2a" * 16, a, ap, reports)
+        want = on_host.prep_init_batch_host(b"\x2a" * 16, a, ap, reports)
+        for (gs, gsh), (ws, wsh) in zip(got, want):
+            assert gsh.encode() == wsh.encode() and gs.y_flat == ws.y_flat
+    assert on_card.oracle_recompute_rows == 0 and on_card.oracle.rows["init"] == 0
+
+
+def test_poplar1_resident_executor_flush_on_the_card(card):
+    """One poplar_init flush of the card walk with the accumulator keeps
+    its sketch vectors on the card (ResidentRefs, no readback), and the
+    committed rows drain to the host walk's sum."""
+    import asyncio
+
+    from janus_tpu_torch.executor import (
+        KIND_POPLAR_INIT,
+        AccumulatorConfig,
+        DeviceExecutor,
+        ExecutorConfig,
+        ResidentRef,
+    )
+    from janus_tpu_torch.vdaf.backend import make_backend, vdaf_shape_key
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1AggregationParam
+
+    vdaf, rows = _poplar_rows(16, 64, seed=3)
+    ap = Poplar1AggregationParam(15, tuple(sorted({m for m in range(0, 1 << 16, 4096)})))
+    backend = make_backend(vdaf, "cuda", device=card)
+    reports = [(n, p, s[0]) for n, p, s in rows]
+    ex = DeviceExecutor(ExecutorConfig(accumulator=AccumulatorConfig(enabled=True, drain_interval_s=3600.0)))
+
+    async def go():
+        return await asyncio.gather(*[
+            ex.submit(vdaf_shape_key(vdaf), KIND_POPLAR_INIT, (b"\x2a" * 16, ap, reports[j::4]), backend=backend,
+                      agg_id=0, retain_out_shares=True, agg_param_key=ap.level)
+            for j in range(4)
+        ])
+
+    try:
+        outs = [o for job in asyncio.run(go()) for o in job]
+        refs = [st.y_flat for st, _sh in outs]
+        assert all(isinstance(r, ResidentRef) for r in refs)
+        store = ex.accumulator
+        store.commit_rows(("t",), backend, refs, job_token=0, report_ids=[bytes([i]) for i in range(len(refs))])
+        got = store.drain(("t",), vdaf.field_for_agg_param(ap))[0]
+    finally:
+        ex.shutdown()
+    order = [r for j in range(4) for r in reports[j::4]]
+    want = [0] * len(ap.prefixes)
+    field = vdaf.field_for_agg_param(ap)
+    for st, _sh in backend.bp.prep_init_batch_host(b"\x2a" * 16, 0, ap, order):
+        want = field.vec_add(want, st.y_flat)
+    assert got == want and backend.sketch_readback_rows == 0

@@ -29,6 +29,9 @@ def _forbidden(name: str) -> bool:
 def test_importing_the_port_loads_no_jax_or_janus_tpu():
     mods = _modules()
     assert "janus_tpu_torch.vdaf.backend" in mods and "janus_tpu_torch.ops.prepare" in mods
+    # the Poplar1 slice's modules
+    for m in ("ops.aes", "ops.poplar1_batch", "vdaf.idpf", "vdaf.poplar1"):
+        assert f"janus_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -49,6 +49,21 @@ FAMILIES = {
 }
 VALID = 5
 
+#: Poplar1 heavy hitters: ``VALID`` 4-bit values (and one report whose
+#: leader IDPF key is flipped), collected at level 1 over every 2-bit
+#: prefix and then at the leaf over the values whose prefix recurs
+POPLAR_DESC = {"type": "Poplar1", "bits": 4}
+POPLAR_VALUES = [0b1011, 0b0100, 0b1011, 0b1110, 0b1011]
+POPLAR_LEVELS = [(1, (0b00, 0b01, 0b10, 0b11)), (3, (0b1011, 0b1110))]
+#: the port leader's deferred-drain interval, seconds: longer than a
+#: level's job steps, so that no bucket drains while a job still commits
+POPLAR_DRAIN_S = 0.2
+
+
+def poplar_counts(values, bits, level, prefixes):
+    """The plain count of ``values`` under each ``level`` prefix."""
+    return [sum(1 for m in values if m >> (bits - 1 - level) == p) for p in prefixes]
+
 
 def jax_oracle_aggregate(desc, measurements):
     """The JAX package's CPU oracle over ``measurements``: shard, prepare
@@ -79,9 +94,11 @@ def reports_for(vdaf, desc_rng, task, leader_cfg, helper_cfg, n_valid, measure, 
         m = measure(desc_rng)
         rid = ReportId.random()
         public, shares = vdaf.shard(m, rid.data, secrets.token_bytes(vdaf.RAND_SIZE))
-        if i == n_valid:
+        if i == n_valid and hasattr(vdaf, "flp"):
             f = vdaf.flp.field
             shares[0].meas_share = [(shares[0].meas_share[0] + 1) % f.MODULUS] + list(shares[0].meas_share[1:])
+        elif i == n_valid:  # Poplar1: the leader's IDPF key, flipped
+            shares[0].idpf_key = bytes(b ^ 0x5A for b in shares[0].idpf_key)
         else:
             meas.append(m)
         reports.append(seal_report(vdaf, task, leader_cfg, helper_cfg, rid, t, public, shares))
@@ -100,6 +117,9 @@ class Pair:
         self.transport = transport
         self.oracle = oracle
         self.executors = {}
+        #: accumulator-journal rows the leader's collection driver
+        #: recomputed on the oracle (a drain that came too late)
+        self.journal_replays = 0
         #: each port side's backend of the task after the run: the one its
         #: executor caches, else (a backend with no executor surface, which
         #: the helper calls directly) its task aggregator's
@@ -113,14 +133,21 @@ class Pair:
         agg_mod = self._mod(side, "aggregator")
         ds = self._mod(side, "datastore.test_util").EphemeralDatastore(clock)
         kw = {"max_upload_batch_write_delay": 0.01}
+        if self.desc["type"] == "Poplar1":
+            kw["max_agg_param_job_size"] = 2  # several jobs a level
         if pkg == "janus_tpu":
             kw["vdaf_backend"] = "oracle"
         elif self.oracle:
             kw["vdaf_backend"] = "oracle"
         else:
             ex = importlib.import_module("janus_tpu_torch.executor")
+            acc = {"enabled": True}
+            if self.desc["type"] == "Poplar1":
+                # deferred drains: the leader keeps its sketch vectors on
+                # the device across the WAITING_LEADER hop
+                acc["drain_interval_s"] = POPLAR_DRAIN_S
             self.executors[side] = ex.DeviceExecutor(
-                ex.ExecutorConfig(flush_window_s=0.001, accumulator=ex.AccumulatorConfig(enabled=True))
+                ex.ExecutorConfig(flush_window_s=0.001, accumulator=ex.AccumulatorConfig(**acc))
             )
             kw.update(vdaf_device="cpu", device_executor=self.executors[side])
         return ds, agg_mod.Aggregator(ds.datastore, clock, agg_mod.Config(**kw))
@@ -152,7 +179,11 @@ class Pair:
             role=M.Role.HELPER, aggregator_auth_token_hash=auth.new_bearer(AGG_TOKEN).hash(), **common
         )
 
-    async def run(self, measure, seed, tamper=True):
+    async def run(self, measure, seed, tamper=True, agg_params=None):
+        """Upload, aggregate and collect once; or, with ``agg_params``
+        (Poplar1), collect once a parameter, each collection creating its
+        level's aggregation jobs.  Returns (result or results, valid
+        measurements)."""
         from janus_tpu_torch.messages import TaskId
 
         clock_mod = self._mod("leader", "core.time")
@@ -198,7 +229,8 @@ class Pair:
                         f"{urls['leader'].rstrip('/')}/tasks/{self.task_id}/reports", data=report.get_encoded()
                     ) as resp:
                         assert resp.status == 201, await resp.text()
-                await self._aggregate(lds, session_factory)
+                if agg_params is None:
+                    await self._aggregate(lds, session_factory)
                 collector = Collector(
                     task_id=self.task_id,
                     leader_endpoint=urls["leader"],
@@ -210,9 +242,23 @@ class Pair:
                 )
                 start = NOW - NOW % TIME_PRECISION
                 query = Query.new_time_interval(Interval(Time(start), Duration(TIME_PRECISION)))
-                result, _ = await asyncio.gather(
-                    collector.collect(query, session=session), self._collect_jobs(lds, session_factory)
-                )
+                if agg_params is None:
+                    result, _ = await asyncio.gather(
+                        collector.collect(query, session=session), self._collect_jobs(lds, session_factory)
+                    )
+                else:
+                    result = []
+                    for param in agg_params:
+                        done = asyncio.Event()
+
+                        async def collect(param=param, done=done):
+                            try:
+                                return await collector.collect(query, param, session=session)
+                            finally:
+                                done.set()
+
+                        got, _ = await asyncio.gather(collect(), self._drive(lds, session_factory, clock, done))
+                        result.append(got)
             finally:
                 await session.close()
             from janus_tpu_torch.vdaf.backend import vdaf_shape_key
@@ -259,6 +305,52 @@ class Pair:
         finally:
             await driver.close()
 
+    async def _drive(self, lds, session_factory, clock, done):
+        """Step the leader's aggregation jobs (concurrently, so that the
+        jobs of one level coalesce in the executor) and its collection
+        jobs until the collector has its result."""
+        agg_mod = self._mod("leader", "aggregator")
+        retries = self._mod("leader", "core.retries")
+        Duration_ = self._mod("leader", "messages").Duration
+        kw = {"http_retry": retries.HttpRetryPolicy(0.01, 0.1, 2.0, 2.0, 3)}
+        if self.pkgs["leader"] == "janus_tpu" or self.oracle:
+            kw["vdaf_backend"] = "oracle"
+        else:
+            kw.update(vdaf_device="cpu", device_executor=self.executors["leader"])
+        driver = agg_mod.AggregationJobDriver(lds.datastore, session_factory, agg_mod.DriverConfig(**kw))
+        coll = agg_mod.CollectionJobDriver(lds.datastore, session_factory)
+        replay = coll._replay_journal_entry
+
+        async def counted_replay(*args):
+            self.journal_replays += 1
+            return await replay(*args)
+
+        coll._replay_journal_entry = counted_replay
+        try:
+            for _ in range(40):
+                await asyncio.sleep(0.02)
+                if done.is_set():
+                    break
+                leases = await lds.datastore.run_tx_async(
+                    "acquire", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration_(600), 10)
+                )
+                await asyncio.gather(*(driver.step_aggregation_job(lease) for lease in leases))
+                clock.advance(Duration_(30))
+                if leases:
+                    continue
+                # the level's jobs have all finished: its deferred bucket
+                # comes due and drains before the collection job runs
+                await asyncio.sleep(POPLAR_DRAIN_S)
+                await driver.run_accumulator_maintenance()
+                leases = await lds.datastore.run_tx_async(
+                    "acquire_coll", lambda tx: tx.acquire_incomplete_collection_jobs(Duration_(600), 10)
+                )
+                for lease in leases:
+                    await coll.step_collection_job(lease)
+        finally:
+            await driver.close()
+            await coll.close()
+
     async def _collect_jobs(self, lds, session_factory):
         agg_mod = self._mod("leader", "aggregator")
         Duration_ = self._mod("leader", "messages").Duration
@@ -279,9 +371,9 @@ class Pair:
             ex.shutdown()
 
 
-def run_pair(pair, measure, seed, tamper=True):
+def run_pair(pair, measure, seed, tamper=True, agg_params=None):
     try:
-        return asyncio.run(pair.run(measure, seed, tamper))
+        return asyncio.run(pair.run(measure, seed, tamper, agg_params))
     finally:
         pair.shutdown()
 
@@ -328,6 +420,55 @@ def test_mixed_pair_collects_the_same_aggregate(family, leader_pkg, helper_pkg):
     result, meas = run_pair(pair, measure, seed=7)
     assert result.report_count == len(meas) == VALID
     assert result.aggregate_result == jax_oracle_aggregate(desc, meas)
+
+
+POPLAR_PAIRS = [
+    ("janus_tpu_torch", "janus_tpu_torch", "inproc"),
+    ("janus_tpu_torch", "janus_tpu_torch", "aiohttp"),
+    ("janus_tpu_torch", "janus_tpu", "aiohttp"),
+    ("janus_tpu", "janus_tpu_torch", "aiohttp"),
+]
+
+
+@pytest.mark.parametrize("leader_pkg,helper_pkg,transport", POPLAR_PAIRS)
+def test_poplar1_pair_collects_prefix_counts(leader_pkg, helper_pkg, transport):
+    """Poplar1 heavy hitters through the port's pair (in process and over
+    aiohttp) and both mixed pairs: each collection creates its level's
+    aggregation jobs (two reports a job), the port's sides prepare through
+    ``Poplar1Backend`` behind their executor (the card walk on CPU
+    tensors), the JAX package's sides on its oracle, and the prefix counts
+    at level 1 and at the leaf are the plain counts of the honest values
+    (the report with a flipped key is rejected at both levels).  The
+    port's executors show the level-keyed ``poplar_init`` buckets with
+    jobs coalesced and no row on the oracle; the port's leader keeps its
+    sketch vectors on the device (no readback), and its deferred level
+    buckets drain before each collection."""
+    from janus_tpu_torch.vdaf.backend import Poplar1Backend
+    from janus_tpu_torch.vdaf.poplar1 import Poplar1AggregationParam
+
+    vdaf = vdaf_from_instance(POPLAR_DESC)
+    params = [vdaf.encode_agg_param(Poplar1AggregationParam(lvl, pre)) for lvl, pre in POPLAR_LEVELS]
+    values = iter(POPLAR_VALUES + [0])
+    pair = Pair(POPLAR_DESC, leader_pkg, helper_pkg, transport)
+    results, meas = run_pair(pair, lambda r: next(values), seed=11, agg_params=params)
+    assert meas == POPLAR_VALUES
+    for (level, prefixes), result in zip(POPLAR_LEVELS, results):
+        assert result.report_count == VALID
+        assert result.aggregate_result == poplar_counts(meas, 4, level, prefixes)
+    for side, ex in pair.executors.items():
+        backend = pair.backends[side]
+        assert isinstance(backend, Poplar1Backend) and backend.device.type == "cpu", side
+        assert backend.oracle_recompute_rows == 0 and backend.oracle.rows["init"] == 0, side
+        stats = ex.stats()
+        for level, _p in POPLAR_LEVELS:
+            label = [k for k in stats if f"/poplar_init/L{level}#" in k]
+            assert len(label) == 1, (side, level, list(stats))
+            assert stats[label[0]]["flushed_jobs"] >= stats[label[0]]["flushes"] >= 1, (side, stats[label[0]])
+    if "leader" in pair.executors:
+        assert pair.backends["leader"].sketch_readback_rows == 0
+        store = pair.executors["leader"].accumulator
+        assert store.spills >= len(POPLAR_LEVELS) and pair.journal_replays == 0
+        assert store.drain_readback_rows >= len(POPLAR_LEVELS)
 
 
 def test_multiround_fake_vdaf_pair():
