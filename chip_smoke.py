@@ -149,7 +149,25 @@ them:
     the plain count of the uploads, both sides' ``poplar_init/L7`` and
     ``/L15`` buckets flushed more jobs than flushes, no row goes to the
     oracle, no breaker trips, the leader reads no sketch vector back and
-    no journal row is left.
+    no journal row is left.  Each collection job is stepped as soon as its
+    level's jobs are, with no wait for the deferred drain: the collection
+    step leaves young journal rows to the drain and asks again, and no row
+    may be replayed on the oracle;
+18. **The service binaries**: five processes of ``python -m
+    janus_tpu_torch.binaries`` (the leader's and the helper's aggregator,
+    the creator, the aggregation-job driver with the deferred accumulator
+    and the collection-job driver; each side its own SQLite file, real
+    localhost HTTP) serve one Prio3Histogram(1024, 316) task provisioned
+    by ``janus_cli``: 1,024 reports and 8 tampered ones uploaded through
+    the port's client, collected by the ``collect`` binary as soon as the
+    jobs are stepped.  The aggregate and report count are exact; the
+    driver's and the helper's /metrics count cuda prepares of every report
+    and no fallback; no journal row is replayed or left; both executor
+    processes hold the card and launch K1-K3 after their warmup (their
+    /statusz launch counts); /statusz shows the Histogram buckets and the
+    card; SIGTERM stops all five with exit 0.  Startup-to-ready seconds,
+    upload/s, seconds from the first upload to the collected aggregate and
+    the flush counts are printed.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -246,13 +264,25 @@ POPLAR_INNER_LEVEL, POPLAR_PREFIXES, POPLAR_TAMPERED, POPLAR_JOBS = 8, 64, 8, 4
 POPLAR_WIDE_BITS, POPLAR_WIDE_DISTINCT, POPLAR_WIDE_ROWS, POPLAR_WIDE_SAMPLED = 256, 16, 256, 4
 #: Phase 17: the pair's aggregation-job size, its two collection levels,
 #: the count a level-7 prefix needs for its leaves to be collected, and
-#: the leader's deferred-drain interval (seconds; longer than a level's
-#: job steps, so no bucket drains while a job is still committing into it).
+#: the leader's deferred-drain interval, seconds (the collection step asks
+#: again until the drain has run).
 POPLAR_PAIR_JOB_SIZE, POPLAR_PAIR_LEVELS, POPLAR_THRESHOLD = 256, (7, 15), 16
 POPLAR_DRAIN_S = 2.0
 #: Phase 17's executor flush window, seconds (a flush closes earlier once
 #: it holds every report of the level).
 POPLAR_FLUSH_WINDOW_S = 1.0
+#: Phase 18, the service binaries: reports uploaded beyond phase 13's 512
+#: histogram shards (sharded in the phase by FLEET_SHARD_WORKERS worker
+#: processes while the binaries start), the tampered ones among them, the
+#: creator's job size and cadence, the driver's deferred-drain interval and
+#: maintenance cadence, the executors' warmup batch and flush window, and
+#: the seconds the fleet has to become ready and to collect.
+FLEET_REPORTS, FLEET_TAMPERED, FLEET_SHARD_WORKERS = 1024, 8, 6
+FLEET_JOB_SIZE, FLEET_CREATE_S, FLEET_DRAIN_S, FLEET_MAINTENANCE_S = 256, 0.5, 1.0, 0.25
+FLEET_WARMUP_ROWS, FLEET_FLUSH_WINDOW_MS, FLEET_TIMEOUT_S = 1024, 20, 300.0
+#: The five binaries of phase 18 and the binary each runs.
+FLEET = {"leader": "aggregator", "helper": "aggregator", "creator": "aggregation_job_creator",
+         "driver": "aggregation_job_driver", "collection": "collection_job_driver"}
 #: Where the paths run (the card; a CPU rehearsal of the script sets "cpu").
 DEVICE = "cuda"
 #: Largest |kernel - plain| allowed over u32 words: the arithmetic is exact
@@ -310,6 +340,9 @@ KECCAK_ROUND_DEPTH = 5
 ALU_DEPENDENT_CYCLES = 4
 
 KERNEL_NAMES = ("keccak_squeeze", "keccak_absorb", "flp_wire_evals", "flp_combine_decide", "flp_sumvec_wires")
+#: Each kernel's wrapper as ``/statusz`` names it (core/statusz.py).
+STATUSZ_KERNELS = dict(zip(("keccak_kernels.squeeze", "keccak_kernels.absorb", "flp_kernels.wire_evals",
+                            "flp_kernels.combine_decide", "flp_kernels.sumvec_wires"), KERNEL_NAMES))
 #: Each launch counter's kernel, as torch.profiler names its device events.
 DEVICE_KERNELS = dict(zip(KERNEL_NAMES, ("squeeze_kernel", "absorb_kernel", "wire_kernel", "combine_kernel", "sumvec_kernel")))
 #: Small kernels a trace runs before the calls it measures: late in a long
@@ -571,15 +604,15 @@ def sumvec_bits_shard_job(seed: int, worker: int, count: int):
     return list(zip(meas, reports))
 
 
-def histogram_shard_job(seed: int, worker: int, count: int):
-    """``count`` distinct Prio3Histogram(1024, 316) reports sharded by the
-    port's oracle (run in a worker process): [(measurement, (nonce, public
-    share, input shares))]."""
+def histogram_shard_job(seed: int, worker: int, count: int, length: int = LENGTH, chunk: int = CHUNK):
+    """``count`` distinct Prio3Histogram(length, chunk) reports sharded by
+    the port's oracle (run in a worker process): [(measurement, (nonce,
+    public share, input shares))]."""
     from janus_tpu_torch.vdaf.instances import prio3_histogram
 
-    vdaf = prio3_histogram(LENGTH, CHUNK)
+    vdaf = prio3_histogram(length, chunk)
     rng = np.random.default_rng([seed, 200 + worker])
-    reports, meas = shard_reports(vdaf, rng, lambda r: int(r.integers(0, LENGTH)), count)
+    reports, meas = shard_reports(vdaf, rng, lambda r: int(r.integers(0, length)), count)
     return list(zip(meas, reports))
 
 
@@ -2411,10 +2444,13 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
     unless every prefix count is the plain count of the uploads, both
     sides' level buckets coalesced jobs, no row went to the oracle, no
     breaker tripped, the leader read no sketch vector back and no journal
-    row is left.  The harness waits out the drain interval before it steps
-    the collection job (a collection step that finds journal rows replays
-    them on the oracle); a level's ``seconds`` include those waits, its
-    ``seconds_without_waits`` do not.  Returns the record."""
+    row is left.  The harness steps the collection job as soon as a
+    level's jobs are done, before their deferred bucket comes due, with no
+    wait: the collection step leaves the young journal rows to the
+    driver's drain (the accumulator maintenance pass the loop runs on its
+    cadence) and asks again, so no row may be replayed on the oracle.  The
+    clock runs in real time from a fixed start (journal rows age as the
+    drain interval does).  Returns the record."""
     import asyncio
 
     from janus_tpu_torch.aggregator import AggregationJobDriver, Aggregator, CollectionJobDriver, Config, DriverConfig
@@ -2423,12 +2459,21 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
     from janus_tpu_torch.collector import Collector
     from janus_tpu_torch.core.auth_tokens import AuthenticationToken
     from janus_tpu_torch.core.hpke import HpkeKeypair
-    from janus_tpu_torch.core.time import MockClock
+    from janus_tpu_torch.core.time import Clock
     from janus_tpu_torch.datastore import AggregatorTask, TaskQueryType
     from janus_tpu_torch.datastore.test_util import EphemeralDatastore
     from janus_tpu_torch.executor import AccumulatorConfig, DeviceExecutor, ExecutorConfig
     from janus_tpu_torch.messages import Duration, Interval, Query, ReportId, Role, TaskId, Time
     from janus_tpu_torch.vdaf.backend import Poplar1Backend, vdaf_shape_key
+
+    class RunningClock(Clock):
+        """Real time from ``now``: the reports' fixed batch stays current."""
+
+        def __init__(self, base):
+            self.base, self.t0 = base, time.monotonic()
+
+        def now(self):
+            return Time(self.base + int(time.monotonic() - self.t0))
     from janus_tpu_torch.vdaf.instances import vdaf_from_instance
     from janus_tpu_torch.vdaf.poplar1 import Poplar1AggregationParam
 
@@ -2444,7 +2489,7 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
     undo = []
 
     async def run():
-        clock = MockClock(Time(now))
+        clock = RunningClock(now)
         ds = {side: EphemeralDatastore(clock) for side in ("leader", "helper")}
         acc = {"leader": AccumulatorConfig(enabled=True, drain_interval_s=POPLAR_DRAIN_S),
                "helper": AccumulatorConfig(enabled=True)}
@@ -2497,35 +2542,27 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
             query = Query.new_time_interval(Interval(Time(start), Duration(precision)))
 
             async def drive(done):
-                rounds = {"job_steps": [], "drain_s": [], "collection_step_s": [], "waits_s": 0.0}
-
-                async def wait(seconds):
-                    t0 = time.perf_counter()
-                    await asyncio.sleep(seconds)
-                    rounds["waits_s"] += time.perf_counter() - t0
-
+                rounds = {"job_steps": [], "drains": 0, "collection_steps": []}
                 while not done.is_set():
                     t0 = time.perf_counter()
                     leases = await ds["leader"].datastore.run_tx_async(
                         "acquire", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(600), 64))
                     await asyncio.gather(*[driver.step_aggregation_job(lease) for lease in leases])
-                    clock.advance(Duration(30))
                     if leases:
                         rounds["job_steps"].append([len(leases), time.perf_counter() - t0])
                         continue
-                    # every job of the level has finished: its bucket comes
-                    # due and drains, with no commit beside it, before the
-                    # collection job looks for journal rows
-                    await wait(POPLAR_DRAIN_S)
+                    # no wait for the bucket: the maintenance pass drains
+                    # it once due, and the collection step asks again
+                    # until it has
+                    rounds["drains"] += await driver.run_accumulator_maintenance()
                     t0 = time.perf_counter()
-                    await driver.run_accumulator_maintenance()
-                    rounds["drain_s"].append(time.perf_counter() - t0)
-                    t0 = time.perf_counter()
-                    for lease in await ds["leader"].datastore.run_tx_async(
-                            "acquire_coll", lambda tx: tx.acquire_incomplete_collection_jobs(Duration(600), 8)):
+                    coll = await ds["leader"].datastore.run_tx_async(
+                        "acquire_coll", lambda tx: tx.acquire_incomplete_collection_jobs(Duration(600), 8))
+                    for lease in coll:
                         await collection_driver.step_collection_job(lease)
-                    rounds["collection_step_s"].append(time.perf_counter() - t0)
-                    await wait(0.01)
+                    if coll:
+                        rounds["collection_steps"].append(time.perf_counter() - t0)
+                    await asyncio.sleep(0.05)
                 return rounds
 
             async def collect_level(level, prefixes):
@@ -2545,7 +2582,6 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
                 if result.report_count != len(meas) or result.aggregate_result != want:
                     raise AssertionError(f"poplar pair: level {level} counts are not the plain counts")
                 levels[level] = {"prefixes": len(prefixes), "seconds": secs[f"level {level}"],
-                                 "seconds_without_waits": secs[f"level {level}"] - rounds["waits_s"],
                                  "top_counts": sorted(want, reverse=True)[:8], **rounds}
                 return result.aggregate_result
 
@@ -2596,11 +2632,364 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
         "device_peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
     }
     phases["poplar1_pair"] = time.perf_counter() - t_phase
-    level_s = ", ".join("%.3f s (%.3f s without waits)" % (v["seconds"], v["seconds_without_waits"])
+    level_s = ", ".join("%.3f s (%d collection steps)" % (v["seconds"], len(v["collection_steps"]))
                         for v in levels.values())
     log(f"poplar1 pair: {len(shards16)} reports; level {POPLAR_PAIR_LEVELS[0]} over {levels[POPLAR_PAIR_LEVELS[0]]['prefixes']} "
         f"prefixes and level {POPLAR_PAIR_LEVELS[1]} over {levels[POPLAR_PAIR_LEVELS[1]]['prefixes']} leaves, counts exact; "
         f"upload {secs['upload']:.3f} s, levels {level_s}, end to end {secs['end_to_end']:.3f} s")
+    return rec
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(url: str, timeout: float = 10.0) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read()
+
+
+def prometheus_samples(text: str):
+    """[(name, {label: value}, value)] of a Prometheus text exposition."""
+    import re
+
+    out = []
+    for line in text.splitlines():
+        m = re.match(r"^([a-zA-Z_:][\w:]*)(?:\{(.*)\})?\s+(\S+)$", line)
+        if m and not line.startswith("#"):
+            labels = dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', m.group(2) or ""))
+            out.append((m.group(1), labels, float(m.group(3))))
+    return out
+
+
+def compute_app_pids():
+    """The pids ``nvidia-smi --query-compute-apps`` lists, one a process
+    that holds a context on a card."""
+    return subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.split()
+
+
+def metric_sum(samples, name: str, **labels) -> float:
+    return sum(v for n, lab, v in samples if n == name and all(lab.get(k) == x for k, x in labels.items()))
+
+
+def binaries_phase(seed, verify_key, hist_shards, phases):
+    """Phase 18: the service binaries on the card.  Five processes of
+    ``python -m janus_tpu_torch.binaries``: the leader's aggregator, the
+    helper's aggregator with a device executor, the leader's aggregation-job
+    creator, its aggregation-job driver with a device executor and the
+    deferred accumulator (drain interval FLEET_DRAIN_S), and its
+    collection-job driver; each side its own SQLite file, real localhost
+    HTTP between them.  One Prio3Histogram(1024, 316) task in time-interval
+    mode, provisioned on both sides with ``janus_cli provision-tasks``.
+    While the binaries start (warmup and kernel build included), worker
+    processes shard the reports beyond phase 13's (the port's client, the
+    native host XOF); 1,024 reports and FLEET_TAMPERED tampered ones go up
+    over HTTP to the leader; once the jobs are stepped the ``collect``
+    binary collects at once (no drain wait).  Raises unless the aggregate is
+    the plain histogram of the valid reports with ``report_count`` 1,024;
+    the driver's and the helper's /metrics count cuda prepare launches, at
+    least 1,024 cuda-prepared reports a side and no backend fallback; no
+    journal row was replayed and the drains consumed every row written,
+    one for each job that accepted a report (a job of rejected reports
+    only writes none); no journal row is left on either datastore; both executor
+    processes hold the card (``nvidia-smi --query-compute-apps``); both
+    /statusz documents show the executor's Histogram buckets and name the
+    card; K1-K3 launched in both after their warmup; and SIGTERM stops all
+    five with exit 0.  On a failure it prints the check, the traceback and
+    the last 40 lines of each binary's log.  Returns the record."""
+    import asyncio
+    import base64
+    import os
+    import signal
+    import tempfile
+    import traceback
+
+    import aiohttp
+
+    from janus_tpu_torch.client import seal_report
+    from janus_tpu_torch.core.hpke import HpkeKeypair
+    from janus_tpu_torch.core.time import RealClock
+    from janus_tpu_torch.datastore import Crypter, Datastore, ReportAggregationState
+    from janus_tpu_torch.messages import Duration, Interval, ReportId, TaskId, Time
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
+
+    t_phase = time.perf_counter()
+    b64 = lambda b: base64.urlsafe_b64encode(b).rstrip(b"=").decode()  # noqa: E731
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="janus-fleet-")
+    desc = {"type": "Prio3Histogram", "length": LENGTH, "chunk_length": CHUNK}
+    vdaf = vdaf_from_instance(desc)
+    precision = 3600
+    start = int(time.time()) // precision * precision
+    rng = np.random.default_rng([seed, 18])
+    ds_key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    env = dict(os.environ, DATASTORE_KEYS=b64(ds_key))
+    ports = {name: free_port() for name in FLEET}
+    dap = {side: free_port() for side in ("leader", "helper")}
+    url = {side: f"http://127.0.0.1:{dap[side]}/" for side in dap}
+    health = {name: f"http://127.0.0.1:{port}/" for name, port in ports.items()}
+    db = {side: os.path.join(work, f"{side}.sqlite3") for side in dap}
+    device = "" if DEVICE == "cuda" else f"vdaf_device: {DEVICE}\n"
+    executor = (f"device_executor:\n  enabled: true\n  warmup_rows: {FLEET_WARMUP_ROWS}\n"
+                f"  flush_window_ms: {FLEET_FLUSH_WINDOW_MS}\n  accumulator:\n    enabled: true\n")
+    common = lambda name, side: (  # noqa: E731
+        f"common:\n  database: {{path: {db[side]}}}\n  health_check_listen_address: 127.0.0.1:{ports[name]}\n"
+        f"  status_sample_interval_s: 0.5\n")
+    configs = {
+        "leader": common("leader", "leader") + f"listen_address: 127.0.0.1:{dap['leader']}\n"
+                  f"max_upload_batch_write_delay_ms: 20\n{device}",
+        "helper": common("helper", "helper") + f"listen_address: 127.0.0.1:{dap['helper']}\n{device}{executor}",
+        "creator": common("creator", "leader") + f"aggregation_job_creation_interval_s: {FLEET_CREATE_S}\n"
+                   f"min_aggregation_job_size: 1\nmax_aggregation_job_size: {FLEET_JOB_SIZE}\n",
+        "driver": common("driver", "leader") + "job_driver: {job_discovery_interval_s: 0.1, max_concurrent_job_workers: 16}\n"
+                  + device + executor + f"    drain_interval_s: {FLEET_DRAIN_S}\n"
+                  f"    maintenance_interval_s: {FLEET_MAINTENANCE_S}\n",
+        "collection": common("collection", "leader") + "job_driver: {job_discovery_interval_s: 0.1}\n",
+    }
+    for name, text in configs.items():
+        with open(os.path.join(work, f"{name}.yaml"), "w") as f:
+            f.write(text)
+    logs = {name: os.path.join(work, f"{name}.log") for name in FLEET}
+    procs, secs, rec = {}, {}, {"reports": FLEET_REPORTS, "tampered": FLEET_TAMPERED}
+
+    def binary(*args, timeout=120):
+        out = subprocess.run([sys.executable, "-m", "janus_tpu_torch.binaries", *args], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=timeout)
+        if out.returncode != 0:
+            raise AssertionError(f"binaries {args[0]} {args[1]} exited {out.returncode}: {out.stderr[-2000:]}")
+        return out.stdout
+
+    def statusz(name):
+        return json.loads(http_get(health[name] + "statusz"))
+
+    def metrics(name):
+        return prometheus_samples(http_get(health[name] + "metrics").decode())
+
+    try:
+        # -- the task, on both sides, through janus_cli provision-tasks
+        task_id = TaskId.random()
+        collector_keys = HpkeKeypair.generate(9)
+        keys = {"leader": HpkeKeypair.generate(1), "helper": HpkeKeypair.generate(2)}
+        t0 = time.perf_counter()
+        for side in dap:
+            peer = url["helper" if side == "leader" else "leader"]
+            auth = ("aggregator_auth_token: fleet-agg\n  collector_auth_token_for_hash: fleet-col"
+                    if side == "leader" else "aggregator_auth_token_for_hash: fleet-agg")
+            path = os.path.join(work, f"{side}-tasks.yaml")
+            with open(path, "w") as f:
+                f.write(
+                    f"- task_id: {b64(task_id.data)}\n  peer_aggregator_endpoint: {peer}\n"
+                    f"  query_type: {{kind: TimeInterval}}\n  vdaf: {json.dumps(desc)}\n"
+                    f"  role: {side.capitalize()}\n  vdaf_verify_key: {b64(verify_key)}\n  min_batch_size: 1\n"
+                    f"  time_precision_s: {precision}\n  {auth}\n"
+                    f"  collector_hpke_config: {b64(collector_keys.config.get_encoded())}\n"
+                    f"  hpke_keys:\n    - config: {b64(keys[side].config.get_encoded())}\n"
+                    f"      private_key: {b64(keys[side].private_key)}\n")
+            if "provisioned task" not in binary("janus_cli", "provision-tasks", path, "--config-file",
+                                                os.path.join(work, f"{side}.yaml")):
+                raise AssertionError(f"janus_cli provision-tasks did not provision the {side}'s task")
+        secs["provision"] = time.perf_counter() - t0
+
+        # -- the five binaries, and the reports sharded meanwhile
+        apps_before = compute_app_pids() if DEVICE == "cuda" else []
+        t_boot = {}
+        for name, kind in FLEET.items():
+            t_boot[name] = time.perf_counter()
+            with open(logs[name], "w") as out:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "janus_tpu_torch.binaries", kind, "--config-file",
+                     os.path.join(work, f"{name}.yaml")], cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        extra = FLEET_REPORTS - len(hist_shards) + FLEET_TAMPERED
+        per = -(-extra // FLEET_SHARD_WORKERS)
+        with ProcessPoolExecutor(max_workers=FLEET_SHARD_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+            shard_jobs = [pool.submit(histogram_shard_job, seed, 100 + w, per, LENGTH, CHUNK)
+                          for w in range(FLEET_SHARD_WORKERS)]
+            ready = {}
+            deadline = time.perf_counter() + FLEET_TIMEOUT_S
+            while len(ready) < len(FLEET):
+                for name in FLEET:
+                    if name in ready:
+                        continue
+                    if procs[name].poll() is not None:
+                        raise AssertionError(f"the {name} binary exited {procs[name].returncode} while starting")
+                    try:
+                        doc = statusz(name)
+                    except OSError:
+                        continue
+                    compile_ = (doc.get("executor") or {}).get("compile")
+                    if compile_ is None or (compile_ and all(c["state"] == "warm" for c in compile_.values())):
+                        ready[name] = time.perf_counter() - t_boot[name]
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"binaries not ready after {FLEET_TIMEOUT_S} s: ready {sorted(ready)}")
+                time.sleep(0.1)
+            t0 = time.perf_counter()
+            fresh = [x for j in shard_jobs for x in j.result()][:extra]
+            secs["shard_wait"] = time.perf_counter() - t0
+        secs["shard_and_start"] = time.perf_counter() - min(t_boot.values())
+        rec["startup_to_ready_s"] = ready
+        warm_launches = {name: statusz(name)["device"]["kernel_launches"] for name in ("driver", "helper")}
+
+        # -- uploads over HTTP through the port's client
+        shards = list(hist_shards)[:FLEET_REPORTS] + fresh
+        tampered = [False] * FLEET_REPORTS + [True] * FLEET_TAMPERED
+        hpke = [keys[side].config for side in ("leader", "helper")]
+        sealed = [seal_report(vdaf, task_id, *hpke, ReportId(nonce), Time(start), public,
+                              tamper(vdaf, shares) if bad else shares)
+                  for (_m, (nonce, public, shares)), bad in zip(shards, tampered)]
+
+        async def upload_all():
+            async with aiohttp.ClientSession() as session:
+                async def put(report):
+                    async with session.put(f"{url['leader']}tasks/{task_id}/reports", data=report.get_encoded(),
+                                           headers={"Content-Type": "application/dap-report"}) as r:
+                        if r.status != 201:
+                            raise AssertionError(f"binaries: upload answered {r.status}: {await r.text()}")
+
+                for i in range(0, len(sealed), PAIR_UPLOAD_WAVE):
+                    await asyncio.gather(*[put(r) for r in sealed[i:i + PAIR_UPLOAD_WAVE]])
+
+        t_first = time.perf_counter()
+        asyncio.run(upload_all())
+        secs["upload"] = time.perf_counter() - t_first
+        rec["uploads_per_s"] = len(sealed) / secs["upload"]
+
+        # -- the jobs are stepped: collect at once
+        leader_ds = Datastore(db["leader"], Crypter([ds_key]), RealClock())
+        interval = Interval(Time(start), Duration(precision))
+
+        def pending(tx):
+            return (tx.count_unaggregated_client_reports_for_interval(task_id, interval),
+                    tx.lease_summary()["aggregation"]["active"])
+
+        while leader_ds.run_tx("fleet_pending", pending) != (0, 0):
+            if time.perf_counter() - t_first > FLEET_TIMEOUT_S:
+                raise AssertionError("binaries: the aggregation jobs did not finish")
+            time.sleep(0.05)
+        secs["aggregate"] = time.perf_counter() - t_first - secs["upload"]
+        def job_outcomes(tx):
+            # a job writes its journal row only for the reports it accepted:
+            # one whose reports were all rejected (the tampered tail can be a
+            # job of its own) writes none and leaves nothing to drain
+            return [any(ra.state == ReportAggregationState.FINISHED for ra in
+                        tx.get_report_aggregations_for_aggregation_job(task_id, job.aggregation_job_id))
+                    for job in tx.get_aggregation_jobs_for_task(task_id)]
+
+        outcomes = leader_ds.run_tx("fleet_jobs", job_outcomes)
+        jobs, journaled_jobs = len(outcomes), sum(outcomes)
+        t0 = time.perf_counter()
+        out = binary("collect", "--task-id", b64(task_id.data), "--leader", url["leader"], "--vdaf", "histogram",
+                     "--length", str(LENGTH), "--chunk-length", str(CHUNK),
+                     "--authorization-bearer-token", "fleet-col", "--batch-interval-start", str(start),
+                     "--batch-interval-duration", str(precision),
+                     "--hpke-config", b64(collector_keys.config.get_encoded()),
+                     "--hpke-private-key", b64(collector_keys.private_key), timeout=FLEET_TIMEOUT_S)
+        secs["collect"] = time.perf_counter() - t0
+        secs["end_to_end"] = time.perf_counter() - t_first
+        result = json.loads(out.strip().splitlines()[-1])
+        valid = [m for (m, _r), bad in zip(shards, tampered) if not bad]
+        if result["report_count"] != FLEET_REPORTS or result["aggregate_result"] != np.bincount(
+                valid, minlength=LENGTH).tolist():
+            raise AssertionError(f"binaries: collected {result['report_count']} reports, not the exact histogram "
+                                 f"of the {len(valid)} valid ones")
+
+        # -- the gates on /metrics, /statusz, the datastores and the card
+        m = {name: metrics(name) for name in ("driver", "helper", "collection")}
+        for side in ("driver", "helper"):
+            if metric_sum(m[side], "janus_device_prepare_launches_total", backend="cuda") <= 0:
+                raise AssertionError(f"binaries: the {side} counted no cuda prepare launch")
+            got = metric_sum(m[side], "janus_vdaf_prepare_reports_total", backend="cuda")
+            if got < FLEET_REPORTS:
+                raise AssertionError(f"binaries: the {side} prepared {got} reports on cuda, fewer than {FLEET_REPORTS}")
+            fallbacks = metric_sum(m[side], "janus_vdaf_backend_fallback_total")
+            if fallbacks:
+                raise AssertionError(f"binaries: the {side} counted {fallbacks} backend fallbacks")
+        replays = sum(metric_sum(m[n], "janus_accumulator_journal_consumed_total", path="replay") for n in m)
+        drains = metric_sum(m["driver"], "janus_accumulator_journal_consumed_total", path="drain")
+        written = metric_sum(m["driver"], "janus_accumulator_journal_entries_total")
+        if replays or not journaled_jobs or drains != written or written != journaled_jobs:
+            raise AssertionError(f"binaries: {written} journal rows written and consumed by {drains} drains and "
+                                 f"{replays} replays for {journaled_jobs} jobs with accepted reports of {jobs}")
+        rec.update(jobs=jobs, journaled_jobs=journaled_jobs, journal_rows=written, journal_drains=drains,
+                   journal_replays=replays)
+        helper_journal = Datastore(db["helper"], Crypter([ds_key]), RealClock())
+        try:
+            left = [d.run_tx("journal", lambda tx: tx.count_accumulator_journal_entries(task_id))
+                    for d in (leader_ds, helper_journal)]
+        finally:
+            helper_journal.close()
+            leader_ds.close()
+        if any(left):
+            raise AssertionError(f"binaries: journal rows left on the leader, helper: {left}")
+        if DEVICE == "cuda":
+            apps = compute_app_pids()
+            rec["compute_app_pids"] = apps
+            ours = {str(p.pid) for p in procs.values()} | {str(os.getpid())}
+            if set(apps) & ours:
+                missing = [name for name in ("driver", "helper") if str(procs[name].pid) not in apps]
+            else:
+                # nvidia-smi sees another PID namespace (inside a container
+                # it may list every compute app under one pid): count the
+                # apps instead, the smoke's own and one a binary holding a
+                # context
+                holding = [n for n in FLEET if statusz(n)["device"].get("cuda_initialized")]
+                missing = [] if len(apps) - len(apps_before) >= len(holding) else ["driver", "helper"]
+                missing += [n for n in ("driver", "helper") if n not in holding]
+                rec["compute_apps"] = {"before": len(apps_before), "running": len(apps), "holding": holding}
+            if missing:
+                raise AssertionError(f"binaries: nvidia-smi lists no compute app of the {missing} "
+                                     f"(pids {[procs[n].pid for n in missing]}; listed {apps})")
+        card = torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu"
+        rec["launches"] = {}
+        for name in ("driver", "helper"):
+            doc = statusz(name)
+            if DEVICE == "cuda" and not doc["device"].get("memory_allocated_bytes"):
+                raise AssertionError(f"binaries: the {name} holds no memory on the card: {doc['device']}")
+            buckets = doc["executor"]["buckets"]
+            hist = {k: {f: v[f] for f in ("flushes", "flushed_jobs") if f in v}
+                    for k, v in buckets.items() if k.startswith("Histogram/")}
+            if not hist or card not in doc["device"]["devices"]:
+                raise AssertionError(f"binaries: the {name}'s /statusz shows buckets {sorted(buckets)} and devices "
+                                     f"{doc['device']['devices']}, not Histogram buckets on {card}")
+            rec.setdefault("statusz_flushes", {})[name] = hist
+            launches = {STATUSZ_KERNELS[k]: v - warm_launches[name][k] for k, v in doc["device"]["kernel_launches"].items()}
+            PATH_LAUNCHES[f"binaries {name}"] = rec["launches"][name] = launches
+            log(f"binaries {name} launches: {json.dumps(launches)}")
+            missing = [k for k in KERNEL_NAMES[:3] if launches[k] <= 0]
+            if missing and DEVICE == "cuda":  # a CPU rehearsal takes the plain versions
+                raise AssertionError(f"binaries: the {name} never launched {missing} after its warmup")
+
+        # -- SIGTERM stops all five with exit 0
+        for p in procs.values():
+            p.send_signal(signal.SIGTERM)
+        codes = {name: p.wait(timeout=60) for name, p in procs.items()}
+        if any(codes.values()):
+            raise AssertionError(f"binaries: SIGTERM exit codes {codes}")
+    except BaseException:
+        log(f"binaries: phase failed:\n{traceback.format_exc()}")
+        for name, path in logs.items():
+            if os.path.exists(path):
+                with open(path, errors="replace") as f:
+                    tail = f.read().splitlines()[-40:]
+                log(f"--- the {name} binary's log, last {len(tail)} lines:\n" + "\n".join(tail))
+        raise
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rec["seconds"] = secs
+    phases["binaries"] = time.perf_counter() - t_phase
+    log(f"binaries: {FLEET_REPORTS} reports ({FLEET_TAMPERED} tampered, rejected) through 5 processes in {jobs} jobs; "
+        f"aggregate exact; upload {secs['upload']:.3f} s ({rec['uploads_per_s']:.1f}/s); first upload to collected "
+        f"aggregate {secs['end_to_end']:.3f} s; startup to ready {json.dumps({k: round(v, 3) for k, v in ready.items()})} s; "
+        f"statusz flushes {json.dumps(rec['statusz_flushes'])}; journal rows drained {drains:.0f}, replayed {replays:.0f}")
     return rec
 
 
@@ -2620,8 +3009,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
-    from janus_tpu_torch import _build
+    from janus_tpu_torch import _build, native
     from janus_tpu_torch.vdaf.instances import prio3_histogram, prio3_sum_vec
+
+    # the oracle's XOF (every shard below, the pair's client) must take the
+    # C++ sponge wherever the smoke runs: a silent fallback to the pure
+    # Python sponge fails the run
+    if native.load() is None:
+        raise AssertionError("the native host XOF did not load")
 
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -2697,11 +3092,16 @@ def main() -> int:
     poplar1 = poplar_phase(args.seed, verify_key, rng, poplar_shards, phases)
     torch.cuda.empty_cache()
     poplar1_pair = poplar_pair_phase(args.seed, verify_key, poplar_shards, phases)
+    torch.cuda.empty_cache()
+    binaries = binaries_phase(args.seed, verify_key, hist_shards, phases)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]] for path, launches in PATH_LAUNCHES.items()}
         for path, shapes in path_shapes.items():
             if k["name"] in shapes:
                 k[f"at_{path}"] = shapes[k["name"]]
+    if native.fallbacks():
+        raise AssertionError(f"{native.fallbacks()} XOF expansions fell back to the pure Python sponge")
+    log(f"native host XOF: {native.library_path().name}, 0 fallbacks")
     bad = [k["name"] for k in kernels if k["max_abs_err"] > TOLERANCE]
     bad += [f"{k} at the SumVec shape" for k, v in sv_shapes.items() if v["max_abs_err_host_columns"] > TOLERANCE]
     bad += [f"{k} at {path}" for path, shapes in path_shapes.items() for k, v in shapes.items()
@@ -2715,7 +3115,7 @@ def main() -> int:
                                    "sumvec_bits8": sumvec_bits, "histogram_executor": histogram_executor,
                                    "sumvec_executor": sumvec_executor, "fixedpoint": fixedpoint,
                                    "multiproof": multiproof, "pair": pair, "poplar1": poplar1,
-                                   "poplar1_pair": poplar1_pair}}))
+                                   "poplar1_pair": poplar1_pair, "binaries": binaries}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into
-``build/janus_tpu_torch/lib<name>-<hash>.so`` (``sm_90a``, a plain C
+``build/janus_tpu_torch/lib<name>-<hash>.so`` (or under the directory
+given to :func:`set_build_dir`; ``sm_90a``, a plain C
 interface, no PyTorch headers), keyed by a hash of its source, the shared
 headers beside it and the flags, so an edited source rebuilds and an
 unchanged one is reused.  ``build()`` starts one nvcc per source, all at
@@ -23,6 +24,8 @@ from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: where built libraries go, the CUDA kernels' and the host XOF's
+#: (``native.py``); :func:`set_build_dir` moves it
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "janus_tpu_torch"
 SOURCES = ("keccak", "flp_wire", "flp_sumvec", "flp_combine")
 NVCC_FLAGS = (
@@ -40,6 +43,15 @@ _lock = threading.Lock()
 
 class BuildError(RuntimeError):
     pass
+
+
+def set_build_dir(path) -> None:
+    """Build into ``path`` from now on (a fleet's shared build root: every
+    library is named by a hash of its source and flags, and written to a
+    per-process temporary name and renamed, so processes and versions can
+    share it)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def nvcc_path() -> str:

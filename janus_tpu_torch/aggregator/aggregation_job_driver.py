@@ -957,12 +957,12 @@ class AggregationJobDriver:
             else AggregationJobState.FINISHED
         )
 
-        # Device-resident out shares: commit the finished rows' ResidentRefs
-        # into per-batch resident accumulators BEFORE the transaction — a
-        # tx retry must never replay a device psum.  Drain-at-commit mode
-        # spills the delta NOW (one O(OUT) readback per batch bucket);
-        # deferred mode leaves it resident and persists a journal row in
-        # the tx instead (crash recovery replays from the datastore).
+        # Device-resident out shares: drain-at-commit mode psums the
+        # finished rows' ResidentRefs and spills the delta BEFORE the
+        # transaction (a tx retry must never replay a device psum; one
+        # O(OUT) readback per batch bucket); deferred mode persists a
+        # journal row in the tx and psums after it commits, outside any
+        # tx retry (crash recovery replays from the datastore).
         # finished-at-evaluate rows the helper rejected never reached
         # out_shares: their device-resident refs (Poplar1) must release or
         # the retained sketch matrix never frees
@@ -976,7 +976,7 @@ class AggregationJobDriver:
         (
             accumulator_deltas,
             journal_entries,
-            touched_buckets,
+            pending,
         ) = await self._commit_resident_shares(
             task, vdaf, job, all_ras, states, out_shares,
             # WAITING rows (multi-round VDAFs) keep their refs alive: the
@@ -1011,6 +1011,9 @@ class AggregationJobDriver:
             backend=self._backend_for(task, vdaf),
             accumulator_deltas=accumulator_deltas,
             journal_entries=journal_entries,
+            journal_drain_interval_s=self._executor.accumulator.config.drain_interval_s
+            if journal_entries
+            else None,
         )
         writer.put(job, new_ras, out_shares)
 
@@ -1027,17 +1030,17 @@ class AggregationJobDriver:
             # AFTER its row was drained/journaled.  The tx aborted with
             # nothing merged; redelivery re-prepares the job and the in-tx
             # check fails the report properly — exactly-once either way.
-            self._discard_touched_buckets(touched_buckets)
+            self._release_pending(pending)
             raise JobStepError(
                 f"resident delta invalidated in-tx: {e}", retryable=True
             )
         except BaseException:
-            # Deferred mode: the bucket now holds THIS job's rows but its
-            # journal row never committed — a later drain would merge rows
-            # that redelivery will re-prepare (double count).  Discard the
-            # bucket; other jobs' persisted journal rows stay replayable.
-            self._discard_touched_buckets(touched_buckets)
+            # Deferred mode: this job's journal rows never committed, so
+            # its rows must not reach a bucket (redelivery re-prepares them)
+            self._release_pending(pending)
             raise
+        if pending:
+            await self._commit_journaled(task, vdaf, job, pending)
         if journal_entries:
             from ..core.metrics import GLOBAL_METRICS
 
@@ -1057,25 +1060,6 @@ class AggregationJobDriver:
             public_share=orig.public_share,
             leader_input_share=orig.leader_input_share,
         ).with_last_prep_resp(finished_ra.last_prep_resp)
-
-    def _discard_touched_buckets(self, touched_buckets) -> None:
-        """Drop the device deltas of buckets this step committed into
-        (deferred mode, after its tx failed).  Journal entries belonging
-        to OTHER jobs survive in the datastore and are replayed from
-        there; this job's rows redeliver and re-prepare."""
-        store = self._executor.accumulator if self._executor is not None else None
-        if store is None or not touched_buckets:
-            return
-        for key in touched_buckets:
-            journal = store.discard(key)
-            if journal:
-                logger.warning(
-                    "discarded bucket %r with %d journaled job(s) after a "
-                    "failed tx; persisted journal rows will be oracle-"
-                    "replayed from the datastore",
-                    key,
-                    len(journal),
-                )
 
     @staticmethod
     def _batch_ident_for(task, job):
@@ -1125,13 +1109,16 @@ class AggregationJobDriver:
         """Accumulator-store commit path (no-op when the store is off or no
         finished report carries a ResidentRef).
 
-        Per batch bucket: psum the finished rows into the resident
-        accumulator (one device launch, no readback).  Drain-at-commit
-        mode (default) then drains it to ONE host field vector for the
-        writer's sharded merge; deferred mode (drain_interval_s > 0)
-        leaves the delta resident and hands back journal entries the
-        writer persists in its tx (the cadence drain — or, after a crash,
-        the collection-time oracle replay — merges the shares later).
+        Drain-at-commit mode (default): per batch bucket, psum the
+        finished rows into the resident accumulator (one device launch, no
+        readback) and drain it to ONE host field vector for the writer's
+        sharded merge.  Deferred mode (drain_interval_s > 0): nothing is
+        summed yet; the step hands back journal entries the writer
+        persists in its tx and the pending commits that
+        :meth:`_commit_journaled` sums into the buckets once that tx has
+        committed — so a bucket only ever holds rows whose journal rows
+        are written, and the cadence drain (or, after a crash, the
+        collection-time oracle replay) consumes each row exactly once.
         On AccumulatorUnavailable (launch failure / poisoned bucket /
         injected spill fault) the journaled reports are replayed through
         the bit-exact CPU oracle — host vectors replace the dead refs in
@@ -1139,10 +1126,9 @@ class AggregationJobDriver:
         accumulation never double-counts or drops.  Leftover refs (reports
         the helper failed) are released so their flush matrices free.
 
-        Returns ``(accumulator_deltas, journal_entries, touched_buckets)``
-        — touched_buckets names the deferred buckets this step committed
-        into, so a failed tx can discard them (their journal rows never
-        committed)."""
+        Returns ``(accumulator_deltas, journal_entries, pending)`` —
+        ``pending`` lists the deferred ``(bucket_key, refs, report_ids)``
+        commits, made after the tx commits or released if it fails."""
         store = self._executor.accumulator if self._executor is not None else None
         if store is None:
             return None, None, []
@@ -1196,7 +1182,7 @@ class AggregationJobDriver:
         deferred = getattr(store.config, "deferred", False)
         deltas: Dict[bytes, Tuple[Sequence[int], frozenset]] = {}
         journal_entries: Dict[bytes, frozenset] = {}
-        touched: List[tuple] = []
+        pending: List[tuple] = []
         # Drain-at-commit scopes buckets per STEP ATTEMPT (job id + a
         # fresh nonce): two driver replicas sharing one process (and one
         # store) can deliver the same job concurrently after a lease
@@ -1283,6 +1269,11 @@ class AggregationJobDriver:
             if ident in collected:
                 await replay(rids, refs, None)
                 continue
+            if deferred:
+                # summed only once the tx has written the journal row
+                journal_entries[ident] = frozenset(rids)
+                pending.append((bucket_key, refs, rids))
+                continue
 
             def commit_and_drain(bucket_key=bucket_key, refs=refs, rids=rids):
                 store.commit_rows(
@@ -1292,8 +1283,6 @@ class AggregationJobDriver:
                     job_token=job.aggregation_job_id.data,
                     report_ids=rids,
                 )
-                if deferred:
-                    return None  # stays resident; the journal row covers it
                 return store.drain(bucket_key, field)
 
             try:
@@ -1308,15 +1297,60 @@ class AggregationJobDriver:
                     logger.exception("accumulator commit/drain failed")
                 await replay(rids, refs, e)
                 continue
-            if deferred:
-                journal_entries[ident] = frozenset(rids)
-                touched.append(bucket_key)
-                continue
             if drained is None:
                 continue
             vector, drained_rids = drained
             deltas[ident] = (vector, frozenset(drained_rids))
-        return deltas or None, journal_entries or None, touched
+        return deltas or None, journal_entries or None, pending
+
+    async def _commit_journaled(self, task, vdaf, job, pending) -> None:
+        """Deferred mode, after the step's tx has written its journal rows:
+        sum each bucket's pending rows into the resident accumulator (no
+        readback).  A drain that ran before this point could not take
+        them.  Where the commit fails (a poisoned bucket, a lost flush),
+        the rows are released: their journal rows stay in the datastore
+        for the collection step's replay once they pass its bound, and the
+        cadence drain discards a poisoned bucket."""
+        from ..executor.accumulator import AccumulatorUnavailable
+
+        store = self._executor.accumulator
+        backend = self._backend_for(task, vdaf)
+        loop = asyncio.get_running_loop()
+        for bucket_key, refs, rids in pending:
+
+            def commit(bucket_key=bucket_key, refs=refs, rids=rids):
+                store.commit_rows(
+                    bucket_key,
+                    backend,
+                    refs,
+                    job_token=job.aggregation_job_id.data,
+                    report_ids=rids,
+                )
+
+            try:
+                try:
+                    await loop.run_in_executor(None, commit)
+                except AccumulatorUnavailable:
+                    # a drain may have detached the bucket between the
+                    # commit's lookup and its sum: the retry opens a fresh
+                    # one (a poisoned bucket refuses again)
+                    await loop.run_in_executor(None, commit)
+            except Exception:
+                logger.exception(
+                    "deferred accumulator commit failed for bucket %r; its "
+                    "journal rows stay persisted for the collection replay",
+                    bucket_key,
+                )
+                store.release_refs(refs)
+
+    def _release_pending(self, pending) -> None:
+        """The step's tx failed: its journal rows never committed, so its
+        pending rows must never reach a bucket (redelivery re-prepares
+        them).  The buckets and the other jobs' rows in them stay."""
+        if pending:
+            self._executor.accumulator.release_refs(
+                [ref for _key, refs, _rids in pending for ref in refs]
+            )
 
     def _oracle_out_shares(self, task, vdaf, backend, ras, agg_param=None):
         """Bit-exact CPU replay of finished reports' out shares (backend

@@ -56,6 +56,7 @@ class AggregationJobWriter:
             Dict[bytes, Tuple[Sequence[int], frozenset]]
         ] = None,
         journal_entries: Optional[Dict[bytes, frozenset]] = None,
+        journal_drain_interval_s: Optional[float] = None,
     ):
         self.task = task
         self.vdaf = vdaf
@@ -79,6 +80,10 @@ class AggregationJobWriter:
         #: merges NO share for those rows now — the cadence drain (or a
         #: crash-recovery replay) merges them later against the row.
         self.journal_entries = journal_entries or {}
+        #: the owning accumulator's drain interval, stored on each journal
+        #: row so that a collection step knows how long to leave the row
+        #: to its owner's drain
+        self.journal_drain_interval_s = journal_drain_interval_s
         self._jobs: List[
             Tuple[AggregationJob, List[ReportAggregation], Dict[bytes, Sequence[int]]]
         ] = []
@@ -163,6 +168,7 @@ class AggregationJobWriter:
                 job.aggregation_parameter,
                 job.aggregation_job_id,
                 sorted(rids),
+                self.journal_drain_interval_s,
             )
 
     # ------------------------------------------------------------------

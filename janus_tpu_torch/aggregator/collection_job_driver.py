@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import math
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -44,6 +45,15 @@ from .aggregation_job_writer import merge_batch_aggregations
 from .error import InvalidBatchSize
 
 logger = logging.getLogger("janus_tpu_torch.collection_job_driver")
+
+#: The replay bound, in the owner's drain intervals: an accumulator-journal
+#: row younger than this many of its owner's drain intervals
+#: (``drain_interval_s`` on the row) is left to the owner's cadence drain,
+#: and the collection job asks again, as for any batch not yet ready.  An
+#: older row's owner is presumed dead (a live owner drains a row within
+#: about one interval and its maintenance cadence), and the row is
+#: replayed on the CPU oracle.
+JOURNAL_REPLAY_AFTER_INTERVALS = 4
 
 
 # Strategy types live in core.dp (ZCdpDiscreteGaussian discrete-Gaussian
@@ -175,13 +185,15 @@ class CollectionJobDriver:
 
         # Guaranteed drain-before-collection: outstanding accumulator-
         # journal rows name FINISHED reports whose out shares are still
-        # resident in some (possibly dead) replica's device accumulator.
-        # Re-derive them on the bit-exact CPU oracle from the retained
-        # report_aggregations payloads and merge them now — the readiness
-        # gate below refuses to collect while any row is outstanding, so
-        # an aggregate can never be computed without these shares.
+        # resident in some replica's device accumulator.  Rows past the
+        # replay bound (their owner is presumed dead) are re-derived on the
+        # bit-exact CPU oracle from the retained report_aggregations
+        # payloads and merged now; younger rows are left to their owner's
+        # drain.  The readiness gate below refuses to collect while any
+        # row is outstanding, so an aggregate can never be computed
+        # without these shares.
         try:
-            await self._replay_outstanding_journal(acq)
+            owner_wait_s = await self._replay_outstanding_journal(acq)
         except DatastoreUnavailable:
             # brownout, not a replay problem: classify at the wrapper
             # (release without consuming the budget)
@@ -211,6 +223,10 @@ class CollectionJobDriver:
                     self.config.retry_initial_delay.seconds * (2 ** (attempts - 1)),
                     self.config.retry_max_delay.seconds,
                 )
+                if owner_wait_s is not None:
+                    # journal rows wait for a live owner's drain: ask
+                    # again after one of its drain intervals
+                    delay = min(delay, max(1, math.ceil(owner_wait_s)))
                 tx.release_collection_job(lease, Duration(delay))
                 return None
             # mark batch aggregations Collected + fence (reference: :283-316)
@@ -438,14 +454,17 @@ class CollectionJobDriver:
         )
 
     # ------------------------------------------------------------------
-    async def _replay_outstanding_journal(self, acq) -> None:
+    async def _replay_outstanding_journal(self, acq) -> Optional[float]:
         """Consume every accumulator-journal row covering this collection's
-        batches: oracle-recompute the named reports' out shares from their
-        retained report_aggregations payloads and merge ONE vector per row
-        into the batch's shard accumulators.  Row deletion and the merge
-        share a transaction, so a row is merged exactly once even when the
-        owning replica's cadence drain races this replay (the loser of the
-        DELETE drops its vector)."""
+        batches that is past the replay bound: oracle-recompute the named
+        reports' out shares from their retained report_aggregations
+        payloads and merge ONE vector per row into the batch's shard
+        accumulators.  A row younger than the bound belongs to its live
+        owner's cadence drain and is left alone; returns the shortest drain
+        interval of such rows (None when none was left).  Row deletion and
+        the merge share a transaction, so a row is merged exactly once even
+        when the owning replica's drain races this replay (the loser of
+        the DELETE drops its vector)."""
         # cheap pre-check first: in the common (non-deferred) deployment
         # the journal is always empty, and this one indexed COUNT is all
         # the hot path pays — the task/job reload below runs only when
@@ -454,7 +473,7 @@ class CollectionJobDriver:
             "collect_journal_probe",
             lambda tx: tx.count_accumulator_journal_entries(acq.task_id),
         ):
-            return
+            return None
 
         def load(tx):
             task = tx.get_aggregator_task(acq.task_id)
@@ -477,11 +496,24 @@ class CollectionJobDriver:
 
         loaded = await self.datastore.run_tx_async("collect_journal_scan", load)
         if loaded is None or not loaded[1]:
-            return
+            return None
         task, entries = loaded
         vdaf = task.vdaf_instance()
+        now_s = self.datastore.now().seconds
+        owner_wait_s = None
         for entry in entries:
+            if now_s - entry.created_at.seconds < self._replay_bound_s(entry):
+                # the live owner's drain merges it
+                owner_wait_s = min(owner_wait_s or entry.drain_interval_s, entry.drain_interval_s)
+                continue
             await self._replay_journal_entry(task, vdaf, entry)
+        return owner_wait_s
+
+    def _replay_bound_s(self, entry) -> float:
+        """Age past which ``entry``'s owner is presumed dead: the owner's
+        drain interval times JOURNAL_REPLAY_AFTER_INTERVALS (0 for a row
+        that names no interval)."""
+        return (entry.drain_interval_s or 0.0) * JOURNAL_REPLAY_AFTER_INTERVALS
 
     async def _replay_journal_entry(self, task, vdaf, entry) -> None:
         from ..core import faults

@@ -4,10 +4,9 @@ The analog of the reference's ``TraceConfiguration`` (reference:
 aggregator/src/trace.rs:36-236): pretty or JSON structured stdout logging
 with a runtime-reloadable level filter (the reference exposes this as PUT
 ``/traceconfigz`` on the health port; our health server does the same).
-Copy of ``janus_tpu/core/trace.py`` without ``start_profiler_server``
-(the JAX profiler socket): device profiling on the card is a
-``torch.profiler`` session that ``chip_smoke.py`` runs; host tracing stays
-here.
+Copy of ``janus_tpu/core/trace.py``; its ``start_profiler_server`` (the
+JAX profiler socket) becomes a small aiohttp listener that captures a
+``torch.profiler`` window on request.
 """
 
 from __future__ import annotations
@@ -451,3 +450,75 @@ def emit_span(name: str, cat: str, start_s: float, dur_s: float, **args) -> None
     elif _SPAN_SINKS:
         _sink_emit(name, cat, start_s, dur_s, dict(args))
 
+
+
+def start_profiler_server(port: int, host: str = "127.0.0.1") -> bool:
+    """Opt-in on-device profiling: an aiohttp listener on ``port`` (its own
+    thread and event loop) an operator can capture from at any time (the
+    analog of the reference's always-on observability sockets,
+    trace.rs:158-236).  ``GET /profile?seconds=N`` runs a
+    ``torch.profiler`` window of N seconds (default 2, at most 60) with CPU
+    and, where there is a card, CUDA activities, and answers with its
+    chrome trace (JSON).  Returns False, logged, when torch or aiohttp is
+    unavailable or the listener cannot bind: a dead profiler socket never
+    takes a replica down."""
+    import tempfile
+    import threading
+
+    log = logging.getLogger("janus_tpu_torch.trace")
+    try:
+        import torch
+        from aiohttp import web
+    except Exception:
+        log.exception("torch or aiohttp unavailable; profiler server not started")
+        return False
+    lock = threading.Lock()  # one capture at a time
+
+    def capture(seconds: float) -> bytes:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with lock, tempfile.TemporaryDirectory() as tmp:
+            with torch.profiler.profile(activities=activities) as prof:
+                time.sleep(seconds)
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path, "rb") as f:
+                return f.read()
+
+    async def profile(request):
+        try:
+            seconds = min(60.0, max(0.0, float(request.query.get("seconds", "2"))))
+        except ValueError:
+            return web.Response(status=400, text="seconds must be a number\n")
+        import asyncio
+
+        body = await asyncio.get_running_loop().run_in_executor(None, capture, seconds)
+        return web.Response(body=body, content_type="application/json")
+
+    started = threading.Event()
+    ok = []
+
+    def serve():
+        import asyncio
+
+        async def main():
+            app = web.Application()
+            app.add_routes([web.get("/profile", profile)])
+            runner = web.AppRunner(app)
+            await runner.setup()
+            try:
+                await web.TCPSite(runner, host, port).start()
+            except Exception:
+                log.exception("could not start the profiler server on %s:%d", host, port)
+                started.set()
+                return
+            ok.append(True)
+            started.set()
+            await asyncio.Event().wait()  # serves until the process exits
+
+        asyncio.run(main())
+
+    threading.Thread(target=serve, name="janus-profiler-server", daemon=True).start()
+    started.wait(10.0)
+    return bool(ok)

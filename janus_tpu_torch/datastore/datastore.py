@@ -2313,10 +2313,12 @@ class Transaction:
         aggregation_parameter: bytes,
         aggregation_job_id: AggregationJobId,
         report_ids: Sequence[bytes],
+        drain_interval_s: Optional[float] = None,
     ) -> None:
         """Record one job's un-drained resident delta.  Must run in the
         SAME transaction as the writer commit that records these reports
-        Finished — the journal row and the FINISHED states are one fact."""
+        Finished — the journal row and the FINISHED states are one fact.
+        ``drain_interval_s`` is the owning accumulator's drain cadence."""
         pk = self._task_pk(task_id)
         rids_b = b"".join(report_ids)
         row_crc = _accumulator_journal_crc(
@@ -2331,8 +2333,8 @@ class Transaction:
             self.conn.execute(
                 """INSERT INTO accumulator_journal (task_id, batch_identifier,
                     aggregation_param, aggregation_job_id, report_ids, created_at,
-                    row_crc)
-                   VALUES (?,?,?,?,?,?,?)""",
+                    row_crc, drain_interval_s)
+                   VALUES (?,?,?,?,?,?,?,?)""",
                 (
                     pk,
                     batch_identifier,
@@ -2341,6 +2343,7 @@ class Transaction:
                     rids_b,
                     self._now_s(),
                     row_crc,
+                    drain_interval_s,
                 ),
             )
         except self.ds.backend.integrity_errors as e:
@@ -2353,7 +2356,7 @@ class Transaction:
     ) -> List[AccumulatorJournalEntry]:
         pk = self._task_pk(task_id)
         sql = """SELECT id, batch_identifier, aggregation_param, aggregation_job_id,
-                        report_ids, created_at, row_crc
+                        report_ids, created_at, row_crc, drain_interval_s
                  FROM accumulator_journal WHERE task_id = ?"""
         args: List[Any] = [pk]
         if batch_identifier is not None:
@@ -2361,7 +2364,7 @@ class Transaction:
             args.append(batch_identifier)
         sql += " ORDER BY id"
         out = []
-        for rowid, ident, param, job_id, rids_b, created, row_crc in self.conn.execute(
+        for rowid, ident, param, job_id, rids_b, created, row_crc, interval in self.conn.execute(
             sql, args
         ):
             # NULL row_crc = pre-migration row, accepted unverified
@@ -2386,6 +2389,7 @@ class Transaction:
                         rids_b[i : i + 16] for i in range(0, len(rids_b), 16)
                     ),
                     created_at=Time(created),
+                    drain_interval_s=interval,
                 )
             )
         return out

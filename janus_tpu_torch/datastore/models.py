@@ -428,6 +428,8 @@ class AccumulatorJournalEntry:
     aggregation_job_id: AggregationJobId
     report_ids: Tuple[bytes, ...]
     created_at: Time
+    #: the owning accumulator's drain cadence (None: a pre-migration row)
+    drain_interval_s: Optional[float] = None
 
 
 # --------------------------------------------------------------------------

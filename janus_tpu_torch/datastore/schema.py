@@ -376,6 +376,15 @@ ALTER TABLE report_journal ADD COLUMN row_crc INTEGER;
 ALTER TABLE accumulator_journal ADD COLUMN row_crc INTEGER;
 """
 
+_JOURNAL_DRAIN_INTERVAL_SCHEMA = """
+-- The owner's cadence: drain_interval_s is the deferred-drain interval of
+-- the accumulator that holds the row's shares.  A collection step leaves a
+-- row younger than a few of these intervals to that owner's drain and
+-- replays only older rows (the owner is presumed dead).  NULL marks a
+-- pre-migration row, replayed at once as before.
+ALTER TABLE accumulator_journal ADD COLUMN drain_interval_s REAL;
+"""
+
 #: MIGRATIONS[k]: DDL taking schema version k -> k+1.  Append-only — never
 #: edit an entry that has shipped (existing stores have already applied it).
 MIGRATIONS = [
@@ -386,6 +395,7 @@ MIGRATIONS = [
     _FLEET_MEMBERS_SCHEMA,
     _REPORT_JOURNAL_SCHEMA,
     _QUARANTINE_SCHEMA,
+    _JOURNAL_DRAIN_INTERVAL_SCHEMA,
 ]
 
 SCHEMA_VERSION = len(MIGRATIONS)

@@ -5,7 +5,9 @@ Implements the TurboSHAKE128 sponge (Keccak-p[1600,12], rate 168, domain
 separation byte) and the Prio3 XOF built on it (draft-irtf-cfrg-vdaf-08
 §6.2.1, seed size 16).  Pure Python: this is the truth the batched CUDA
 Keccak kernels in ``janus_tpu_torch.ops.keccak_kernels`` are held against,
-and the per-row path the CUDA backend takes for rows the device flagged.
+and the per-row path the CUDA backend takes for rows the device flagged;
+``XofTurboShake128.expand_into_vec`` takes the C++ sponge of
+``native.py`` for Field64 and Field128.
 ``XofHmacSha256Aes128`` is libprio-rs's non-standard XOF of the HMAC
 multiproof VDAF (Daphne interop); it has no device twin and runs on the
 host for ``HybridXofBackend``.  ``XofFixedKeyAes128`` is the IDPF tree
@@ -18,6 +20,7 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import List
 
+from . import native
 from .fields import next_power_of_2
 
 _M64 = (1 << 64) - 1
@@ -163,6 +166,20 @@ class XofTurboShake128(Xof):
 
     def next(self, length: int) -> bytes:
         return self._sponge.squeeze(length)
+
+    @classmethod
+    def expand_into_vec(
+        cls, field: type, seed: bytes, dst: bytes, binder: bytes, length: int
+    ) -> List[int]:
+        # The C++ sponge (native.py) for the two moduli its rejection
+        # sampler hardcodes — gated on the EXACT modulus, since another
+        # 8- or 16-byte field must not be sampled against their bounds.
+        if field.MODULUS in native.MODULI:
+            out = native.next_vec(seed, dst, binder, field.MODULUS, length)
+            if out is not None:
+                return out
+            native.note_fallback()
+        return cls(seed, dst, binder).next_vec(field, length)
 
 
 @lru_cache(maxsize=4096)

@@ -414,7 +414,7 @@ def test_writer_journal_entries_defer_shares_and_persist_rows():
     writer.task = SimpleNamespace(task_id=b"task")
     job = SimpleNamespace(aggregation_parameter=b"", aggregation_job_id=b"job")
     writer._write_journal(tx, job, failures={})
-    assert calls == [(b"task", b"ident", b"", b"job", [b"r1", b"r2"])]
+    assert calls == [(b"task", b"ident", b"", b"job", [b"r1", b"r2"], None)]
     with pytest.raises(StaleAccumulatorDelta):
         writer._write_journal(tx, job, failures={b"r2": "collected"})
 

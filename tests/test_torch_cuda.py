@@ -513,3 +513,21 @@ def test_poplar1_resident_executor_flush_on_the_card(card):
     for st, _sh in backend.bp.prep_init_batch_host(b"\x2a" * 16, 0, ap, order):
         want = field.vec_add(want, st.y_flat)
     assert got == want and backend.sketch_readback_rows == 0
+
+
+def test_binaries_fleet_on_the_card(card, monkeypatch):
+    """``chip_smoke.py`` phase 18 at a small width: five binaries of
+    ``python -m janus_tpu_torch.binaries`` serve Histogram(8, 3) on the
+    card over localhost HTTP; the aggregate is exact, every gate of the
+    phase holds (no replay, no journal row left, cuda prepares, K1-K3
+    launched after the warmup, SIGTERM exits 0)."""
+    import chip_smoke
+
+    small = {"LENGTH": 8, "CHUNK": 3, "FLEET_REPORTS": 48, "FLEET_TAMPERED": 2, "FLEET_SHARD_WORKERS": 2,
+             "FLEET_WARMUP_ROWS": 64, "FLEET_JOB_SIZE": 16}
+    for name, value in small.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    rec = chip_smoke.binaries_phase(1, b"\x2a" * 16, chip_smoke.histogram_shard_job(1, 0, 24, 8, 3), {})
+    assert rec["journal_replays"] == 0 and rec["jobs"] >= 1
+    assert rec["journal_drains"] == rec["journal_rows"] == rec["journaled_jobs"] >= 1
+    assert all(rec["launches"][side]["flp_wire_evals"] > 0 for side in ("driver", "helper"))

@@ -32,6 +32,11 @@ def test_importing_the_port_loads_no_jax_or_janus_tpu():
     # the Poplar1 slice's modules
     for m in ("ops.aes", "ops.poplar1_batch", "vdaf.idpf", "vdaf.poplar1"):
         assert f"janus_tpu_torch.{m}" in mods, m
+    # the service binaries, the management API, their core modules and
+    # the host XOF
+    for m in ("binaries.main", "binaries.config", "binaries.janus_cli", "binaries.collect", "binaries.__main__",
+              "aggregator_api", "core.statusz", "core.slo", "core.otlp", "native"):
+        assert f"janus_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

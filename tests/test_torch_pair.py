@@ -111,8 +111,10 @@ class Pair:
     "inproc"); the port's sides run ``CudaBackend`` on the CPU behind their
     own executor with the accumulator on, or the oracle when ``oracle``."""
 
-    def __init__(self, desc, leader_pkg, helper_pkg, transport, oracle=False):
+    def __init__(self, desc, leader_pkg, helper_pkg, transport, oracle=False, drain_s=None):
         self.desc = desc
+        #: the port leader's deferred-drain interval (Poplar1: POPLAR_DRAIN_S)
+        self.drain_s = POPLAR_DRAIN_S if desc["type"] == "Poplar1" else drain_s
         self.pkgs = {"leader": leader_pkg, "helper": helper_pkg}
         self.transport = transport
         self.oracle = oracle
@@ -142,10 +144,10 @@ class Pair:
         else:
             ex = importlib.import_module("janus_tpu_torch.executor")
             acc = {"enabled": True}
-            if self.desc["type"] == "Poplar1":
-                # deferred drains: the leader keeps its sketch vectors on
-                # the device across the WAITING_LEADER hop
-                acc["drain_interval_s"] = POPLAR_DRAIN_S
+            if side == "leader" and self.drain_s:
+                # deferred drains (Poplar1: the leader keeps its sketch
+                # vectors on the device across the WAITING_LEADER hop)
+                acc["drain_interval_s"] = self.drain_s
             self.executors[side] = ex.DeviceExecutor(
                 ex.ExecutorConfig(flush_window_s=0.001, accumulator=ex.AccumulatorConfig(**acc))
             )
@@ -179,10 +181,13 @@ class Pair:
             role=M.Role.HELPER, aggregator_auth_token_hash=auth.new_bearer(AGG_TOKEN).hash(), **common
         )
 
-    async def run(self, measure, seed, tamper=True, agg_params=None):
+    async def run(self, measure, seed, tamper=True, agg_params=None, scenario=None):
         """Upload, aggregate and collect once; or, with ``agg_params``
         (Poplar1), collect once a parameter, each collection creating its
-        level's aggregation jobs.  Returns (result or results, valid
+        level's aggregation jobs; or, with ``scenario``, upload and hand
+        ``scenario(lds, session_factory, clock, collect)`` the leader's
+        datastore, the transport, the leader's clock and a coroutine
+        function that collects.  Returns (result or results, valid
         measurements)."""
         from janus_tpu_torch.messages import TaskId
 
@@ -229,7 +234,7 @@ class Pair:
                         f"{urls['leader'].rstrip('/')}/tasks/{self.task_id}/reports", data=report.get_encoded()
                     ) as resp:
                         assert resp.status == 201, await resp.text()
-                if agg_params is None:
+                if agg_params is None and scenario is None:
                     await self._aggregate(lds, session_factory)
                 collector = Collector(
                     task_id=self.task_id,
@@ -242,7 +247,9 @@ class Pair:
                 )
                 start = NOW - NOW % TIME_PRECISION
                 query = Query.new_time_interval(Interval(Time(start), Duration(TIME_PRECISION)))
-                if agg_params is None:
+                if scenario is not None:
+                    result = await scenario(lds, session_factory, clock, lambda: collector.collect(query, session=session))
+                elif agg_params is None:
                     result, _ = await asyncio.gather(
                         collector.collect(query, session=session), self._collect_jobs(lds, session_factory)
                     )
@@ -371,9 +378,9 @@ class Pair:
             ex.shutdown()
 
 
-def run_pair(pair, measure, seed, tamper=True, agg_params=None):
+def run_pair(pair, measure, seed, tamper=True, agg_params=None, scenario=None):
     try:
-        return asyncio.run(pair.run(measure, seed, tamper, agg_params))
+        return asyncio.run(pair.run(measure, seed, tamper, agg_params, scenario))
     finally:
         pair.shutdown()
 
@@ -469,6 +476,106 @@ def test_poplar1_pair_collects_prefix_counts(leader_pkg, helper_pkg, transport):
         store = pair.executors["leader"].accumulator
         assert store.spills >= len(POPLAR_LEVELS) and pair.journal_replays == 0
         assert store.drain_readback_rows >= len(POPLAR_LEVELS)
+
+
+#: the deferred-drain interval of the port leader in the cases below,
+#: seconds: longer than the whole case, so that no bucket comes due
+#: unbidden (the case drains by running the maintenance pass with every
+#: bucket due); a row's replay bound is 4 intervals of the leader's clock
+DEFERRED_DRAIN_S = 30.0
+
+
+@pytest.mark.parametrize("case", ["early_collection", "drain_race", "dead_owner"])
+def test_deferred_rows_go_to_the_owners_drain(case):
+    """The port leader keeps Sum out shares in a deferred accumulator (two
+    jobs into one batch bucket).  ``early_collection``: the collection job
+    is stepped as soon as the jobs are, before the bucket is due; it
+    leaves the young journal rows to the owner and asks again, and after
+    the cadence drain it collects.  ``drain_race``: a cadence drain runs
+    while the second job's journal row is not yet written; it takes only
+    the first job's rows, and the second job's rows stay resident for the
+    next drain.  Neither recomputes a row on the oracle.  ``dead_owner``:
+    the owner's resident sums are lost after the jobs commit; the rows are
+    left alone while young, and replayed exactly once when past the bound.
+    The aggregate is the JAX oracle's in every case."""
+    from janus_tpu_torch.aggregator import AggregationJobCreator, AggregationJobDriver, CollectionJobDriver
+    from janus_tpu_torch.aggregator import CreatorConfig, DriverConfig
+    from janus_tpu_torch.core.retries import HttpRetryPolicy
+
+    desc, measure = FAMILIES["sum"]
+    pair = Pair(desc, "janus_tpu_torch", "janus_tpu_torch", "inproc", drain_s=DEFERRED_DRAIN_S)
+    seen = {"replays": 0, "rows_after_early_step": None, "rows_in_race": None}
+
+    async def scenario(lds, session_factory, clock, collect):
+        ds, store = lds.datastore, pair.executors["leader"].accumulator
+        task_id = pair.task_id
+        rows = lambda: ds.run_tx("rows", lambda tx: tx.count_accumulator_journal_entries(task_id))  # noqa: E731
+        await asyncio.sleep(0.05)  # the upload batcher's write delay
+        await AggregationJobCreator(ds, CreatorConfig(min_aggregation_job_size=1, max_aggregation_job_size=4)).run_once()
+        driver = AggregationJobDriver(ds, session_factory, DriverConfig(
+            http_retry=HttpRetryPolicy(0.01, 0.1, 2.0, 2.0, 3), vdaf_device="cpu",
+            device_executor=pair.executors["leader"]))
+        coll = CollectionJobDriver(ds, session_factory)
+        replay = coll._replay_journal_entry
+
+        async def counted_replay(*args):
+            seen["replays"] += 1
+            return await replay(*args)
+
+        coll._replay_journal_entry = counted_replay
+        run_tx_async = ds.run_tx_async
+
+        async def drain_now():
+            """The cadence drain, with every bucket due."""
+            store.due_buckets = lambda _max_age_s: store.bucket_keys()
+            try:
+                await driver.run_accumulator_maintenance()
+            finally:
+                del store.due_buckets
+
+        async def racing_tx(name, fn, **kw):
+            if name == "step_agg_job_2" and rows() == 1:
+                # the second job's tx: the first job's bucket drains
+                # before this job's journal row is written
+                await drain_now()
+                seen["rows_in_race"] = rows()
+            return await run_tx_async(name, fn, **kw)
+
+        async def step_collection():
+            for lease in await ds.run_tx_async("acq_coll", lambda tx: tx.acquire_incomplete_collection_jobs(Duration(600), 10)):
+                await coll.step_collection_job(lease)
+
+        collecting = asyncio.ensure_future(collect())
+        try:
+            await asyncio.sleep(0.05)  # the collection job exists
+            if case == "drain_race":
+                ds.run_tx_async = racing_tx
+            leases = await ds.run_tx_async("acq", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(600), 10))
+            assert len(leases) == 2
+            for lease in leases:
+                await driver.step_aggregation_job(lease)
+            ds.run_tx_async = run_tx_async
+            if case == "dead_owner":
+                store.discard_all()
+            await step_collection()  # before any bucket is due
+            seen["rows_after_early_step"] = rows()
+            if case != "dead_owner":
+                await drain_now()
+            clock.advance(Duration(int(5 * DEFERRED_DRAIN_S)))  # past the not-ready delay and the bound
+            await step_collection()
+            return await asyncio.wait_for(collecting, 20)
+        finally:
+            collecting.cancel()
+            await driver.close()
+            await coll.close()
+
+    result, meas = run_pair(pair, measure, seed=5, scenario=scenario)
+    assert result.report_count == len(meas) == VALID
+    assert result.aggregate_result == jax_oracle_aggregate(desc, meas)
+    assert seen["rows_after_early_step"] == (1 if case == "drain_race" else 2)
+    assert seen["replays"] == (2 if case == "dead_owner" else 0)
+    if case == "drain_race":
+        assert seen["rows_in_race"] == 0
 
 
 def test_multiround_fake_vdaf_pair():
