@@ -96,7 +96,14 @@ them:
     with phase 14's distinct reports and 2 of its norm-lie reports, and
     the HMAC multiproof SumVec with phase 15's 2 reports (its FLP on the
     card, no port kernel launched: its XOF is on the host); no DP
-    strategy, so each aggregate is exact;
+    strategy, so each aggregate is exact.  The executors run the
+    reference's default canonical shapes: Histogram(1024, 316), SumVec100k
+    (317 gadget calls padded to 511) and FixedPoint(BitSize16, 1000)
+    resolve to their buckets' twins (each record names its twin under
+    ``served_as``), and since every flush holds one task it runs that
+    task's own prepare: K1-K3 for the Histogram, K1, K2 and K5 for
+    SumVec100k, and K2's select variant never; Count and Sum(32) sit on
+    their buckets' ceilings and keep their exact shape;
 14. **FixedPointBoundedL2VecSum at full width**, BitSize16 with 1,000
     entries (MEAS_LEN 16,030, chunk 126: gadget 0 has 128 calls, P = 256,
     the NTT; gadget 1 has 8 calls, P = 16, Horner), the registry's
@@ -164,10 +171,29 @@ them:
     driver's and the helper's /metrics count cuda prepares of every report
     and no fallback; no journal row is replayed or left; both executor
     processes hold the card and launch K1-K3 after their warmup (their
-    /statusz launch counts); /statusz shows the Histogram buckets and the
-    card; SIGTERM stops all five with exit 0.  Startup-to-ready seconds,
-    upload/s, seconds from the first upload to the collected aggregate and
-    the flush counts are printed.
+    /statusz launch counts; the default canonical shapes resolve the task
+    to its twin Histogram(1264, 316), and a flush of this one task runs the
+    task's own planar prepare, so K2's select variant stays at 0);
+    /statusz shows the Histogram buckets, a canonicalized plan and the
+    card; SIGTERM stops all five with exit 0.
+    Startup-to-ready seconds, upload/s, seconds from the first upload to
+    the collected aggregate and the flush counts are printed;
+19. **Canonical buckets**: Histogram(1024, 316) and Histogram(1000, 316)
+    (both 4 gadget calls, below their bucket's ceiling) share the twin
+    Histogram(1264, 316): phase 1's 64 reports and 64 of the second task
+    sharded during the build, each tiled to 2,016 rows plus 32 tampered
+    rows, one job a task a side through one ``DeviceExecutor`` that
+    resolves both tasks to one cached ``CudaBackend(twin,
+    canonical=True)``, one B = 4096 flush a side.  Each task's aggregate is
+    exact, every tampered row is rejected, 16 sampled rows a task equal
+    that task's oracle byte for byte (prep share, out share, joint-rand
+    seed), every out share has its task's length, one flush a side holds
+    both jobs, the twin's oracle prepares nothing and the tasks' oracles
+    only the not-ok rows (counted and printed), and no FLP kernel launches.
+    K2's select variant is held against its plain version at that flush's
+    joint-rand-part absorb and timed.  Then FixedPointBoundedL2VecSum
+    (BitSize16) at 1,000 and 1,003 entries share the twin with 1,006: 504
+    valid rows and 8 norm-lie rows a task, B = 1024, the same gates.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -177,6 +203,16 @@ power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.  It
 exits nonzero, printing no result, without a CUDA card or when any phase
 fails.
+
+``python3 chip_smoke.py --canonical-ab`` runs none of the phases above: it
+times one task's executor job (both sides, 4 jobs a side in one flush, out
+shares resident, commit and drain, as phases 11 and 12) three ways, in turns
+exact, twin, selected, selected, twin, exact: the task's own ``CudaBackend``
+(canonical shapes off), its bucket's twin running every flush on the masked
+row path (as the JAX package's canonical backend does), and the twin as the
+port runs it by default (a flush of one task shape on that shape's own
+prepare).  Histogram(1024, 316) at B = 4096 and SumVec100k at B = 1024; each
+job's aggregate is exact and its tampered rows rejected.
 """
 
 from __future__ import annotations
@@ -280,6 +316,21 @@ POPLAR_FLUSH_WINDOW_S = 1.0
 FLEET_REPORTS, FLEET_TAMPERED, FLEET_SHARD_WORKERS = 1024, 8, 6
 FLEET_JOB_SIZE, FLEET_CREATE_S, FLEET_DRAIN_S, FLEET_MAINTENANCE_S = 256, 0.5, 1.0, 0.25
 FLEET_WARMUP_ROWS, FLEET_FLUSH_WINDOW_MS, FLEET_TIMEOUT_S = 1024, 20, 300.0
+#: Phase 19, canonical buckets: two Histogram tasks below their bucket's
+#: ceiling (calls 4, P = 8) that share the twin Histogram(1264, 316), each
+#: with the phase's DISTINCT reports (the second task's sharded by
+#: CANON_HIST_WORKERS worker processes during the build) tiled to
+#: CANON_HIST_ROWS rows plus CANON_HIST_TAMPERED tampered ones, so that a
+#: side's flush is B = 4096; and FixedPointBoundedL2VecSum(BitSize16, ·) at
+#: the registry's width and at 1,003 entries, which share the twin with
+#: 1,006 entries: phase 14's reports for the first, CANON_FP_WORKERS workers
+#: of CANON_FP_PER_WORKER reports (and one norm lie each) for the second,
+#: CANON_FP_ROWS valid rows and CANON_FP_LIES norm-lie rows a task (B =
+#: 1024).
+CANON_HIST_LENGTHS, CANON_HIST_WORKERS = (LENGTH, 1000), 2
+CANON_HIST_ROWS, CANON_HIST_TAMPERED = 2016, 32
+CANON_FP_LENGTHS, CANON_FP_WORKERS, CANON_FP_PER_WORKER = (1000, 1003), 2, 2
+CANON_FP_ROWS, CANON_FP_LIES = 504, 8
 #: The five binaries of phase 18 and the binary each runs.
 FLEET = {"leader": "aggregator", "helper": "aggregator", "creator": "aggregation_job_creator",
          "driver": "aggregation_job_driver", "collection": "collection_job_driver"}
@@ -339,12 +390,17 @@ KECCAK_ROUND_DEPTH = 5
 #: Cycles from one dependent ALU instruction's issue to the next one's.
 ALU_DEPENDENT_CYCLES = 4
 
-KERNEL_NAMES = ("keccak_squeeze", "keccak_absorb", "flp_wire_evals", "flp_combine_decide", "flp_sumvec_wires")
+KERNEL_NAMES = ("keccak_squeeze", "keccak_absorb", "flp_wire_evals", "flp_combine_decide", "flp_sumvec_wires",
+                "keccak_absorb_select")
 #: Each kernel's wrapper as ``/statusz`` names it (core/statusz.py).
 STATUSZ_KERNELS = dict(zip(("keccak_kernels.squeeze", "keccak_kernels.absorb", "flp_kernels.wire_evals",
-                            "flp_kernels.combine_decide", "flp_kernels.sumvec_wires"), KERNEL_NAMES))
+                            "flp_kernels.combine_decide", "flp_kernels.sumvec_wires", "keccak_kernels.absorb_select"),
+                           KERNEL_NAMES))
 #: Each launch counter's kernel, as torch.profiler names its device events.
-DEVICE_KERNELS = dict(zip(KERNEL_NAMES, ("squeeze_kernel", "absorb_kernel", "wire_kernel", "combine_kernel", "sumvec_kernel")))
+DEVICE_KERNELS = dict(zip(KERNEL_NAMES, ("squeeze_kernel", "absorb_kernel", "wire_kernel", "combine_kernel", "sumvec_kernel",
+                                         "absorb_select_kernel")))
+#: The kernels of a canonical twin's masked row path (no FLP kernel).
+CANONICAL_KERNELS = ("keccak_squeeze", "keccak_absorb_select")
 #: Small kernels a trace runs before the calls it measures: late in a long
 #: process torch.profiler can miss the first few device activities of a
 #: trace (PERF.md, section 5), so these stand first and are not counted.
@@ -364,7 +420,7 @@ TRACE_TALLY = {"traces": 0, "primer_events_missing": 0, "lost": 0}
 #: Each counted path's kernel launches, by path.
 PATH_LAUNCHES = {}
 #: The FLP kernels (Field128 only): no Count, Sum or row-path run reaches them.
-FLP_KERNELS = KERNEL_NAMES[2:]
+FLP_KERNELS = KERNEL_NAMES[2:5]
 
 
 def log(msg: str) -> None:
@@ -514,7 +570,7 @@ def counters():
 
     return dict(zip(KERNEL_NAMES, (
         keccak_kernels.squeeze, keccak_kernels.absorb, flp_kernels.wire_evals,
-        flp_kernels.combine_decide, flp_kernels.sumvec_wires,
+        flp_kernels.combine_decide, flp_kernels.sumvec_wires, keccak_kernels.absorb_select,
     )))
 
 
@@ -627,16 +683,16 @@ def oracle_prep(vdaf, verify_key, report):
     return out
 
 
-def fixedpoint_shard_job(seed: int, worker: int, count: int, verify_key: bytes):
-    """``count`` distinct FP_DESC reports, each with the oracle's prep_init
-    of both sides, and one report whose claimed norm is 0 over entries of
-    norm > 0, sharded by the port's oracle (run in a worker process).
-    Returns ([(measurement, (nonce, public share, input shares), oracle)],
-    norm-lie report, seconds)."""
+def fixedpoint_shard_job(seed: int, worker: int, count: int, verify_key: bytes, length: int = FP_DESC["length"]):
+    """``count`` distinct FP_DESC reports (at ``length`` entries), each with
+    the oracle's prep_init of both sides, and one report whose claimed norm
+    is 0 over entries of norm > 0, sharded by the port's oracle (run in a
+    worker process).  Returns ([(measurement, (nonce, public share, input
+    shares), oracle)], norm-lie report, seconds)."""
     from janus_tpu_torch.vdaf.instances import vdaf_from_instance
 
     t0 = time.perf_counter()
-    vdaf = vdaf_from_instance(FP_DESC)
+    vdaf = vdaf_from_instance(dict(FP_DESC, length=length))
     valid = vdaf.flp.valid
     rng = np.random.default_rng([seed, 300 + worker])
     scale = 1 << (valid.bits_per_entry - 1)
@@ -764,6 +820,21 @@ def equal_outputs(what: str, got: dict, want: dict, rows=None) -> None:
             a, b = a[:rows], b[:rows]
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise AssertionError(f"{what}: {k} differs")
+
+
+def keccak_select_bound(last: torch.Tensor, out_words: int) -> dict:
+    """The bound of a K2 select call from this run's data: each report
+    needs only its own blocks (its final block + 1), read once, and its
+    output written once; the chain is the longest report's.  The kernel
+    itself runs every report over the longest row's blocks."""
+    need = last.to(torch.int64) + 1
+    blocks, longest, B = int(need.sum()), int(need.max()), need.numel()
+    moved = blocks * 168 + B * (4 * out_words + 4)
+    chain = longest * 12 * KECCAK_ROUND_DEPTH * ALU_DEPENDENT_CYCLES / sm_clock_hz() * 1e3
+    b = bound(moved, ops((blocks, KECCAK_P12)))
+    if chain > b["bound_ms"]:
+        b = {"bound_ms": chain, "bound_by": "operations", "bound_kind": "chain"}
+    return {**b, "chain_bound_ms": chain, "blocks_needed": blocks}
 
 
 def kernel_checks(backend, helper_rows, launches):
@@ -1499,8 +1570,9 @@ def executor_for(vdaf, batch: int, warmup: bool):
 
 def executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, jobs):
     """One aggregation job of both sides through the executor ``ex`` and its
-    accumulator: each side's rows as ``jobs`` submissions of equal size with
-    ``retain_out_shares`` to its backend (``backends[agg_id]``), one prepare
+    accumulator: each side's rows of the task ``vdaf`` as ``jobs``
+    submissions of equal size with ``retain_out_shares`` to its backend
+    (``backends[agg_id]``, the task's own or its bucket's twin), one prepare
     flush a side; the combine through the executor's combine kind on the
     helper's backend; the accepted rows' out shares committed per job and
     drained per side.  Shuts ``ex`` down.  Returns (drained aggregate
@@ -1509,11 +1581,12 @@ def executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, jobs)
 
     from janus_tpu_torch.core import trace
     from janus_tpu_torch.executor import KIND_COMBINE, KIND_PREP_INIT, ResidentRef
-    from janus_tpu_torch.vdaf.backend import vdaf_shape_key
+    from janus_tpu_torch.vdaf.backend import prep_request
+    from janus_tpu_torch.vdaf.canonical import backend_shape_key
 
     B = len(leader_rows)
     size = B // jobs
-    key = vdaf_shape_key(vdaf)
+    key = backend_shape_key(backends[0])
     secs = {}
     spans = []
     sink = lambda name, cat, start, dur, args: spans.append((name, dur))  # noqa: E731
@@ -1521,8 +1594,8 @@ def executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, jobs)
 
     async def prep(agg_id, rows):
         outs = await asyncio.gather(*[
-            ex.submit(key, KIND_PREP_INIT, (verify_key, rows[j * size:(j + 1) * size]), backend=backends[agg_id],
-                      agg_id=agg_id, retain_out_shares=True)
+            ex.submit(key, KIND_PREP_INIT, prep_request(backends[agg_id], verify_key, rows[j * size:(j + 1) * size], vdaf),
+                      backend=backends[agg_id], agg_id=agg_id, retain_out_shares=True)
             for j in range(jobs)
         ])
         return [o for job in outs for o in job]
@@ -1896,7 +1969,11 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
     collector collects.  Raises unless the aggregate is ``expect`` over
     exactly the untampered reports, no out share was read back or recomputed,
     no oracle served a row, no breaker tripped, every leader row was
-    marshalled from its bytes and the kernels ``needs`` launched.  Returns
+    marshalled from its bytes and the kernels ``needs`` launched.  The
+    executors run the reference's default, canonical shapes: a task below
+    its bucket's ceiling resolves to the bucket's twin, which the record
+    names under ``served_as``; each flush holds this one task, so it runs
+    the task's own prepare (K2's select variant may not launch).  Returns
     the record."""
     import asyncio
 
@@ -1916,7 +1993,8 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
     from janus_tpu_torch.executor import AccumulatorConfig, DeviceExecutor, ExecutorConfig
     from janus_tpu_torch.messages import Duration, Interval, Query, ReportId, Role, TaskId, Time
     from janus_tpu_torch.utils.gcm import HAVE_FUNCTIONAL_CRYPTOGRAPHY
-    from janus_tpu_torch.vdaf.backend import make_backend, vdaf_shape_key
+    from janus_tpu_torch.vdaf.backend import make_backend
+    from janus_tpu_torch.vdaf.canonical import executor_shape
     from janus_tpu_torch.vdaf.instances import vdaf_from_instance
 
     precision = 3600
@@ -1924,10 +2002,17 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
     start = now - now % precision
     agg_token, col_token = AuthenticationToken.new_bearer("pair-agg"), AuthenticationToken.new_bearer("pair-col")
     vdaf = vdaf_from_instance(desc)
-    key = vdaf_shape_key(vdaf)
+    # the key and backend the driver and the helper resolve: the bucket's
+    # twin where the task has one (the executors' default canonical shapes)
+    key, twin = executor_shape(vdaf)
     secs = {}
     rec = {"reports": len(shards), "tampered": int(sum(tampered)),
            "hpke_route": "cryptography" if HAVE_FUNCTIONAL_CRYPTOGRAPHY else "pure"}
+    if twin is not None:
+        tv = twin.flp.valid
+        rec["served_as"] = {"twin": {k: v for k, v in vars(tv).items() if isinstance(v, int) and not k.startswith("_")},
+                            "calls": [list(vdaf.flp.valid.GADGET_CALLS), list(tv.GADGET_CALLS)],
+                            "meas_len": [vdaf.flp.MEAS_LEN, twin.flp.MEAS_LEN]}
     # busy seconds by layer: [calls, total, max] of the handlers, the
     # datastore transactions, the HPKE opens, the driver's steps and the
     # executor's spans
@@ -1975,7 +2060,8 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
             t0 = time.perf_counter()
             backends = {}
             for agg_id, side in enumerate(ds):
-                b = backends[side] = ex[side].backend_for(key, lambda: make_backend(vdaf, "cuda", device=DEVICE))
+                b = backends[side] = ex[side].backend_for(
+                    key, lambda: make_backend(twin or vdaf, "cuda", device=DEVICE, canonical=twin is not None))
                 # a backend with no executor surface (HybridXofBackend) has
                 # no launch to warm
                 if ex[side].warmup_backend(b, agg_ids=(agg_id,), pad_to=min(PAIR_JOB_SIZE, len(shards))):
@@ -2076,6 +2162,13 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
     marshal = backends["leader"].leader_marshal_rows
     if marshal != {"bytes": len(shards), "values": 0}:
         raise AssertionError(f"pair {name}: leader rows marshalled {marshal}, not all {len(shards)} from their bytes")
+    if twin is not None:
+        for side, b in backends.items():
+            if not getattr(b, "canonical", False) or b.vdaf is not twin:
+                raise AssertionError(f"pair {name}: the {side} served from {type(b).__name__}, not the canonical twin")
+        if launches["keccak_absorb_select"]:
+            raise AssertionError(f"pair {name}: a flush of one task took the twin's masked row path: {launches}")
+        rec["served_as"]["route"] = backends["leader"]._prep_fn(0, PAIR_JOB_SIZE, vdaf).__name__
     flushes = {side: sum(v["flushes"] for k, v in st.items() if "/prep_init#" in k) for side, st in stats.items()}
     for span, dur in spans:
         slot = layers.setdefault(f"span {span}", [0, 0.0, 0.0])
@@ -2091,10 +2184,11 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
         "device_peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
         "report_count": result.report_count,
     })
+    served = (f"; served by the twin {json.dumps(rec['served_as'])}" if twin is not None else "; exact shape")
     log(f"pair {name}: {len(shards)} reports ({rec['tampered']} tampered, rejected) in {rec['jobs']} jobs; aggregate "
         f"exact; {flushes} prepare flushes a side; upload {secs['upload']:.3f} s ({rec['uploads_per_s']:.1f}/s, "
         f"{rec['hpke_route']} HPKE); first job {secs['first_job']:.3f} s; end to end {secs['end_to_end']:.3f} s "
-        f"({rec['reports_per_s']:.1f} reports/s)")
+        f"({rec['reports_per_s']:.1f} reports/s){served}")
     return rec
 
 
@@ -2119,6 +2213,11 @@ def pair_phase(verify_key, rng, hist_shards, sv_done, fp_done, mp_done, mp_verif
                           tampered_flags(PAIR_SUM_REPORTS, PAIR_TAMPERED), sum, verify_key,
                           ("keccak_squeeze", "keccak_absorb"))
     torch.cuda.empty_cache()
+    # Histogram(1024, 316), SumVec100k and FixedPoint(BitSize16, 1000) sit
+    # below their buckets' ceilings: under the default canonical shapes
+    # they resolve to their twins, whose flushes of one task run the task's
+    # own prepare (planar K3 and K5 where eligible; pair_run holds K2's
+    # select variant at 0)
     out["histogram"] = pair_run(
         "histogram", {"type": "Prio3Histogram", "length": LENGTH, "chunk_length": CHUNK}, hist_shards,
         tampered_flags(len(hist_shards), PAIR_TAMPERED),
@@ -2700,9 +2799,12 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
     one for each job that accepted a report (a job of rejected reports
     only writes none); no journal row is left on either datastore; both executor
     processes hold the card (``nvidia-smi --query-compute-apps``); both
-    /statusz documents show the executor's Histogram buckets and name the
-    card; K1-K3 launched in both after their warmup; and SIGTERM stops all
-    five with exit 0.  On a failure it prints the check, the traceback and
+    /statusz documents show the executor's Histogram buckets, a
+    canonicalized plan and the card; K1-K3 launched in both after their
+    warmup (under the reference's default canonical shapes Histogram(1024,
+    316) resolves to its twin Histogram(1264, 316), and a flush of this one
+    task runs the task's own planar prepare: K2's select variant stays at
+    0); and SIGTERM stops all five with exit 0.  On a failure it prints the check, the traceback and
     the last 40 lines of each binary's log.  Returns the record."""
     import asyncio
     import base64
@@ -2718,6 +2820,7 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
     from janus_tpu_torch.core.time import RealClock
     from janus_tpu_torch.datastore import Crypter, Datastore, ReportAggregationState
     from janus_tpu_torch.messages import Duration, Interval, ReportId, TaskId, Time
+    from janus_tpu_torch.vdaf.canonical import canonical_vdaf_for
     from janus_tpu_torch.vdaf.instances import vdaf_from_instance
 
     t_phase = time.perf_counter()
@@ -2726,6 +2829,7 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
     work = tempfile.mkdtemp(prefix="janus-fleet-")
     desc = {"type": "Prio3Histogram", "length": LENGTH, "chunk_length": CHUNK}
     vdaf = vdaf_from_instance(desc)
+    canonical = canonical_vdaf_for(vdaf) is not None
     precision = 3600
     start = int(time.time()) // precision * precision
     rng = np.random.default_rng([seed, 18])
@@ -2958,12 +3062,18 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
                 raise AssertionError(f"binaries: the {name}'s /statusz shows buckets {sorted(buckets)} and devices "
                                      f"{doc['device']['devices']}, not Histogram buckets on {card}")
             rec.setdefault("statusz_flushes", {})[name] = hist
+            plans = doc["executor"]["canonicalization"]
+            rec.setdefault("statusz_canonicalization", {})[name] = plans
+            if canonical and not plans.get("canonicalized"):
+                raise AssertionError(f"binaries: the {name}'s /statusz shows no canonicalized plan: {plans}")
             launches = {STATUSZ_KERNELS[k]: v - warm_launches[name][k] for k, v in doc["device"]["kernel_launches"].items()}
             PATH_LAUNCHES[f"binaries {name}"] = rec["launches"][name] = launches
             log(f"binaries {name} launches: {json.dumps(launches)}")
             missing = [k for k in KERNEL_NAMES[:3] if launches[k] <= 0]
             if missing and DEVICE == "cuda":  # a CPU rehearsal takes the plain versions
                 raise AssertionError(f"binaries: the {name} never launched {missing} after its warmup")
+            if launches["keccak_absorb_select"]:
+                raise AssertionError(f"binaries: the {name}'s flushes of one task took the twin's masked path: {launches}")
 
         # -- SIGTERM stops all five with exit 0
         for p in procs.values():
@@ -2993,6 +3103,328 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
     return rec
 
 
+def fixedpoint_rows(vdaf, fp_done, rng, rows: int, lie_rows: int):
+    """FixedPoint rows as phase 14 builds them: the distinct reports of
+    ``fp_done`` tiled to ``rows`` and ``lie_rows`` rows of its norm-lie
+    reports, shuffled, the leader's shares decoded as an upload delivers
+    them.  Returns (leader rows, helper rows, rejected flags, distinct
+    report per row (-1 for a lie), measurements, oracle outputs)."""
+    shards = [x for done, _lie, _s in fp_done for x in done]
+    lies = [lie for _done, lie, _s in fp_done]
+    meas, reports, oracle = zip(*shards)
+    leader_rows, helper_rows, bad, src = build_batch(vdaf, list(reports), rng, rows, 0)
+    extra = [lies[i % len(lies)] for i in range(lie_rows)]
+    order = rng.permutation(rows + lie_rows)
+    leader_rows = [(leader_rows + [(n, p, s[0]) for n, p, s in extra])[j] for j in order]
+    helper_rows = [(helper_rows + [(n, p, s[1]) for n, p, s in extra])[j] for j in order]
+    bad = np.concatenate([bad, np.ones(lie_rows, dtype=bool)])[order]
+    src = np.concatenate([src, -np.ones(lie_rows, dtype=src.dtype)])[order]
+    return decoded_leader_rows(vdaf, leader_rows), helper_rows, bad, src, meas, oracle
+
+
+def canonical_bucket(name, tasks, verify_key, rng):
+    """One canonical bucket on the card: the tasks (dicts of ``vdaf``,
+    ``leader``/``helper`` rows, ``bad`` flags, ``expect`` (accepted mask ->
+    aggregate) and ``oracle`` (row, agg_id -> the oracle's prep share
+    bytes, out share and seed)) all resolve through one ``DeviceExecutor``
+    to one cached ``CudaBackend(twin, canonical=True)``, warmed at the
+    flush's size; each side's jobs (one a task, 3-tuple requests) flush
+    once together, and so do the combines.  Raises unless the tasks share
+    one key and one backend, one flush a side holds every task, each
+    aggregate is exact, every rejected row is rejected and no other, every
+    out share has its task's length, SAMPLED rows a task equal its oracle
+    byte for byte (prep share, out share, joint-rand seed), every leader
+    row was marshalled from its bytes, the twin's oracle prepared nothing
+    and the tasks' oracles only the not-ok rows, and no FLP kernel
+    launched.  Returns (record, backend, the helper's staged flush)."""
+    import asyncio
+
+    from janus_tpu_torch.executor import KIND_COMBINE, KIND_PREP_INIT, DeviceExecutor, ExecutorConfig
+    from janus_tpu_torch.vdaf.backend import make_backend
+    from janus_tpu_torch.vdaf.canonical import executor_shape
+
+    shapes = [executor_shape(t["vdaf"]) for t in tasks]
+    key, twin = shapes[0]
+    if twin is None or any(k != key for k, _ in shapes):
+        raise AssertionError(f"canonical {name}: the tasks do not share one canonical key")
+    batch = sum(len(t["leader"]) for t in tasks)
+    ex = DeviceExecutor(ExecutorConfig(flush_max_rows=batch))
+    resolved = [ex.backend_for(k, lambda: make_backend(twin, "cuda", device=DEVICE, canonical=True)) for k, _ in shapes]
+    backend = resolved[0]
+    if any(b is not backend for b in resolved) or not backend.canonical or backend.vdaf is not twin:
+        raise AssertionError(f"canonical {name}: the tasks resolved {len({id(b) for b in resolved})} backends")
+    t0 = time.perf_counter()
+    ex.warmup_backend(backend, pad_to=batch)
+    warm_s = time.perf_counter() - t0
+    backend.outshare_readback_rows = 0
+    backend.leader_marshal_rows = {"bytes": 0, "values": 0}
+    route = backend._prep_fn(0, batch).__name__
+    if route != "prep_init":
+        raise AssertionError(f"canonical {name}: a flush of {batch} rows takes {route}, not the masked row path")
+
+    async def job():
+        secs, preps = {}, {}
+        for agg_id, side in ((0, "leader"), (1, "helper")):
+            t0 = time.perf_counter()
+            preps[agg_id] = await asyncio.gather(*[
+                ex.submit(key, KIND_PREP_INIT, (verify_key, t[side], t["vdaf"]), backend=backend, agg_id=agg_id,
+                          task_ident=bytes([i]))
+                for i, t in enumerate(tasks)
+            ])
+            secs[f"{side}_prep_init"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        msgs = await asyncio.gather(*[
+            ex.submit(key, KIND_COMBINE, [[a[1], h[1]] for a, h in zip(preps[0][i], preps[1][i])], backend=backend,
+                      agg_id=1, task_ident=bytes([i]))
+            for i in range(len(tasks))
+        ])
+        secs["combine"] = time.perf_counter() - t0
+        return preps, msgs, secs
+
+    try:
+        t_job = time.perf_counter()
+        (preps, msgs, secs), launches = counted(f"canonical {name}", CANONICAL_KERNELS, lambda: asyncio.run(job()))
+        e2e = time.perf_counter() - t_job
+        stats = ex.stats()
+    finally:
+        ex.shutdown()
+    no_flp_kernels(f"canonical {name}", launches)
+    prep_stats = {k: v for k, v in stats.items() if "/prep_init#" in k}
+    if len(prep_stats) != 2 or any(v["flushes"] != 1 or v["flushed_jobs"] != len(tasks) for v in prep_stats.values()):
+        raise AssertionError(f"canonical {name}: prepare buckets {prep_stats}, not one flush a side of {len(tasks)} jobs")
+    f = backend.bp.f
+    record = {"twin": {k: v for k, v in vars(twin.flp.valid).items() if isinstance(v, int) and not k.startswith("_")},
+              "batch": batch, "route": route, "seconds": e2e, "phases_s": secs, "warmup_s": warm_s,
+              "executor_stats": stats, "launches": launches, "tasks": []}
+    t0 = time.perf_counter()
+    for i, t in enumerate(tasks):
+        vdaf, bad = t["vdaf"], t["bad"]
+        lead, help_ = preps[0][i], preps[1][i]
+        accepted = np.zeros(len(lead), dtype=bool)
+        for b, msg in enumerate(msgs[i]):
+            if isinstance(msg, Exception):
+                continue
+            vdaf.prep_next(lead[b][0], msg)
+            vdaf.prep_next(help_[b][0], msg)
+            accepted[b] = True
+        check_decisions(accepted, bad)
+        out_len = vdaf.flp.OUTPUT_LEN
+        if any(len(st.out_share) != out_len for side in (lead, help_) for st, _ in side):
+            raise AssertionError(f"canonical {name}: an out share of task {i} is not {out_len} long")
+        aggs = []
+        for side in (lead, help_):
+            limbs = f.to_limbs([x for st, _ in side for x in st.out_share]).reshape(len(side), out_len, f.n)
+            aggs.append(backend.aggregate_batch(limbs, accepted))
+        if vdaf.unshard(aggs, int(accepted.sum())) != t["expect"](accepted):
+            raise AssertionError(f"canonical {name}: task {i}'s aggregate differs from the exact one")
+        for b in rng.choice(np.flatnonzero(~bad), SAMPLED, replace=False):
+            for agg_id in (0, 1):
+                compare_row(vdaf, b, agg_id, preps[agg_id][i][b], t["oracle"](b, agg_id))
+        record["tasks"].append({"meas_len": vdaf.flp.MEAS_LEN, "output_len": out_len, "rows": len(lead),
+                                "accepted": int(accepted.sum()), "rejected": int((~accepted).sum())})
+    record["checks_s"] = time.perf_counter() - t0
+    recomputed = backend.oracle_recompute_rows
+    task_oracle_rows = sum(o.rows["init"] for o in backend._oracles.values())
+    if any(backend.oracle.rows.values()) or task_oracle_rows != recomputed:
+        raise AssertionError(f"canonical {name}: the twin's oracle rows {backend.oracle.rows}, the tasks' "
+                             f"{task_oracle_rows} for {recomputed} not-ok rows")
+    if backend.leader_marshal_rows != {"bytes": batch, "values": 0}:
+        raise AssertionError(f"canonical {name}: leader rows marshalled {backend.leader_marshal_rows}")
+    record.update(oracle_recompute_rows=recomputed, host_seconds=dict(backend.host_seconds),
+                  outshare_readback_rows=backend.outshare_readback_rows)
+    staged = backend.stage_prep_init_multi(1, [(verify_key, t["helper"], t["vdaf"]) for t in tasks])
+    log(f"canonical {name}: {len(tasks)} tasks of MEAS_LEN {[t['vdaf'].flp.MEAS_LEN for t in tasks]} on one twin "
+        f"(MEAS_LEN {twin.flp.MEAS_LEN}), one flush a side of B = {batch} on {route}; aggregates exact; "
+        f"{sum(int(t['bad'].sum()) for t in tasks)} tampered rows rejected; {SAMPLED} sampled rows a task equal its "
+        f"oracle; {recomputed} not-ok rows recomputed by the tasks' oracles; job {e2e:.3f} s")
+    return record, backend, staged
+
+
+def canonical_phase(verify_key, rng, hist, h1000_shards, fp_done, fp1003_done, phases):
+    """Phase 19: canonical buckets on the card.  Histogram(1024, 316) and
+    Histogram(1000, 316) through one twin at B = 4096 a side; the K2 select
+    kernel against its plain version at that flush's joint-rand-part
+    absorb; FixedPoint(BitSize16, 1000) and (1003) through one twin at B =
+    1024 a side.  Returns (record, the K2 select kernel's entry)."""
+    from janus_tpu_torch.ops import keccak_kernels
+    from janus_tpu_torch.ops.field import storage
+    from janus_tpu_torch.vdaf.instances import prio3_histogram, vdaf_from_instance
+
+    t_phase = time.perf_counter()
+    record = {}
+    reports, meas = hist
+    sources = {CANON_HIST_LENGTHS[0]: (reports, meas),
+               CANON_HIST_LENGTHS[1]: ([r for _m, r in h1000_shards], [m for m, _r in h1000_shards])}
+    tasks = []
+    for length in CANON_HIST_LENGTHS:
+        vdaf = prio3_histogram(length, CHUNK)
+        reps, ms = sources[length]
+        lead, help_, bad, src = build_batch(vdaf, reps, rng, CANON_HIST_ROWS + CANON_HIST_TAMPERED, CANON_HIST_TAMPERED)
+        lead = decoded_leader_rows(vdaf, lead)
+
+        def oracle(b, agg_id, vdaf=vdaf, rows=(lead, help_)):
+            nonce, public, share = rows[agg_id][b]
+            state, pshare = vdaf.prep_init(verify_key, agg_id, nonce, public, share)
+            return pshare.encode(vdaf), state.out_share, state.corrected_joint_rand_seed
+
+        tasks.append({"vdaf": vdaf, "leader": lead, "helper": help_, "bad": bad, "oracle": oracle,
+                      "expect": lambda acc, ms=ms, src=src, n=length: np.bincount(
+                          np.array(ms)[src[acc]], minlength=n).tolist()})
+    torch.cuda.reset_peak_memory_stats()
+    record["histogram"], backend, staged = canonical_bucket("histogram", tasks, verify_key, rng)
+    record["histogram"]["device_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    phases["canonical_histogram"] = time.perf_counter() - t_phase
+
+    # K2's select variant at the flush's shape: the helper's joint-rand-part
+    # absorb over both tasks' rows, each padded at its own length.
+    t0 = time.perf_counter()
+    bp, kw = backend.bp, staged.placed
+    B = staged.pad_to
+    ml = kw["meas_len"].long()
+    meas_rows = storage(bp.helper_shares(1, kw["share_seeds_u8"])[0].reshape(B, -1))
+    jmsg = bp._jr_part_message(1, kw["blinds_u8"], kw["nonces_u8"], keccak_kernels.rows_to_planes(meas_rows), ml)
+    last = ((bp._jr_part_head_len(kw["blinds_u8"], kw["nonces_u8"]) + 4 * bp.f.n * ml) // 168).to(torch.int32)
+    na = jmsg.shape[0] // 42
+    got = keccak_kernels.absorb_select(jmsg, last, 4)
+    want = keccak_kernels.absorb_select_plain(jmsg, last, 4)
+    entry = {
+        "name": "keccak_absorb_select", "route": "cuda", "source": "janus_tpu_torch/csrc/keccak.cu",
+        "replaces": "janus_tpu/ops/keccak_pallas.py:166",
+        "variant_of": "keccak_absorb, for janus_tpu/ops/keccak_jax.py:202 (turboshake128_batch_select)",
+        "launches": PATH_LAUNCHES["canonical histogram"]["keccak_absorb_select"],
+        "max_abs_err": max_abs_err(got, want),
+        # the wrapper's time holds its final-block check (one read back);
+        # the profiler's is the kernel's own
+        "ms": cuda_time_ms(lambda: keccak_kernels.absorb_select(jmsg, last, 4), 20),
+        "kernel_ms": profiled_kernel_ms(lambda: keccak_kernels.absorb_select(jmsg, last, 4), "absorb_select_kernel"),
+        "plain_ms": cuda_time_ms(lambda: keccak_kernels.absorb_select_plain(jmsg, last, 4), 1),
+        **keccak_select_bound(last, 4), "library_ms": None, "tolerance": TOLERANCE,
+        "shape": f"in ({jmsg.shape[0]}, {B}) -> out (4, {B}), {na} blocks run, final blocks "
+                 f"{sorted(set((last + 1).tolist()))}",
+    }
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+    del got, want, jmsg, meas_rows, staged, backend, bp
+    log(f"canonical K2 select: {json.dumps(entry)}")
+    phases["canonical_select_check"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tasks = []
+    for length, done in zip(CANON_FP_LENGTHS, (fp_done, fp1003_done)):
+        vdaf = vdaf_from_instance(dict(FP_DESC, length=length))
+        lead, help_, bad, src, ms, oracle = fixedpoint_rows(vdaf, done, rng, CANON_FP_ROWS, CANON_FP_LIES)
+        tasks.append({
+            "vdaf": vdaf, "leader": lead, "helper": help_, "bad": bad,
+            "oracle": lambda b, agg_id, oracle=oracle, src=src: oracle[src[b]][agg_id],
+            "expect": lambda acc, ms=ms, src=src, n=length: [sum(ms[i][j] for i in src[acc]) for j in range(n)],
+        })
+    torch.cuda.reset_peak_memory_stats()
+    record["fixedpoint"], _backend, _staged = canonical_bucket("fixedpoint", tasks, verify_key, rng)
+    record["fixedpoint"]["device_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    record["fixedpoint"]["shard_s"] = [s for _d, _l, s in fp1003_done]
+    phases["canonical_fixedpoint"] = time.perf_counter() - t0
+    phases["canonical"] = time.perf_counter() - t_phase
+    return record, entry
+
+
+#: ``--canonical-ab``: the variants of one task's executor job, in turns.
+AB_ORDER = ("exact", "twin", "selected", "selected", "twin", "exact")
+
+
+def ab_backends(variant, vdaf):
+    """Both sides' backends of one ``--canonical-ab`` variant: the task's own
+    ``CudaBackend`` (``exact``), or its bucket's twin that runs every flush
+    on the masked row path (``twin``) or a flush of one shape on that
+    shape's own prepare (``selected``, the default).  The selected twin's
+    prepare of the task's shape is built here, before the clock starts, as
+    the exact backend's is.  Returns (backends, seconds that build took)."""
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+    from janus_tpu_torch.vdaf.canonical import canonical_vdaf_for
+
+    if variant == "exact":
+        return {a: CudaBackend(vdaf, device=DEVICE) for a in (0, 1)}, 0.0
+    twin = canonical_vdaf_for(vdaf)
+    backends = {a: CudaBackend(twin, device=DEVICE, canonical=True) for a in (0, 1)}
+    t0 = time.perf_counter()
+    for b in backends.values():
+        b.one_shape_exact = variant == "selected"
+        if b.one_shape_exact:
+            b._bp_for(vdaf)
+    return backends, time.perf_counter() - t0
+
+
+def ab_case(name, vdaf, verify_key, batch, expect, needs):
+    """One task's executor job (``executor_job``: both sides, EXECUTOR_JOBS
+    jobs a side in one flush, out shares resident, commit and drain) for
+    each variant of AB_ORDER, each warmed at the flush's size.  Raises
+    unless every aggregate is ``expect`` of the accepted rows, the tampered
+    rows are rejected, ``needs[variant]`` launched, the twin launched no FLP
+    kernel and the others not K2's select variant.  Returns the records."""
+    from janus_tpu_torch.executor import AccumulatorConfig, DeviceExecutor, ExecutorConfig
+
+    leader_rows, helper_rows, tampered, src = batch
+    B = len(leader_rows)
+    records = []
+    for variant in AB_ORDER:
+        backends, bp_s = ab_backends(variant, vdaf)
+        ex = DeviceExecutor(ExecutorConfig(flush_max_rows=B, accumulator=AccumulatorConfig(enabled=True)))
+        t0 = time.perf_counter()
+        for a, b in backends.items():
+            ex.warmup_backend(b, agg_ids=(a,), pad_to=B)
+            b.outshare_readback_rows = 0
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        (aggs, accepted, _results, record), launches = counted(
+            f"canonical ab {name} {variant}", needs[variant],
+            lambda: executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, EXECUTOR_JOBS))
+        if vdaf.unshard(aggs, int(accepted.sum())) != expect(src[accepted]):
+            raise AssertionError(f"canonical ab {name} {variant}: the drained aggregate is not the exact one")
+        check_decisions(accepted, tampered)
+        if variant == "twin":
+            no_flp_kernels(f"canonical ab {name} {variant}", launches)
+        elif launches["keccak_absorb_select"]:
+            raise AssertionError(f"canonical ab {name} {variant}: K2's select variant launched: {launches}")
+        records.append({"variant": variant, "seconds": record["seconds"], "phases_s": record["phases_s"],
+                        "stage_launch_s": record["stage_launch_s"], "warmup_s": warm_s, "task_prepare_build_s": bp_s,
+                        "launches": launches, "device_peak_memory_bytes": torch.cuda.max_memory_allocated()})
+        log(f"canonical ab {name} {variant}: job {record['seconds']:.3f} s, {json.dumps(record['phases_s'])}")
+        del backends, ex, aggs, _results
+        torch.cuda.empty_cache()
+    return records
+
+
+def canonical_ab(seed: int) -> dict:
+    """``--canonical-ab``: Histogram(1024, 316) at B = 4096 (phase 1's 64
+    reports tiled to 4032 rows plus 64 tampered) and SumVec100k at B = 1024
+    (2 reports from worker processes tiled to 960 rows plus 64 tampered)
+    through ``ab_case``.  Returns the records by task."""
+    from janus_tpu_torch import _build
+    from janus_tpu_torch.vdaf.instances import prio3_histogram, prio3_sum_vec
+
+    rng = np.random.default_rng(seed)
+    verify_key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    with ProcessPoolExecutor(max_workers=SV_DISTINCT, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(sumvec_oracle_job, seed, i, verify_key) for i in range(SV_DISTINCT)]
+        _build.build()
+        hist = prio3_histogram(LENGTH, CHUNK)
+        reports, meas = shard_reports(hist, rng, lambda r: int(r.integers(0, LENGTH)))
+        done = [j.result() for j in jobs]
+    out = {}
+    lead, help_, bad, src = build_batch(hist, reports, rng, BATCH, TAMPERED)
+    planar = {v: KERNEL_NAMES[:3] for v in ("exact", "selected")}
+    out["histogram"] = ab_case(
+        "histogram", hist, verify_key, (decoded_leader_rows(hist, lead), help_, bad, src),
+        lambda rows: np.bincount(np.array(meas)[rows], minlength=LENGTH).tolist(), dict(planar, twin=CANONICAL_KERNELS))
+    sv = prio3_sum_vec(SV_LENGTH, 1, SV_CHUNK)
+    sv_meas = [d[0] for d in done]
+    lead, help_, bad, src = build_batch(sv, [d[1] for d in done], rng, SV_BATCH * SV_TILE, SV_TAMPERED * SV_TILE)
+    planar = {v: ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires") for v in ("exact", "selected")}
+    out["sumvec"] = ab_case(
+        "sumvec", sv, verify_key, (decoded_leader_rows(sv, lead), help_, bad, src),
+        lambda rows: np.sum([sv_meas[i] for i in rows], axis=0).tolist(), dict(planar, twin=CANONICAL_KERNELS))
+    return out
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -3004,6 +3436,8 @@ def nvidia_smi(query: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--canonical-ab", action="store_true",
+                    help="time one task's executor job on its own backend and on its bucket's twin, and nothing else")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3021,6 +3455,11 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"largest SM clock {sm_clock_hz() / 1e6:.0f} MHz")
+    if args.canonical_ab:
+        log(json.dumps({"canonical_ab": canonical_ab(args.seed)}))
+        log(nvidia_smi("name,power.limit"))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
     rng = np.random.default_rng(args.seed)
     verify_key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
     # the HMAC multiproof's 32-byte key, from its own generator so that the
@@ -3033,7 +3472,8 @@ def main() -> int:
     # SumVec100k report (the multiproof's two proofs, the FixedPoint
     # reports); worker processes do it during the build and the histogram
     # sharding, the longest first, and end before any timed phase starts.
-    workers = MP_DISTINCT + SV_DISTINCT + SV8_WORKERS + PAIR_HIST_WORKERS + FP_WORKERS + POPLAR_WORKERS
+    workers = (MP_DISTINCT + SV_DISTINCT + SV8_WORKERS + PAIR_HIST_WORKERS + FP_WORKERS + POPLAR_WORKERS
+               + CANON_HIST_WORKERS + CANON_FP_WORKERS)
     with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as pool:
         mp_jobs = [pool.submit(multiproof_oracle_job, args.seed, i, mp_verify_key) for i in range(MP_DISTINCT)]
         jobs = [pool.submit(sumvec_oracle_job, args.seed, i, verify_key) for i in range(SV_DISTINCT)]
@@ -3044,6 +3484,11 @@ def main() -> int:
         hist_jobs = [pool.submit(histogram_shard_job, args.seed, w, extra) for w in range(PAIR_HIST_WORKERS)]
         poplar_jobs = [pool.submit(poplar_shard_job, args.seed, w, POPLAR_REPORTS // POPLAR_WORKERS)
                        for w in range(POPLAR_WORKERS)]
+        # phase 19's second task of each bucket
+        h1000_jobs = [pool.submit(histogram_shard_job, args.seed, 10 + w, DISTINCT // CANON_HIST_WORKERS,
+                                  CANON_HIST_LENGTHS[1], CHUNK) for w in range(CANON_HIST_WORKERS)]
+        fp1003_jobs = [pool.submit(fixedpoint_shard_job, args.seed, 10 + w, CANON_FP_PER_WORKER, verify_key,
+                                   CANON_FP_LENGTHS[1]) for w in range(CANON_FP_WORKERS)]
         t0 = time.perf_counter()
         _build.build()
         phases["build"] = time.perf_counter() - t0
@@ -3064,6 +3509,8 @@ def main() -> int:
         fp_done = [j.result() for j in fp_jobs]
         mp_done = [j.result() for j in mp_jobs]
         poplar_shards = [x for j in poplar_jobs for x in j.result()]
+        h1000_shards = [x for j in h1000_jobs for x in j.result()]
+        fp1003_done = [j.result() for j in fp1003_jobs]
         phases["shard_wait_total"] = time.perf_counter() - t0
     log(f"shard: FixedPoint reports {json.dumps([d[2] for d in fp_done])} s a worker; phases so far "
         f"{json.dumps(phases)}")
@@ -3094,6 +3541,10 @@ def main() -> int:
     poplar1_pair = poplar_pair_phase(args.seed, verify_key, poplar_shards, phases)
     torch.cuda.empty_cache()
     binaries = binaries_phase(args.seed, verify_key, hist_shards, phases)
+    torch.cuda.empty_cache()
+    canonical, select_entry = canonical_phase(verify_key, rng, (reports, meas), h1000_shards, fp_done, fp1003_done,
+                                              phases)
+    kernels.append(select_entry)
     for k in kernels:
         k["launches_by_path"] = {path: launches[k["name"]] for path, launches in PATH_LAUNCHES.items()}
         for path, shapes in path_shapes.items():
@@ -3115,7 +3566,7 @@ def main() -> int:
                                    "sumvec_bits8": sumvec_bits, "histogram_executor": histogram_executor,
                                    "sumvec_executor": sumvec_executor, "fixedpoint": fixedpoint,
                                    "multiproof": multiproof, "pair": pair, "poplar1": poplar1,
-                                   "poplar1_pair": poplar1_pair, "binaries": binaries}}))
+                                   "poplar1_pair": poplar1_pair, "binaries": binaries, "canonical": canonical}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

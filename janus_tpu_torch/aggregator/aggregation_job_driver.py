@@ -425,8 +425,9 @@ class AggregationJobDriver:
 
     def _backend_for(self, task: AggregatorTask, vdaf):
         """The task's backend, one per VDAF shape (in the process-wide
-        executor's cache when there is one).  A VDAF the card does not
-        serve takes the CPU oracle, logged and counted
+        executor's cache when there is one: a canonicalizable task gets its
+        bucket's twin there, ``DeviceExecutor.prep_backend_for``).  A VDAF
+        the card does not serve takes the CPU oracle, logged and counted
         (aggregator.resolve_backend); for a served circuit a failure to
         build the card's backend propagates.  A Poplar1 gets its
         ``Poplar1Backend`` (None when the oracle is configured: it then
@@ -434,8 +435,8 @@ class AggregationJobDriver:
         poplar = type(vdaf).__name__ == "Poplar1" and self.config.vdaf_backend != "oracle"
         if not isinstance(vdaf, Prio3) and not poplar:
             return None
-        key = self._vdaf_shape_key(vdaf)
-        b = self._backends.get(key)
+        memo = self._vdaf_shape_key(vdaf)
+        b = self._backends.get(memo)
         if b is None:
             from .aggregator import resolve_backend
 
@@ -447,15 +448,17 @@ class AggregationJobDriver:
             if self._executor is not None:
                 # Shape-keyed cache lives in the process-wide executor:
                 # every driver (and its warmup) shares one backend per
-                # VDAF shape.
-                b = self._executor.backend_for(key, factory)
+                # VDAF shape or canonical bucket.
+                _key, b = self._executor.prep_backend_for(
+                    vdaf, self.config.vdaf_backend, self.config.vdaf_device, factory
+                )
             else:
                 b = factory()
-            self._backends[key] = b
+            self._backends[memo] = b
         return b
 
     async def _coalesced_prep_init(
-        self, backend, verify_key: bytes, prep_in, task_ident=None
+        self, backend, verify_key: bytes, prep_in, task_ident=None, vdaf=None
     ):
         """Join concurrent same-shape jobs (across tasks) into ONE launch.
 
@@ -470,14 +473,21 @@ class AggregationJobDriver:
         per-row verify keys (BASELINE configs[4]'s 16-task shape).  Window
         0 or a backend without prep_init_multi degrades to a per-job
         launch.
+
+        ``vdaf`` is the task's own VDAF: a canonical backend's request
+        carries it as its third element.
         """
         loop = asyncio.get_running_loop()
         if self._executor is not None and hasattr(backend, "stage_prep_init_multi"):
             from ..executor import CircuitOpenError, ExecutorOverloadedError
+            from ..vdaf.backend import prep_request
+            from ..vdaf.canonical import backend_shape_key
 
             # the executor cache / warmup-ledger / breaker key, derived
-            # from the RESOLVED backend so key and backend never diverge
-            shape_key = self._vdaf_shape_key(backend.vdaf)
+            # from the RESOLVED backend so key and backend never diverge —
+            # after a failed twin build the cached backend is exact-shape
+            # and must keep submitting under the exact key
+            shape_key = backend_shape_key(backend)
             # A served circuit never lands on the CPU oracle: an open
             # circuit (known BEFORE submitting, from the breaker peek)
             # refuses the job as retryable, and the lease machinery
@@ -499,7 +509,7 @@ class AggregationJobDriver:
                 return await self._executor.submit(
                     shape_key,
                     "prep_init",
-                    (verify_key, prep_in),
+                    prep_request(backend, verify_key, prep_in, vdaf),
                     backend=backend,
                     agg_id=0,
                     retain_out_shares=self._executor.accumulator is not None,
@@ -665,6 +675,7 @@ class AggregationJobDriver:
                     # WITHIN the shared shape bucket
                     # (executor._pick_entry_locked)
                     task_ident=task.task_id.data,
+                    vdaf=vdaf,
                 )
 
             def wrap_outcomes():

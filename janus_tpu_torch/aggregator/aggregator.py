@@ -74,7 +74,7 @@ from ..messages import (
     Time,
 )
 from ..vdaf import pingpong as pp
-from ..vdaf.backend import BACKENDS, device_supported, make_backend
+from ..vdaf.backend import BACKENDS, device_supported, make_backend, prep_request
 from ..vdaf.prio3 import Prio3, VdafError
 from .aggregation_job_writer import AggregationJobWriter
 from .aggregate_share import compute_aggregate_share
@@ -1156,12 +1156,9 @@ class Aggregator:
 
     def _executor_backend_for(self, ta: TaskAggregator):
         """(shape key, backend) through the executor's shape-keyed cache:
-        tasks sharing one VDAF shape share one backend (and the drivers'
-        backend for that shape, in the same process)."""
-        from ..vdaf.backend import vdaf_shape_key
-
-        key = vdaf_shape_key(ta.vdaf)
-        return key, self._executor.backend_for(key, lambda: ta.backend)
+        tasks sharing one VDAF shape, or one canonical bucket, share one
+        backend (and the drivers' backend, in the same process)."""
+        return self._executor.prep_backend_for(ta.vdaf, ta.backend_name, ta.device, lambda: ta.backend)
 
     async def _helper_prepare_batch_prio3_executor(self, ta: TaskAggregator, decoded):
         """Helper prep through the process-wide device executor: prep_init
@@ -1206,7 +1203,7 @@ class Aggregator:
             prep_out = await self._executor.submit(
                 shape_key,
                 KIND_PREP_INIT,
-                (ta.task.vdaf_verify_key, prep_in),
+                prep_request(backend, ta.task.vdaf_verify_key, prep_in, vdaf),
                 backend=backend,
                 agg_id=1,
                 # Helper-side retention: with the
@@ -1308,11 +1305,11 @@ class Aggregator:
         task = ta.task
         vdaf = ta.vdaf
         shape_key = vdaf_shape_key(vdaf)
-        # The refs were minted by the EXECUTOR's cached backend: commit_rows'
-        # accumulate launches must run on THAT backend (its buffers match
-        # the retained flush matrices).
-        peek = getattr(self._executor, "cached_backend", None)
-        commit_backend = (peek(shape_key) if peek is not None else None) or ta.backend
+        # commit_rows sums each ref on the backend that minted its flush
+        # (the executor's cached one; a canonical bucket's twin), whose
+        # buffers match the retained matrices; ta.backend is only the last
+        # resort for a flush without one.
+        commit_backend = ta.backend
         strategy = strategy_for(task)
         ra_by_rid = {ra.report_id.data: ra for ra in ras}
         field = vdaf.field_for_agg_param(

@@ -11,9 +11,9 @@ the file.
 What the port adds: ``vdaf_device`` (the torch device of the ``cuda``
 backend; None is the card).  What it refuses: a key it cannot honour
 raises :class:`ConfigError` with the reason, never silently ignored —
-``field_backend: mxu``, a ``distributed_coordinator``,
-``device_executor.mesh`` and ``canonical_shapes`` (parts not ported yet:
-ROADMAP queue 1), ``poplar_backend`` and a non-zero ``warmup_wait_s``
+``field_backend: mxu``, a ``distributed_coordinator`` and
+``device_executor.mesh`` (parts not ported yet: ROADMAP queue 1),
+``poplar_backend`` and a non-zero ``warmup_wait_s``
 (options the port removed), and a ``vdaf_backend`` other than ``cuda`` or
 ``oracle``.  The canary's sections come with the canary plane.  A config
 file whose name ends in ``.json`` is read as JSON (a subset of YAML).
@@ -332,10 +332,11 @@ class DeviceExecutorConfig:
     #: and binary startup never block behind a kernel build, and submits
     #: for a still-warming shape wait for it.  False = inline warmup.
     warmup_async: bool = True
-    #: pow2 shape canonicalization: not ported (ROADMAP queue 1,
-    #: canonical mode); the port keys backends by exact shape, and true
-    #: is refused.
-    canonical_shapes: bool = False
+    #: pow2 shape canonicalization (vdaf/canonical.py): key device
+    #: backends by the canonical (bucket-padded) shape, so tasks of one
+    #: circuit family whose lengths fall in one bucket share one backend
+    #: and one flush; false keys every task by its exact shape
+    canonical_shapes: bool = True
     #: consecutive launch failures per VDAF shape before its circuit
     #: opens (submits are then refused retryably; 0 disables)
     breaker_failure_threshold: int = 5
@@ -362,11 +363,6 @@ class DeviceExecutorConfig:
                 "device_executor.mesh is not ported (ROADMAP queue 1, "
                 "multi-device): the port's executor drives one card"
             )
-        if self.canonical_shapes:
-            raise ConfigError(
-                "device_executor.canonical_shapes is not ported (ROADMAP "
-                "queue 1, canonical mode): the port keys backends by exact shape"
-            )
 
     def to_executor_config(self):
         """Build the runtime ExecutorConfig (torch-free import path)."""
@@ -379,6 +375,7 @@ class DeviceExecutorConfig:
             submit_timeout_s=self.submit_timeout_s,
             warmup_rows=self.warmup_rows,
             warmup_async=self.warmup_async,
+            canonical_shapes=self.canonical_shapes,
             breaker_failure_threshold=self.breaker_failure_threshold,
             breaker_reset_timeout_s=self.breaker_reset_timeout_s,
             fair_flush=self.fair_flush,

@@ -8,8 +8,9 @@ report's AEAD body with the key it derived.
 
 This is the host path of the reference module.  Its vectorized AES-GCM
 pass (a table-AES kernel over every AES-128-GCM body of the batch with a
-vectorized GHASH) comes with the upload vector pass, ROADMAP queue 1
-item 10; until then :func:`vector_pass_preferred` is False.  Robustness
+vectorized GHASH) comes with the upload vector pass (ROADMAP queue 1,
+"The upload vector pass"); until then :func:`vector_pass_preferred` is
+False.  Robustness
 contract: a malformed ciphertext rejects ONLY its own report (per-item
 error slots).
 """
@@ -36,7 +37,8 @@ OpenRequest = Tuple[HpkeKeypair, HpkeApplicationInfo, object, bytes]
 
 def vector_pass_preferred() -> bool:
     """Should AES-128-GCM bodies take a vectorized AES pass?  Not in the
-    port yet (ROADMAP queue 1 item 10): every body opens per report."""
+    port yet (ROADMAP queue 1, the upload vector pass): every body opens
+    per report."""
     return False
 
 

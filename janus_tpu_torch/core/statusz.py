@@ -14,9 +14,12 @@ The port has no process-wide executor: a binary passes the one it built
 (``executor``) to the snapshot and to the sampler's bucket retirement.  Where the JAX snapshot names its platform, the port
 reports the torch device (``device``: the CUDA runtime, whether this
 process holds a CUDA context, the cards' names and the memory it has
-allocated there, and each kernel wrapper's launches in this process).  The canary section and the executor's canonicalization and
-bucket-quarantine sections are left out until those parts are ported
-(ROADMAP queue 1: the canary plane, canonical mode, multi-device).
+allocated there, and each kernel wrapper's launches in this process).  The
+executor's ``canonicalization`` section counts the shape plans of
+``vdaf/canonical.py``.  The canary section and the executor's
+bucket-quarantine section are left out until those parts are ported
+(ROADMAP queue 1: "The canary plane and the interop harness" and
+"Multi-device").
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ _PROCESS_START = time.monotonic()
 
 #: the kernel wrappers whose launch counts the device section reports
 KERNEL_WRAPPERS = (
-    ("janus_tpu_torch.ops.keccak_kernels", ("squeeze", "absorb")),
+    ("janus_tpu_torch.ops.keccak_kernels", ("squeeze", "absorb", "absorb_select")),
     ("janus_tpu_torch.ops.flp_kernels", ("wire_evals", "combine_decide", "sumvec_wires")),
 )
 
@@ -136,6 +139,9 @@ def runtime_status(executor=None) -> dict:
             # compile_s) / failed, each with the age of its state — the
             # first thing to curl when a fresh task's flushes look slow
             "compile": ex.compile_stats(),
+            # why shapes kept their exact shape: the pow2
+            # canonicalization plan outcomes, counted per reason
+            "canonicalization": _canonicalization_stats(),
             # flight recorder: the last flushes' black-box
             # records + dump counters — what the operator reads when a
             # breaker tripped or a flush went anomalously slow
@@ -237,6 +243,19 @@ def _cost_stats() -> dict:
         return cost_model().stats()
     except Exception:
         logger.exception("cost-attribution stats unavailable")
+        return {"error": "unavailable"}
+
+
+def _canonicalization_stats() -> dict:
+    """Counted canonicalization-plan outcomes (vdaf/canonical.py); lazy
+    and failure-tolerant — control-plane binaries may never import the
+    vdaf layer, and /statusz must not force (or break on) it."""
+    try:
+        from ..vdaf.canonical import plan_stats
+
+        return plan_stats()
+    except Exception:
+        logger.exception("canonicalization stats unavailable")
         return {"error": "unavailable"}
 
 

@@ -6,6 +6,12 @@
 // K2 janus_keccak_absorb replaces keccak_pallas.py _absorb_kernel (via
 //    _absorb_call): na padded message blocks per report -> the first
 //    out_words (<= 42) words of the squeeze.
+//    janus_keccak_absorb_select is its variant for per-row message lengths
+//    (canonical shape padding; the plain version is
+//    janus_tpu_torch/ops/keccak.py turboshake128_batch_select, the
+//    counterpart of janus_tpu/ops/keccak_jax.py:202): each report names its
+//    own final block, and its group stores the rate state after that block.
+//    The tile pipeline and the warp's barriers still run over all na blocks.
 //
 // Layout: word-major planes (W, B) of u32, plane w = stream word w of every
 // report; 64-bit lane l of the state is words (2l, 2l+1) = (lo, hi).  The
@@ -235,9 +241,11 @@ __device__ __forceinline__ void load_tile(uint32_t* tile, const uint32_t* blk, c
     if (c.live >> k & 1u) cp_async4(tile + threadIdx.x + kThreads * k, blk + c.src[k]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-absorb_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int B, int na,
-              int out_words) {
+// K2's body.  kSelect: `last` (B,) names each report's final block; the
+// group stores its rate state after that block instead of after block na - 1.
+template <bool kSelect>
+__device__ __forceinline__ void absorb_body(const uint32_t* __restrict__ in, const int* __restrict__ last,
+                                            uint32_t* __restrict__ out, int B, int na, int out_words) {
   __shared__ __align__(16) uint32_t slots[kGroups * kGroupWords];
   __shared__ __align__(16) uint32_t ring[kStages * kTileWords];
   const Thread t = thread_setup();
@@ -248,6 +256,8 @@ absorb_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int B
   uint32_t* slot = slots + t.g * kGroupWords;
   const TileCopy copy = tile_copy_setup(B, b0);
   const size_t block_words = kRateWords * Bs;
+  const bool stores = b < Bs && t.stores;
+  const int final_block = kSelect && b < Bs ? last[b] : -1;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < na) load_tile(ring + s * kTileWords, in + s * block_words + b0, copy);
@@ -270,8 +280,24 @@ absorb_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int B
       hi[y] ^= tile[(w + 1) * kGroups + t.g];
     }
     keccak_p12(lo, hi, t, slot);
+    if constexpr (kSelect) {
+      if (stores && j == final_block) store_rate(lo, hi, t, out, Bs, b, 0, out_words);
+    }
   }
-  if (b < Bs && t.stores) store_rate(lo, hi, t, out, Bs, b, 0, out_words);
+  if constexpr (!kSelect) {
+    if (stores) store_rate(lo, hi, t, out, Bs, b, 0, out_words);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+absorb_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int B, int na, int out_words) {
+  absorb_body<false>(in, nullptr, out, B, na, out_words);
+}
+
+__global__ void __launch_bounds__(kThreads)
+absorb_select_kernel(const uint32_t* __restrict__ in, const int* __restrict__ last, uint32_t* __restrict__ out,
+                     int B, int na, int out_words) {
+  absorb_body<true>(in, last, out, B, na, out_words);
 }
 
 }  // namespace
@@ -292,5 +318,16 @@ extern "C" int janus_keccak_absorb(const uint32_t* in, uint32_t* out, int B, int
   if (B <= 0) return 0;
   const int grid = (B + kGroups - 1) / kGroups;
   absorb_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(in, out, B, na, out_words);
+  return (int)cudaGetLastError();
+}
+
+// in: (na * 42, B) padded message blocks, each report padded at its own
+// length; last: (B,) int32, report b's final block (0 <= last[b] < na);
+// out: (out_words, B), the rate state after that block, out_words <= 42.
+extern "C" int janus_keccak_absorb_select(const uint32_t* in, const int* last, uint32_t* out, int B,
+                                          int na, int out_words, void* stream) {
+  if (B <= 0) return 0;
+  const int grid = (B + kGroups - 1) / kGroups;
+  absorb_select_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(in, last, out, B, na, out_words);
   return (int)cudaGetLastError();
 }

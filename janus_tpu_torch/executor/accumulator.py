@@ -90,6 +90,20 @@ class ResidentRef:
 
     flush_id: int
     row: int
+    #: the task's OUTPUT_LEN where the flush is wider (a canonical twin's
+    #: bucket width): the bucket's drained sum is clipped back to it
+    width: Optional[int] = None
+
+
+def _clip(vector: List[int], width: Optional[int]) -> List[int]:
+    """A device buffer's readback, clipped to its rows' width where the
+    buffer is a canonical twin's (vdaf/canonical.py ``clip_to_width``: a
+    non-zero pad tail raises)."""
+    if width is None:
+        return vector
+    from ..vdaf.canonical import clip_to_width
+
+    return clip_to_width(vector, width)
 
 
 @dataclass
@@ -164,6 +178,9 @@ class _Bucket:
         self.field = None
         #: device (OUT, n) limb buffer; None until the first commit
         self.buffer = None
+        #: the task's width where the buffer is a canonical twin's (its
+        #: rows' ``ResidentRef.width``): every readback is clipped to it
+        self.width: Optional[int] = None
         self.buffer_nbytes = 0
         #: host mirror of evicted device state (field ints)
         self.spilled_host: Optional[List[int]] = None
@@ -285,8 +302,13 @@ class DeviceAccumulatorStore:
                 sources.append((fl, rows))
             # The MINTING backend (recorded on the flush at retain time) is
             # the accumulation authority: its buffer widths match the
-            # retained matrix by construction.  The caller's backend is
-            # only the last resort for flushes without one.
+            # retained matrix by construction (a canonical twin's flush is
+            # bucket-width), while the caller's backend can diverge after a
+            # canonical-twin build failure (an exact-shape flush committed
+            # through the bucket twin — or vice versa — would mismatch
+            # widths).  The caller's backend is only the last resort for
+            # flushes without one.  Every readback of a bucket-width buffer
+            # is clipped back to its rows' width, the task's OUTPUT_LEN.
             mint = sources[0][0].backend or backend
             bucket = self._buckets.get(bucket_key)
             if bucket is None:
@@ -298,6 +320,8 @@ class DeviceAccumulatorStore:
                 # the same job); adopt the minting backend so the drain
                 # can read the device buffer this commit is about to create
                 bucket.backend = mint
+            # one task's rows: a canonical task's refs name its width
+            bucket.width = bucket.width or refs[0].width
             if bucket.poisoned:
                 raise AccumulatorUnavailable(
                     f"bucket {bucket_key!r} poisoned by an earlier launch failure"
@@ -453,7 +477,7 @@ class DeviceAccumulatorStore:
                 vector = bucket.spilled_host
                 if bucket.buffer is not None:
                     t0 = time.monotonic()
-                    drained = bucket.backend.read_accum_buffer(bucket.buffer)
+                    drained = _clip(bucket.backend.read_accum_buffer(bucket.buffer), bucket.width)
                     self._attribute_drain(bucket_key, time.monotonic() - t0)
                     with self._lock:
                         self.drain_readback_rows += 1
@@ -565,7 +589,7 @@ class DeviceAccumulatorStore:
                 if victim.buffer is None or victim.closed:
                     return  # drained/discarded since the LRU pick
                 t0 = time.monotonic()
-                drained = victim.backend.read_accum_buffer(victim.buffer)
+                drained = _clip(victim.backend.read_accum_buffer(victim.buffer), victim.width)
                 self._attribute_drain(victim.key, time.monotonic() - t0)
                 field = (
                     victim.field

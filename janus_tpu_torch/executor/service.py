@@ -3,10 +3,12 @@
 Copy of ``janus_tpu/executor/service.py`` for the PyTorch port.  What
 differs: the warmup builds the CUDA kernels (nvcc) and runs one launch at
 the warmup batch in place of an XLA compile; and the port keeps only what
-its one-card backends use, so it has no mesh upgrade, no canonical-shape
-twin requests and no per-shape quarantine (ROADMAP.md queue 1 items 5 and
-9 bring them back with the callers that need them).  The Poplar1
-``poplar_init`` kind and its aggregation-parameter buckets are here.
+its one-card backends use, so it has no mesh upgrade and no per-shape
+quarantine (ROADMAP.md queue 1, "Multi-device", brings them back).  The
+Poplar1 ``poplar_init`` kind and its aggregation-parameter buckets are
+here, and so are canonical shapes (``canonical_shapes``,
+``vdaf/canonical.py``): the producers key a bucket's tasks by their padded
+twin, and a prepare request carries the task's VDAF as its third element.
 
 The chip is one wide pipeline; N concurrent aggregation jobs must not
 carve it into N narrow, contending ones.  Today each driver step
@@ -114,6 +116,13 @@ class ExecutorConfig:
     #: on the warm future, and the breaker never sees the compile.  False = legacy inline
     #: warmup (the first resolver pays the compile synchronously).
     warmup_async: bool = True
+    #: pow2 shape canonicalization (vdaf/canonical.py): producers key
+    #: device backends by the CANONICAL shape so tasks of one circuit
+    #: family whose lengths fall in one bucket share one backend and one
+    #: flush; shapes whose bit-exactness preconditions fail keep their
+    #: exact shape.  Read by the job drivers and the helper aggregator at
+    #: backend resolution.
+    canonical_shapes: bool = True
     #: consecutive launch failures per VDAF shape before its circuit
     #: opens (submits raise CircuitOpenError -> retryable refusal); 0 = off
     breaker_failure_threshold: int = 5
@@ -364,6 +373,9 @@ class DeviceExecutor:
         self.config = config or ExecutorConfig()
         self._buckets: Dict[tuple, _Bucket] = {}
         self._backends: Dict[tuple, object] = {}
+        #: canonical keys whose twin backend failed to build (negative
+        #: cache: a job step or a request must not re-pay a doomed build)
+        self.canonical_build_failed: set = set()
         #: shape_key -> breaker: a one-card backend fails per VDAF shape
         self._breakers: Dict[tuple, CircuitBreaker] = {}
         self._lock = threading.Lock()
@@ -447,6 +459,36 @@ class DeviceExecutor:
         if created and self.config.warmup_rows and hasattr(b, "stage_prep_init_multi"):
             self._schedule_warmup(shape_key, b)
         return b
+
+    def prep_backend_for(self, vdaf, backend_name: str, device, exact_factory):
+        """(key, backend) a prepare of ``vdaf`` submits under, for the job
+        drivers and the helper alike.  With ``canonical_shapes`` on, a card
+        backend named and a task that canonicalizes (vdaf/canonical.py):
+        its bucket's twin, ``make_backend(twin, backend_name,
+        canonical=True)``, under the tagged key that every task of the
+        bucket shares.  Otherwise ``exact_factory()`` under the task's exact
+        key.  The tagged key only ever holds a canonical card backend: a
+        twin that fails to build is logged and remembered, and its tasks
+        take their exact keys."""
+        from ..vdaf.backend import device_supported, make_backend, vdaf_shape_key
+        from ..vdaf.canonical import executor_shape
+
+        key, twin = executor_shape(vdaf, enabled=self.config.canonical_shapes)
+        if (
+            twin is not None
+            and backend_name != "oracle"
+            and key not in self.canonical_build_failed
+            and device_supported(vdaf)[0]
+        ):
+            try:
+                return key, self.backend_for(
+                    key, lambda: make_backend(twin, backend_name, device=device, canonical=True)
+                )
+            except Exception:
+                self.canonical_build_failed.add(key)
+                logger.exception("canonical twin %r failed to build; its tasks take their exact shapes", key)
+        key = vdaf_shape_key(vdaf)
+        return key, self.backend_for(key, exact_factory)
 
     def cached_backend(self, shape_key: tuple):
         """Peek the shape-keyed backend cache WITHOUT creating (commit
@@ -1284,7 +1326,9 @@ class DeviceExecutor:
                 by_sub: Dict[int, list] = {}
                 for si, row in subset:
                     by_sub.setdefault(si, []).append(row)
-                reqs = [(live[si].payload[0], by_sub[si]) for si in sorted(by_sub)]
+                # keep the payload's tail (a canonical backend's request
+                # carries the task's VDAF as its third element)
+                reqs = [(live[si].payload[0], by_sub[si]) + tuple(live[si].payload[2:]) for si in sorted(by_sub)]
                 staged = bucket.backend.stage_prep_init_multi(bucket.agg_id, reqs)
                 outs = bucket.backend.launch_prep_init_multi(staged, reqs)
                 return [o for per_req in outs for o in per_req]

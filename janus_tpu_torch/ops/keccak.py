@@ -126,6 +126,63 @@ def absorb_words(words_: torch.Tensor) -> torch.Tensor:
     return state
 
 
+def check_final_blocks(last_block: torch.Tensor, nblocks: int) -> None:
+    """Raise ValueError unless every row's final block lies in [0, nblocks)
+    (one reduction and one read back)."""
+    lo, hi = torch.stack(torch.aminmax(last_block)).tolist()
+    if lo < 0 or hi >= nblocks:
+        raise ValueError(f"a final block lies outside the {nblocks} message blocks")
+
+
+def absorb_words_select(words_: torch.Tensor, last_block: torch.Tensor) -> torch.Tensor:
+    """Absorb padded message words (nblocks*42, B) over every block and keep,
+    per report b, the state after its own final block ``last_block[b]``
+    (B,) -> lanes (25, B)."""
+    nblocks = words_.shape[0] // RATE_WORDS
+    check_final_blocks(last_block, nblocks)
+    last = last_block.to(torch.int64)
+    state = torch.zeros((25,) + words_.shape[1:], dtype=torch.int64, device=words_.device)
+    selected = state
+    for i in range(nblocks):
+        blk = words_to_lanes(words_[i * RATE_WORDS : (i + 1) * RATE_WORDS])
+        state = keccak_p_batch(torch.cat([state[:21] ^ blk, state[21:]], dim=0))
+        selected = torch.where(last == i, state, selected)
+    return selected
+
+
+def select_pad(msg: torch.Tensor, domain: int, msg_len: torch.Tensor) -> torch.Tensor:
+    """TurboSHAKE pad of per-row message lengths: msg (B, Lmax) uint8, zero at
+    and past each row's ``msg_len`` (B,) -> (B, nblocks*RATE) uint8 with the
+    domain byte at msg_len and 0x80 xored into the last byte of the row's
+    own final block (nblocks = Lmax // RATE + 1, the longest row's)."""
+    B, Lmax = msg.shape
+    nblocks = Lmax // RATE + 1
+    buf = torch.cat([msg, torch.zeros((B, nblocks * RATE - Lmax), dtype=torch.uint8, device=msg.device)], dim=-1)
+    ml = msg_len.to(torch.int64)[:, None]
+    idx = torch.arange(nblocks * RATE, device=msg.device)[None, :]
+    buf = torch.where(idx == ml, torch.tensor(domain, dtype=torch.uint8, device=msg.device), buf)
+    last = (ml // RATE + 1) * RATE - 1
+    return buf ^ torch.where(idx == last, 0x80, 0).to(torch.uint8)
+
+
+def turboshake128_batch_select(msg: torch.Tensor, domain: int, out_len: int, msg_len: torch.Tensor) -> torch.Tensor:
+    """TurboSHAKE128 over per-row message lengths (canonical shape padding,
+    ``vdaf/canonical.py``): msg (B, Lmax) uint8 with every byte at or past
+    the row's ``msg_len`` (B,) zero -> (B, out_len) uint8, equal row for
+    row to ``turboshake128_batch(msg[b, :msg_len[b]])``.  Every block before
+    a row's final block is byte-identical to its true absorb, so the state
+    kept after that block squeezes the row's own output; ``out_len`` must
+    fit one squeeze block (a seed does).  The plain version of the K2 select
+    kernel (``keccak_kernels.absorb_select``); counterpart of
+    ``keccak_jax.turboshake128_batch_select``."""
+    if out_len > RATE:
+        raise NotImplementedError("the select absorb serves seed-sized outputs")
+    padded = select_pad(msg, domain, msg_len)
+    w = bytes_to_words(padded).transpose(0, 1)  # (nblocks*42, B)
+    state = absorb_words_select(w, msg_len.to(torch.int64) // RATE)
+    return words_to_bytes(lanes_to_words(state[:21]).transpose(0, 1))[:, :out_len]
+
+
 def squeeze_words(state: torch.Tensor, out_words: int, first_permuted: bool) -> torch.Tensor:
     """Squeeze ``out_words`` stream words from lanes (25, ...).
 

@@ -10,6 +10,12 @@ between them with a reshape; the port drops the ``B % 1024`` gate.
   ``_squeeze_kernel``: TurboSHAKE128 of one padded block, nb output blocks.
 - ``absorb`` (K2, janus_keccak_absorb) replaces ``_absorb_kernel``: a
   multi-block absorb, first <= 42 output words.
+- ``absorb_select`` (K2's select variant, janus_keccak_absorb_select): the
+  same absorb over messages padded at per-row lengths, each row's output
+  taken after its own final block (canonical shape padding; plain version
+  ``keccak.turboshake128_batch_select``, counterpart of
+  ``keccak_jax.turboshake128_batch_select``, plain ``jnp`` in the JAX
+  package).
 
 Each wrapper launches its CUDA kernel for a tensor on the card, or raises,
 and takes the plain PyTorch version beside it only for a tensor on the CPU.
@@ -28,7 +34,9 @@ from .field import storage, words
 from .keccak import (
     RATE_WORDS,
     absorb_words,
+    absorb_words_select,
     bytes_to_words,
+    check_final_blocks,
     lanes_to_words,
     pad_message,
     squeeze_words,
@@ -47,6 +55,8 @@ def _lib(source: str = "keccak"):
     for fn in (lib.janus_keccak_squeeze, lib.janus_keccak_absorb):
         fn.argtypes = [_P, _P, _I, _I, _I, _P]
         fn.restype = _I
+    lib.janus_keccak_absorb_select.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    lib.janus_keccak_absorb_select.restype = _I
     return lib
 
 
@@ -115,6 +125,44 @@ def absorb(msg: torch.Tensor, out_words: int) -> torch.Tensor:
 
 
 absorb.launches = 0
+
+
+def absorb_select_plain(msg: torch.Tensor, last_block: torch.Tensor, out_words: int) -> torch.Tensor:
+    """Plain version of the K2 select variant: (na*42, B) blocks, each row
+    padded at its own length, and its final block (B,) -> (out_words, B)."""
+    state = absorb_words_select(words(msg), last_block)
+    return storage(lanes_to_words(state[:21])[:out_words])
+
+
+def absorb_select(msg: torch.Tensor, last_block: torch.Tensor, out_words: int) -> torch.Tensor:
+    """K2 select wrapper: (na*42, B) int32 message blocks, each row padded
+    at its own length, and ``last_block`` (B,) int32, each row's final block
+    (0 <= last_block < na) -> (out_words, B), the rate state after that
+    block."""
+    _check_planes(msg, RATE_WORDS, "absorb_select")
+    if out_words > RATE_WORDS:
+        raise NotImplementedError("multi-block squeeze after a multi-block absorb")
+    B = msg.shape[1]
+    if last_block.dtype != torch.int32 or last_block.shape != (B,) or not last_block.is_contiguous():
+        raise ValueError("absorb_select: want a contiguous int32 (B,) final-block tensor")
+    if last_block.device != msg.device:
+        raise ValueError("absorb_select: the message and the final blocks lie on different devices")
+    if msg.device.type == "cpu":
+        return absorb_select_plain(msg, last_block, out_words)
+    na = msg.shape[0] // RATE_WORDS
+    # a row whose final block is out of range would never store: refuse it
+    # as the plain version does (one reduction and a sync)
+    check_final_blocks(last_block, na)
+    out = torch.empty((out_words, B), dtype=torch.int32, device=msg.device)
+    err = _lib().janus_keccak_absorb_select(
+        msg.data_ptr(), last_block.data_ptr(), out.data_ptr(), B, na, out_words, _stream(msg)
+    )
+    _build.check(err, "janus_keccak_absorb_select")
+    absorb_select.launches += 1
+    return out
+
+
+absorb_select.launches = 0
 
 
 # -- planar XOF entry points ---------------------------------------------------

@@ -22,6 +22,14 @@ Every path expands shares and randomness through the K1 squeeze and absorbs
 multi-block joint-rand messages through the K2 absorb; the small
 coefficient work around the kernels is plain PyTorch on the same device.
 
+Canonical shape padding (``vdaf/canonical.py``): ``prep_init`` of a bucket's
+padded twin takes each row's true measurement length (``meas_len``).
+Measurement columns at or past it are zeroed, the joint-rand part is
+absorbed at the row's own message length by the K2 select kernel, and
+per-gadget ``calls_live`` masks zero the padded calls' gadget outputs and
+barycentric coefficients, so every output equals the row's own task's
+oracle.  The planar path takes no masks: a masked batch runs row-major.
+
 Montgomery convention as in the JAX package: bulk tensors (shares, wires,
 verifiers, out shares) stay canonical; the per-report scalars that multiply
 them (joint rand r, query point t, Lagrange coefficients, constants) are in
@@ -57,7 +65,7 @@ from ..xof import XofTurboShake128
 from .field import M16, M32, TField, field_words, limb_list, limb_stack, storage, words
 from .flp_kernels import combine_decide, sumvec_wires, wire_evals
 from .keccak import RATE, RATE_WORDS, bytes_to_words, words_to_bytes
-from .keccak_kernels import absorb_planes, const_word_planes, rows_to_planes, xof_planes, xof_words
+from .keccak_kernels import absorb_planes, absorb_select, const_word_planes, rows_to_planes, xof_planes, xof_words
 from .xof import xof_next_vec_batch
 
 #: The planar lazy sums (meas_sum, aggregate) add u16 halves in int64 like
@@ -123,11 +131,23 @@ class _DeviceCircuit:
         self.calls, self.arity, self.degree = p0.calls, p0.arity, p0.degree
         self.P, self.glen = p0.P, p0.glen
 
-    def wire_evals_g(self, gi: int, f: TField, meas, jr_m, lag, seeds, consts) -> torch.Tensor:
-        """Wire evaluations of gadget ``gi`` (only 0 here)."""
+    def calls_live_list(self, ml: torch.Tensor) -> List[torch.Tensor]:
+        """Per-gadget live-call counts (B,) of rows whose true measurement
+        length is ``ml`` (B,): the mask boundary of the barycentric
+        coefficients and of the gadget-output fold under canonical padding.
+        One gadget over ``chunk`` measurement columns a call (1 for Sum):
+        ceil(ml / chunk)."""
+        chunk = getattr(self.valid, "chunk_length", 1)
+        return [(ml + chunk - 1) // chunk]
+
+    def wire_evals_g(self, gi: int, f: TField, meas, jr_m, lag, seeds, consts, ml=None) -> torch.Tensor:
+        """Wire evaluations of gadget ``gi`` (only 0 here); ``ml`` (B,) is
+        the rows' true measurement length under canonical padding, read
+        only by length-dependent gadget inputs (FixedPointBoundedL2VecSum's
+        entries)."""
         return self.wire_evals(f, meas, jr_m, lag, seeds, consts)
 
-    def v_multi(self, f: TField, gks: List[torch.Tensor], meas, jr_m, consts) -> torch.Tensor:
+    def v_multi(self, f: TField, gks: List[torch.Tensor], meas, jr_m, consts, ml=None) -> torch.Tensor:
         """Circuit output from one (B, calls_g, n) gadget-output tensor per
         gadget."""
         return self.v(f, gks[0], meas, jr_m, consts)
@@ -151,7 +171,7 @@ class _DCount(_DeviceCircuit):
     def v(self, f, gk, meas, jr_m, consts):
         return f.sub(gk[:, 0], meas[:, 0])
 
-    def truncate(self, f, meas, consts):
+    def truncate(self, f, meas, consts, ml=None):
         return meas
 
     def gadget_eval_scaled(self, f, x):
@@ -170,7 +190,7 @@ class _DSum(_DeviceCircuit):
         r_pows = f.cumprod_mont(r[:, None, :].expand(gk.shape), axis=1)  # r^(k+1) at call k
         return f.sum(f.mont_mul(r_pows, gk), axis=1)
 
-    def truncate(self, f, meas, consts):
+    def truncate(self, f, meas, consts, ml=None):
         return f.sum(f.mont_mul(meas, consts["pow2_m"][None]), axis=1)[:, None, :]
 
     def gadget_eval_scaled(self, f, x):
@@ -214,7 +234,7 @@ class _DChunked(_DeviceCircuit):
         pairs = x.reshape(B, arity // 2, 2, n)
         return f.sum(f.mont_mul(pairs[:, :, 0], pairs[:, :, 1]), axis=1)
 
-    def truncate(self, f, meas, consts):
+    def truncate(self, f, meas, consts, ml=None):
         """The out share of a histogram or of a one-bit SumVec is the
         measurement share itself (the weighted bit sum over one bit is the
         identity), so no MEAS_LEN-wide multiply runs."""
@@ -292,7 +312,7 @@ class _DSumVec(_DChunked):
         """Circuit output: the sum of the gadget outputs (B, calls, n) -> (B, n)."""
         return f.sum(gk, axis=1)
 
-    def truncate(self, f, meas, consts):
+    def truncate(self, f, meas, consts, ml=None):
         if self.valid.bits == 1:
             return meas
         B = meas.shape[0]
@@ -313,22 +333,45 @@ class _DFixedPointL2(_DSumVec):
         super().__init__(valid)  # chunk and gadget 0's padding of MEAS_LEN
         self.nbits = valid.bits_per_entry
         self.entries = valid.entries
+        self.norm_bits = valid.bits_for_norm
         #: gadget 1's zero padding of the entries in its last call
         self.pad_len1 = self.plans[1].calls * self.chunk - valid.entries
 
-    def _entries(self, f, meas, consts):
-        """X_i = sum_b 2^b meas[i * nbits + b] -> (B, entries, n) canonical."""
+    # Under canonical padding every length-dependent site is per row: the
+    # entry count d comes from the row's measurement length, the columns
+    # past a row's entries hold its norm bits (live data) and are masked
+    # out of the entries, the claimed norm's bits are gathered at the row's
+    # own offset d * nbits, and the Schwartz-Zippel weight r_n is the joint
+    # rand at the row's own bit-call count.
+    def entries_from_meas_len(self, ml: torch.Tensor) -> torch.Tensor:
+        return (ml - self.norm_bits) // self.nbits
+
+    def calls_live_list(self, ml: torch.Tensor) -> List[torch.Tensor]:
+        chunk = self.chunk
+        return [(ml + chunk - 1) // chunk, (self.entries_from_meas_len(ml) + chunk - 1) // chunk]
+
+    def _entries(self, f, meas, consts, entries_live=None):
+        """X_i = sum_b 2^b meas[i * nbits + b] -> (B, entries, n) canonical;
+        ``entries_live`` (B,) zeroes the entries at and past a row's own
+        count."""
         B = meas.shape[0]
         m = meas[:, : self.entries * self.nbits].reshape(B, self.entries, self.nbits, f.n)
-        return f.sum(f.mont_mul(m, consts["pow2_m"][None, None]), axis=2)
+        x = f.sum(f.mont_mul(m, consts["pow2_m"][None, None]), axis=2)
+        if entries_live is not None:
+            e = torch.arange(self.entries, device=x.device)[None, :]
+            x = torch.where((e < entries_live[:, None])[:, :, None], x, torch.zeros_like(x))
+        return x
 
-    def wire_evals_g(self, gi, f, meas, jr_m, lag, seeds, consts):
+    def _entries_ml(self, f, meas, consts, ml):
+        return self._entries(f, meas, consts, None if ml is None else self.entries_from_meas_len(ml))
+
+    def wire_evals_g(self, gi, f, meas, jr_m, lag, seeds, consts, ml=None):
         if gi == 0:
             return self.wire_evals(f, meas, jr_m[:, : self.calls], lag, seeds, consts)
         # Both wires of pair u evaluate to seed * lag_0 + sum_k X[k, u]
         # lag_{k+1}: one contraction fills the even and the odd slot.
         B = meas.shape[0]
-        x = self._entries(f, meas, consts)
+        x = self._entries_ml(f, meas, consts, ml)
         if self.pad_len1:
             x = torch.cat([x, torch.zeros((B, self.pad_len1, f.n), dtype=x.dtype, device=x.device)], dim=1)
         xm = x.reshape(B, self.plans[1].calls, self.chunk, f.n)
@@ -336,23 +379,35 @@ class _DFixedPointL2(_DSumVec):
         pair = torch.stack([s, s], dim=2).reshape(B, 2 * self.chunk, f.n)
         return f.add(f.mont_mul(seeds, lag[:, 0, None, :]), pair)
 
-    def v_multi(self, f, gks, meas, jr_m, consts):
+    def v_multi(self, f, gks, meas, jr_m, consts, ml=None):
         """rn * bit_check + rn^2 * norm_check, rn = jr[bit calls], where
         norm_check = sum X_i^2 - 2^n sum X_i + d 2^(2n-2) / shares minus the
         claimed norm's (2n-2)-bit decomposition."""
         gk_bits, gk_sq = gks
+        B = meas.shape[0]
         bit_check = f.sum(gk_bits, axis=1)  # (B, n)
         sumsq = f.sum(gk_sq, axis=1)
-        sum_x = f.sum(self._entries(f, meas, consts), axis=1)
-        norm_bits = meas[:, self.entries * self.nbits :]
+        sum_x = f.sum(self._entries_ml(f, meas, consts, ml), axis=1)
+        if ml is None:
+            norm_bits = meas[:, self.entries * self.nbits :]
+            offset = consts["offset_sq_c"]
+            rn = jr_m[:, self.calls]
+        else:
+            el = self.entries_from_meas_len(ml)
+            cols = (el * self.nbits)[:, None] + torch.arange(self.norm_bits, device=meas.device)[None, :]
+            norm_bits = torch.gather(meas, 1, cols[:, :, None].expand(-1, -1, f.n))
+            d = torch.zeros((B, f.n), dtype=torch.int64, device=meas.device)
+            d[:, 0] = el
+            offset = f.mont_mul(d, consts["offsq_m"])  # d * 2^(2n-2) / shares
+            cl0 = (ml + self.chunk - 1) // self.chunk
+            rn = torch.gather(jr_m, 1, cl0[:, None, None].expand(-1, 1, f.n))[:, 0]
         claimed = f.sum(f.mont_mul(norm_bits, consts["pow2_norm_m"][None]), axis=1)
-        computed = f.add(f.sub(sumsq, f.mont_mul(sum_x, consts["pow2n_m"])), consts["offset_sq_c"])
+        computed = f.add(f.sub(sumsq, f.mont_mul(sum_x, consts["pow2n_m"])), offset)
         norm_check = f.sub(computed, claimed)
-        rn = jr_m[:, self.calls]
         return f.add(f.mont_mul(bit_check, rn), f.mont_mul(f.mont_mul(norm_check, rn), rn))
 
-    def truncate(self, f, meas, consts):
-        return self._entries(f, meas, consts)
+    def truncate(self, f, meas, consts, ml=None):
+        return self._entries_ml(f, meas, consts, ml)
 
 
 def _device_circuit(valid) -> _DeviceCircuit:
@@ -464,10 +519,13 @@ class BatchedPrio3:
             circuit_ok = type(self.circ) is _DSumVec and self.flp.valid.bits == 1
         return circuit_ok and self.prio3.num_proofs == 1 and batch <= LAZY_SUM_MAX
 
-    def prep_route(self, agg_id: int, batch: int) -> str:
+    def prep_route(self, agg_id: int, batch: int, masked: bool = False) -> str:
         """The name of the prepare that serves a flush of ``batch`` (padded)
-        rows."""
-        return "prep_init_planar" if self.planar_eligible(agg_id, batch) else "prep_init"
+        rows; a ``masked`` flush (canonical padding, per-row measurement
+        lengths) runs row-major, as the planar kernels take no masks."""
+        if not masked and self.planar_eligible(agg_id, batch):
+            return "prep_init_planar"
+        return "prep_init"
 
     def _planar_ok(self, stream: torch.Tensor, num_elems: int) -> torch.Tensor:
         """Canonicality of every element of a (W, B) stream -> ok (B,)."""
@@ -631,25 +689,40 @@ class BatchedPrio3:
         v = circ.v(f, self._gadget_outputs(gpoly), None, None, self.consts)
         return ev, od, v, self._gpoly_at(gpoly, t_row), t_ok
 
-    def _jr_part_planes(self, agg_id, blinds_u8, nonces_u8, meas_stream) -> torch.Tensor:
-        """Joint-rand-part XOF: the K2 absorb of ``_jr_part_message``
-        -> (B, SEED) uint8."""
-        msg = self._jr_part_message(agg_id, blinds_u8, nonces_u8, meas_stream)
-        part = absorb_planes(msg, self.prio3.xof.SEED_SIZE // 4)
+    def _jr_part_planes(self, agg_id, blinds_u8, nonces_u8, meas_stream, meas_len=None) -> torch.Tensor:
+        """Joint-rand-part XOF: the K2 absorb of ``_jr_part_message``, or
+        with ``meas_len`` (B,) its select variant at each row's own message
+        length -> (B, SEED) uint8."""
+        msg = self._jr_part_message(agg_id, blinds_u8, nonces_u8, meas_stream, meas_len)
+        out_words = self.prio3.xof.SEED_SIZE // 4
+        if meas_len is None:
+            part = absorb_planes(msg, out_words)
+        else:
+            last = (self._jr_part_head_len(blinds_u8, nonces_u8) + 4 * self.f.n * meas_len) // RATE
+            part = absorb_select(msg, last.to(torch.int32).contiguous(), out_words)
         return words_to_bytes(words(part).transpose(0, 1))
 
-    def _jr_part_message(self, agg_id, blinds_u8, nonces_u8, meas_stream) -> torch.Tensor:
+    def _jr_part_head_len(self, blinds_u8, nonces_u8) -> int:
+        """Bytes of the joint-rand-part message before the measurement."""
+        dst = self._dst(USAGE_JOINT_RAND_PART)
+        return 1 + len(dst) + blinds_u8.shape[-1] + 1 + nonces_u8.shape[-1]
+
+    def _jr_part_message(self, agg_id, blinds_u8, nonces_u8, meas_stream, meas_len=None) -> torch.Tensor:
         """The padded joint-rand-part message, built in-plane.
 
         The message is len(dst) || dst || blind || agg_id || nonce ||
         meas_bytes || padding; the measurement bytes are the squeeze (or the
         leader's) stream planes, funnel-shifted by the head's byte remainder
-        into message words -> (nblocks*42, B) int32."""
+        into message words -> (nblocks*42, B) int32.  With ``meas_len`` (B,)
+        each row's measurement ends at its own length: the stream words
+        past it are zeroed and the row is padded there (the domain byte at
+        its length, 0x80 at the end of its final block), over as many
+        blocks as the longest row needs."""
         B = nonces_u8.shape[0]
         dev = nonces_u8.device
         dst = self._dst(USAGE_JOINT_RAND_PART)
         W_m = meas_stream.shape[0]
-        hb_len = 1 + len(dst) + blinds_u8.shape[-1] + 1 + nonces_u8.shape[-1]
+        hb_len = self._jr_part_head_len(blinds_u8, nonces_u8)
         q, rm = divmod(hb_len, 4)
         msg_len = hb_len + 4 * W_m
         nblocks = msg_len // RATE + 1
@@ -670,9 +743,15 @@ class BatchedPrio3:
         pad_len = nblocks * RATE - msg_len
         pad_words_needed = (rm + pad_len) // 4
         pad = np.zeros(pad_words_needed * 4, dtype=np.uint8)
-        pad[0] = 0x01
-        pad[pad_len - 1] ^= 0x80
-        ext = torch.cat([words(meas_stream), const_word_planes(pad.tobytes(), B, dev)], dim=0)
+        meas_w = words(meas_stream)
+        if meas_len is None:
+            pad[0] = 0x01
+            pad[pad_len - 1] ^= 0x80
+        else:
+            row_words = meas_len.to(torch.int64) * self.f.n
+            live = torch.arange(W_m, device=dev)[:, None] < row_words[None, :]
+            meas_w = torch.where(live, meas_w, torch.zeros_like(meas_w))
+        ext = torch.cat([meas_w, const_word_planes(pad.tobytes(), B, dev)], dim=0)
         if rm == 0:
             msg = torch.cat([head[:q], ext[: msg_words - q]], dim=0)
         else:
@@ -681,6 +760,16 @@ class BatchedPrio3:
             nbody = msg_words - q - 1
             body = (ext[:nbody] >> (32 - sh)) | ((ext[1 : nbody + 1] << sh) & M32)
             msg = torch.cat([head[:q], boundary[None], body], dim=0)
+        if meas_len is not None:
+            # each row's pad: the domain byte lands on a zero byte, and 0x80
+            # xors into the last byte of the row's final block (the two
+            # coincide when the true pad is one byte)
+            L = hb_len + 4 * row_words  # (B,) message bytes
+            at = (L // 4)[None]
+            one = torch.ones_like(L)
+            msg = msg.scatter(0, at, msg.gather(0, at) | (one << (8 * (L % 4)))[None])
+            end = ((L // RATE + 1) * RATE_WORDS - 1)[None]
+            msg = msg.scatter(0, end, msg.gather(0, end) ^ (0x80 << 24))
         return storage(msg).contiguous()
 
     # -- prepare ------------------------------------------------------------
@@ -768,7 +857,7 @@ class BatchedPrio3:
         proofs, ok2 = self._expand_vec(share_seeds_u8, self._dst(USAGE_PROOF_SHARE), binder, proofs_len)
         return meas.permute(2, 0, 1), proofs.permute(2, 0, 1), ok1 & ok2
 
-    def _query_one(self, meas, proof, jr_m, t_m) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _query_one(self, meas, proof, jr_m, t_m, calls_live=None, ml=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Row-major FLP query of one proof over every gadget: meas (B,
         MEAS_LEN, n) and proof (B, PROOF_LEN, n) canonical, jr_m (B,
         JOINT_RAND_LEN, n) Montgomery or None, t_m (B, QUERY_RAND_LEN, n)
@@ -776,22 +865,36 @@ class BatchedPrio3:
         VERIFIER_LEN, n) canonical, t_ok (B,)).  The oracle's
         FlpGeneric.query layouts: the proof is per gadget [wire seeds, gadget
         polynomial], the verifier [v] and per gadget [wire evaluations,
-        gpoly(t)]."""
+        gpoly(t)].
+
+        ``calls_live`` (canonical padding) is one (B,) live-call count per
+        gadget: the rows of a shorter task zero their padded calls out of
+        the gadget-output fold (an adversarial gadget polynomial is not
+        zero at unused evaluation points) and out of the barycentric
+        coefficients (the task's wire polynomials are zero there by
+        definition, and every wire evaluation reads lag after this mask).
+        ``ml`` (B,) is the rows' true measurement length."""
         f, circ = self.f, self.circ
-        B = meas.shape[0]
-        ok = torch.ones((B,), dtype=torch.bool, device=meas.device)
+        B, dev = meas.shape[0], meas.device
+        ok = torch.ones((B,), dtype=torch.bool, device=dev)
         gks, segs = [], []
         idx = 0
         for gi, plan in enumerate(circ.plans):
             seeds = proof[:, idx : idx + plan.arity]
             gpoly = proof[:, idx + plan.arity : idx + plan.arity + plan.glen]
             idx += plan.arity + plan.glen
-            gks.append(self._gadget_outputs(gpoly, gi))
+            gk = self._gadget_outputs(gpoly, gi)
             lag, t_ok = self._lagrange_coeffs(t_m[:, gi], gi)
+            if calls_live is not None:
+                cl = calls_live[gi][:, None]
+                k = torch.arange(plan.calls + 1, device=dev)[None, :]
+                gk = torch.where((k[:, 1:] <= cl)[:, :, None], gk, torch.zeros_like(gk))
+                lag = torch.where((k <= cl)[:, :, None], lag, torch.zeros_like(lag))
+            gks.append(gk)
             ok = ok & t_ok
-            wires = circ.wire_evals_g(gi, f, meas, jr_m, lag, seeds, self.consts)
+            wires = circ.wire_evals_g(gi, f, meas, jr_m, lag, seeds, self.consts, ml=ml)
             segs += [wires, self._gpoly_at(gpoly, t_m[:, gi])[:, None]]
-        v = circ.v_multi(f, gks, meas, jr_m, self.consts)
+        v = circ.v_multi(f, gks, meas, jr_m, self.consts, ml=ml)
         return torch.cat([v[:, None]] + segs, dim=1), ok
 
     def prep_init(
@@ -805,12 +908,24 @@ class BatchedPrio3:
         proofs_limbs: Optional[torch.Tensor] = None,
         blinds_u8: Optional[torch.Tensor] = None,
         public_parts_u8: Optional[torch.Tensor] = None,
+        meas_len: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """Row-major prepare-init of any served circuit at any batch, either
         side: the path for what the planar path cannot take.  Takes and
         returns what ``prep_init_planar`` does (without ``keep_planar``);
         Count has no joint randomness, so its result has no
-        ``joint_rand_part`` or ``corrected_seed``."""
+        ``joint_rand_part`` or ``corrected_seed``.
+
+        ``meas_len`` (B,) int32 engages canonical padding
+        (``vdaf/canonical.py``): this instance is a bucket's padded twin and
+        each row carries its task's true MEAS_LEN.  Measurement columns at
+        or past it are zeroed (the helper's stream is expanded at the
+        bucket's width: prefix-stable, but its tail is live data that must
+        not reach the wires), the joint-rand part absorbs the row's true
+        ``enc(meas)`` through the K2 select kernel, and the gadget-call
+        masks go into ``_query_one``.  The outputs equal the row's own
+        task's oracle byte for byte; out shares keep the twin's width with
+        a zero tail."""
         flp = self.flp
         B, dev = nonces_u8.shape[0], nonces_u8.device
         if agg_id == 0:
@@ -818,31 +933,45 @@ class BatchedPrio3:
             ok = torch.ones((B,), dtype=torch.bool, device=dev)
         else:
             meas, proofs, ok = self.helper_shares(agg_id, share_seeds_u8)
+        ml = calls_live = None
+        if meas_len is not None:
+            ml = meas_len.to(torch.int64)
+            calls_live = self.circ.calls_live_list(ml)
+            col = torch.arange(flp.MEAS_LEN, device=dev)[None, :]
+            meas = torch.where((col < ml[:, None])[:, :, None], meas, torch.zeros_like(meas))
 
         out: Dict[str, torch.Tensor] = {}
         jr = None
         if flp.JOINT_RAND_LEN > 0:
             # joint_rand_part = XOF(blind, dst, agg_id || nonce || enc(meas))
-            agg_b = torch.full((B, 1), agg_id, dtype=torch.uint8, device=dev)
-            binder = torch.cat([agg_b, nonces_u8, words_to_bytes(meas.reshape(B, -1))], dim=-1)
-            part = self._xof_seed(blinds_u8, self._dst(USAGE_JOINT_RAND_PART), binder)
+            if ml is None:
+                agg_b = torch.full((B, 1), agg_id, dtype=torch.uint8, device=dev)
+                binder = torch.cat([agg_b, nonces_u8, words_to_bytes(meas.reshape(B, -1))], dim=-1)
+                part = self._xof_seed(blinds_u8, self._dst(USAGE_JOINT_RAND_PART), binder)
+            else:
+                # the binder's true byte length is per row: the in-plane
+                # message padded at each row's length, absorbed by K2's
+                # select variant
+                meas_st = rows_to_planes(storage(meas.reshape(B, -1)))
+                part = self._jr_part_planes(agg_id, blinds_u8, nonces_u8, meas_st, ml)
             corrected, jr, ok_j = self._joint_rand(agg_id, part, public_parts_u8)
             ok = ok & ok_j
             out.update(joint_rand_part=part, corrected_seed=corrected)
             jr = jr.permute(2, 0, 1)
         qr, ok_q = self._query_rand(verify_key, nonces_u8)
-        res = self.query_batch(meas, proofs, jr, qr.permute(2, 0, 1))
+        res = self.query_batch(meas, proofs, jr, qr.permute(2, 0, 1), calls_live=calls_live, ml=ml)
         out.update(res, ok=ok & ok_q & res["ok"])
         return out
 
-    def query_batch(self, meas, proofs, jr, qr) -> Dict[str, torch.Tensor]:
+    def query_batch(self, meas, proofs, jr, qr, calls_live=None, ml=None) -> Dict[str, torch.Tensor]:
         """The FLP query of every proof with every XOF output given: meas
         (B, MEAS_LEN, n), proofs (B, num_proofs * PROOF_LEN, n), jr (B,
         num_proofs * JOINT_RAND_LEN, n) or None and qr (B, num_proofs *
         QUERY_RAND_LEN, n), all canonical int64; proof i takes the i-th
         slice of each.  Returns ``verifiers`` (B, num_proofs * VERIFIER_LEN,
         n) int64, ``out_share`` (B, OUTPUT_LEN, n) int32 and ``ok`` (rows
-        where a query point hit a root of unity are False)."""
+        where a query point hit a root of unity are False).  ``calls_live``
+        and ``ml``: the canonical masks of ``prep_init``."""
         f, flp = self.f, self.flp
         jr_m = None if jr is None else f.to_mont(jr)
         ok = torch.ones((meas.shape[0],), dtype=torch.bool, device=meas.device)
@@ -851,10 +980,10 @@ class BatchedPrio3:
             proof = proofs[:, i * flp.PROOF_LEN : (i + 1) * flp.PROOF_LEN]
             t_m = f.to_mont(qr[:, i * flp.QUERY_RAND_LEN : (i + 1) * flp.QUERY_RAND_LEN])
             ji = None if jr_m is None else jr_m[:, i * flp.JOINT_RAND_LEN : (i + 1) * flp.JOINT_RAND_LEN]
-            ver, t_ok = self._query_one(meas, proof, ji, t_m)
+            ver, t_ok = self._query_one(meas, proof, ji, t_m, calls_live=calls_live, ml=ml)
             verifiers.append(ver)
             ok = ok & t_ok
-        out_share = storage(self.circ.truncate(f, meas, self.consts)).contiguous()
+        out_share = storage(self.circ.truncate(f, meas, self.consts, ml=ml)).contiguous()
         return {"verifiers": torch.cat(verifiers, dim=1), "out_share": out_share, "ok": ok}
 
     def decide_batch(self, combined: torch.Tensor) -> torch.Tensor:
@@ -993,6 +1122,9 @@ def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, n
         consts["pow2_m"] = np.stack([mont_np(1 << b) for b in range(nb)])
         consts["pow2_norm_m"] = np.stack([mont_np(1 << b) for b in range(valid.bits_for_norm)])
         consts["pow2n_m"] = mont_np(1 << nb)
+        # shares_inv * 2^(2n-2), multiplied by a row's own entry count d
+        # under canonical padding
+        consts["offsq_m"] = mont_np(shares_inv * (1 << (2 * nb - 2)) % p)
         consts["offset_sq_c"] = f._int_to_limbs_np(shares_inv * (valid.entries % p) * (1 << (2 * nb - 2)) % p)
         return consts
     bits = getattr(valid, "bits", 1)

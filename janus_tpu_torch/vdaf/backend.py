@@ -22,6 +22,17 @@ protocol's rejection sampling skips, or a query point on a root of unity) is
 recomputed by the oracle: that is the protocol's exact rule for the row, not
 a device fallback, and ``oracle_recompute_rows`` counts such rows.
 
+``CudaBackend(twin, canonical=True)`` serves every task of a canonical
+bucket (``vdaf/canonical.py``): its VDAF is the bucket's padded twin, and a
+request ``(verify_key, reports, task_vdaf)`` names the task's own VDAF.  A
+flush whose rows all belong to one task shape runs that shape's own
+prepare, unpadded (planar where the shape is eligible).  A flush that mixes
+shapes runs the twin: the marshal puts the leader's measurement limbs in the
+leading columns, leaves the pad columns zero and gives each row its
+``meas_len``, and the masked row path prepares.  Either way out shares come
+back at the task's OUTPUT_LEN, and a not-ok row is recomputed by the task's
+oracle, never the twin's.
+
 A Prio3 whose XOF is not TurboSHAKE128 (the HMAC-SHA256-AES128 multiproof
 SumVec) has no XOF on the card: ``HybridXofBackend`` runs its XOF on the
 host and its FLP query and decide on the card.  A Poplar1 is served by
@@ -73,6 +84,10 @@ class StagedPrepInit:
     pad_to: int
     #: real rows in the batch (readbacks slice to this)
     rows: int
+    #: canonical mode: the one task VDAF of every row, whose own unpadded,
+    #: unmasked prepare serves the flush; None: the backend's VDAF (masked
+    #: when the backend is canonical)
+    exact: Optional[Prio3] = None
 
 
 def _observe_prepare(backend: str, phase: str, reports: int, seconds: float) -> None:
@@ -135,6 +150,22 @@ def oracle_backend_for(backend, vdaf):
     return getattr(backend, "oracle", None)
 
 
+def prep_request(backend, verify_key: bytes, reports, vdaf) -> tuple:
+    """The executor's prepare request for ``reports`` of a task on ``vdaf``:
+    a canonical backend's names the task's VDAF as its third element."""
+    if getattr(backend, "canonical", False):
+        return (verify_key, reports, vdaf)
+    return (verify_key, reports)
+
+
+def _req_parts(req):
+    """A prepare request is ``(verify_key, reports)`` or — on a canonical
+    backend — ``(verify_key, reports, task_vdaf)``, the third element naming
+    the task's own (unpadded) VDAF so that the marshal pads its rows to the
+    bucket shape and the unmarshal slices them back."""
+    return req[0], req[1], (req[2] if len(req) > 2 else None)
+
+
 class CudaBackend:
     """Batched prepare on the card: one pass of CUDA kernels per flush."""
 
@@ -145,14 +176,26 @@ class CudaBackend:
     #: leading-axis rows of an accumulator buffer (one card)
     accum_buffer_rows = 1
 
-    def __init__(self, vdaf: Prio3, device="cuda"):
+    def __init__(self, vdaf: Prio3, device="cuda", canonical: bool = False):
         if vdaf.xof is not XofTurboShake128:
             raise VdafError("the CUDA backend requires the TurboSHAKE XOF")
         self.vdaf = vdaf
+        #: canonical mode: ``vdaf`` is a bucket's padded twin shared by every
+        #: task of the bucket; requests carry the task's VDAF (3-tuples); a
+        #: flush of one task shape runs that shape's prepare, a flush that
+        #: mixes shapes carries per-row measurement lengths and runs the
+        #: twin's masked row path
+        self.canonical = canonical
         self.device = torch.device(device)
         self.bp = BatchedPrio3(vdaf, device=self.device)
         self.oracle = OracleBackend(vdaf)
         self._oracles: Dict[tuple, OracleBackend] = {}
+        #: canonical mode: each task shape's own batched prepare
+        self._exact_bps: Dict[tuple, BatchedPrio3] = {}
+        #: canonical mode: a flush whose rows are all of one shape runs that
+        #: shape's own prepare (False: the twin's masked row path, as the
+        #: JAX package's canonical backend runs every flush)
+        self.one_shape_exact = True
         #: out-share rows read back from the card by prepare launches (0
         #: while every flush keeps its out shares resident)
         self.outshare_readback_rows = 0
@@ -190,7 +233,9 @@ class CudaBackend:
             torch.cuda.synchronize(self.device)
 
     def oracle_for(self, vdaf=None) -> OracleBackend:
-        """The bit-exact CPU oracle for ``vdaf`` (None or own = this backend's)."""
+        """The bit-exact CPU oracle for ``vdaf`` (None or own = this
+        backend's).  A canonical backend's own oracle computes the twin's
+        padded circuit, so its callers name the task's VDAF."""
         if vdaf is None or vdaf is self.vdaf:
             return self.oracle
         key = vdaf_shape_key(vdaf)
@@ -199,11 +244,41 @@ class CudaBackend:
             o = self._oracles[key] = OracleBackend(vdaf)
         return o
 
+    def _bp_for(self, vdaf=None) -> BatchedPrio3:
+        """The batched prepare of ``vdaf`` (None or own = this backend's);
+        canonical mode builds one per task shape on first use."""
+        if vdaf is None or vdaf is self.vdaf:
+            return self.bp
+        key = vdaf_shape_key(vdaf)
+        bp = self._exact_bps.get(key)
+        if bp is None:
+            bp = self._exact_bps[key] = BatchedPrio3(vdaf, device=self.device)
+        return bp
+
+    def _one_shape(self, segments):
+        """Canonical mode: the task VDAF shared by every row of a flush, when
+        its rows are all of one shape (that shape's own prepare serves it,
+        narrower than the twin and planar where eligible); None when the
+        flush mixes shapes (the twin's masked row path serves it)."""
+        shapes = {vdaf_shape_key(v): v for _rows, v in segments}
+        return next(iter(shapes.values())) if len(shapes) == 1 else None
+
     # -- marshaling ------------------------------------------------------
-    def _marshal(self, agg_id: int, reports: Sequence[Report], pad_to: int) -> Dict[str, np.ndarray]:
-        """Host arrays of one flush, padded to ``pad_to`` rows by repeating
-        the last row (the padding rows are sliced off after the launch)."""
-        vdaf, flp, f = self.vdaf, self.vdaf.flp, self.bp.f
+    def _marshal(
+        self, agg_id: int, reports: Sequence[Report], pad_to: int, segments=None, vdaf=None
+    ) -> Dict[str, np.ndarray]:
+        """Host arrays of one flush of ``vdaf`` (None: this backend's),
+        padded to ``pad_to`` rows by repeating the last row (the padding
+        rows are sliced off after the launch).
+
+        ``segments`` (canonical mode, a flush that mixes shapes):
+        ``[(rows, task_vdaf)]`` per request, in order.  The leader's
+        measurement limbs of a task land in the leading MEAS_LEN columns of
+        the twin-width matrix (the pad columns stay zero: the row mask and
+        the select absorb's pad need it), and every row gets its task's
+        MEAS_LEN as ``meas_len``."""
+        vdaf = vdaf or self.vdaf
+        flp, f = vdaf.flp, self.bp.f
         B = len(reports)
         seed_size = vdaf.xof.SEED_SIZE
 
@@ -220,11 +295,24 @@ class CudaBackend:
             ).reshape(pad_to, vdaf.num_shares, seed_size)
             kw["blinds_u8"] = stack_bytes([r[2].joint_rand_blind for r in reports], seed_size)
         if agg_id == 0:
-            meas, proofs = leader_limbs(self.vdaf, reports, self.leader_marshal_rows)
+            if segments is None:
+                meas, proofs = leader_limbs(vdaf, reports, self.leader_marshal_rows)
+            else:
+                meas = np.zeros((B, flp.MEAS_LEN, f.n), dtype=np.uint32)
+                proofs = np.empty((B, flp.PROOF_LEN * vdaf.num_proofs, f.n), dtype=np.uint32)
+                row = 0
+                for rows, task_vdaf in segments:
+                    m, pr = leader_limbs(task_vdaf, reports[row : row + rows], self.leader_marshal_rows)
+                    meas[row : row + rows, : m.shape[1]] = m
+                    proofs[row : row + rows] = pr
+                    row += rows
             kw["meas_limbs"] = pad_rows(meas)
             kw["proofs_limbs"] = pad_rows(proofs)
         else:
             kw["share_seeds_u8"] = stack_bytes([r[2].share_seed for r in reports], seed_size)
+        if segments is not None:
+            lens = np.concatenate([np.full(rows, v.flp.MEAS_LEN, dtype=np.int32) for rows, v in segments])
+            kw["meas_len"] = pad_rows(lens)
         return kw
 
     def _pad_to(self, B: int) -> int:
@@ -252,28 +340,38 @@ class CudaBackend:
         power-of-two bucket and copy to the card.  None when no rows."""
         flat: List[Report] = []
         vk_rows: List[np.ndarray] = []
+        segments: Optional[List] = [] if self.canonical else None
         for req in requests:
-            verify_key, reports = req
+            verify_key, reports, task_vdaf = _req_parts(req)
             flat.extend(reports)
             vk_rows.extend([np.frombuffer(verify_key, dtype=np.uint8)] * len(reports))
+            if segments is not None and reports:
+                # a 2-tuple request (the warmup's rows) is shaped for the
+                # twin itself: its rows keep the full width
+                segments.append((len(reports), task_vdaf or self.vdaf))
         if not flat:
             return None
         B = len(flat)
         pad_to = max(pad_to or 0, self._pad_to(B))
-        kw = self._marshal(agg_id, flat, pad_to)
+        exact = self._one_shape(segments) if segments and self.one_shape_exact else None
+        kw = self._marshal(agg_id, flat, pad_to, segments=None if exact else segments, vdaf=exact)
         vk = np.stack(vk_rows)
         kw["verify_key_u8"] = np.concatenate([vk, np.repeat(vk[-1:], pad_to - B, axis=0)])
-        return StagedPrepInit(agg_id=agg_id, placed=self._place(kw), pad_to=pad_to, rows=B)
+        return StagedPrepInit(agg_id=agg_id, placed=self._place(kw), pad_to=pad_to, rows=B, exact=exact)
 
-    def _prep_fn(self, agg_id: int, pad_to: int):
+    def _prep_fn(self, agg_id: int, pad_to: int, exact=None):
         """The prepare that serves a flush padded to ``pad_to`` rows, chosen
         up front from the padded size as the JAX ``TpuBackend._prep_fn``
         chooses: the planar path for Histogram and one-bit SumVec, the row
         path for everything else (Count, Sum, SumVec with bits > 1,
-        Histogram with MEAS_LEN > 65535, any flush past 65535 rows).  Where
-        the JAX package takes its limb-planar Count/Sum path, the port takes
-        the row path, which is the faster one on the card."""
-        return getattr(self.bp, self.bp.prep_route(agg_id, pad_to))
+        Histogram with MEAS_LEN > 65535, any flush past 65535 rows, and a
+        canonical backend's flush that mixes shapes, whose masks the planar
+        kernels do not take).  ``exact`` is a canonical flush's one task
+        shape: its own prepare serves.  Where the JAX package takes its
+        limb-planar Count/Sum path, the port takes the row path, which is
+        the faster one on the card."""
+        bp = self._bp_for(exact)
+        return getattr(bp, bp.prep_route(agg_id, pad_to, masked=self.canonical and exact is None))
 
     def launch_prep_init_multi(self, staged: StagedPrepInit, requests, retain_store=None) -> List[List[PrepOutcome]]:
         """Device half: run the batched prepare, read back once, slice the
@@ -301,7 +399,8 @@ class CudaBackend:
             with trace_span("prep_launch", cat="device", backend=self.name, batch=B):
                 kw = dict(staged.placed)
                 vk = kw.pop("verify_key_u8")
-                out = self._prep_fn(agg_id, staged.pad_to)(
+                masks = {"meas_len": kw["meas_len"]} if "meas_len" in kw else {}
+                out = self._prep_fn(agg_id, staged.pad_to, staged.exact)(
                     agg_id,
                     vk,
                     kw["nonces_u8"],
@@ -310,6 +409,7 @@ class CudaBackend:
                     proofs_limbs=kw.get("proofs_limbs"),
                     blinds_u8=kw.get("blinds_u8"),
                     public_parts_u8=kw.get("public_parts_u8"),
+                    **masks,
                 )
                 outputs = {"ok": out["ok"][:B].cpu().numpy(), "verifiers": tensor_to_u32(out["verifiers"][:B])}
                 if self.vdaf.flp.JOINT_RAND_LEN > 0:
@@ -328,7 +428,7 @@ class CudaBackend:
             results: List[List[PrepOutcome]] = []
             start = 0
             for req in requests:
-                verify_key, reports = req
+                verify_key, reports, task_vdaf = _req_parts(req)
                 n = len(reports)
                 view = {k: v[start : start + n] for k, v in outputs.items()}
                 results.append(
@@ -338,6 +438,7 @@ class CudaBackend:
                         reports,
                         view,
                         resident=None if resident is None else (resident[0], start),
+                        task_vdaf=task_vdaf,
                     )
                 )
                 start += n
@@ -369,13 +470,20 @@ class CudaBackend:
             return [[] for _ in requests]
         return self.launch_prep_init_multi(staged, requests)
 
-    def _unmarshal_prep(self, verify_key, agg_id, reports, out, resident=None) -> List[PrepOutcome]:
+    def _unmarshal_prep(self, verify_key, agg_id, reports, out, resident=None, task_vdaf=None) -> List[PrepOutcome]:
         """``resident=(flush_id, start_row)`` means the out-share matrix
         stayed on the card (accumulator store): states carry ResidentRefs
         instead of field vectors.  A row whose device ``ok`` is False is
-        recomputed by the oracle (the protocol's rule)."""
+        recomputed by the oracle (the protocol's rule).  ``task_vdaf``
+        (canonical mode) slices the twin-width out share back to the task's
+        OUTPUT_LEN (its pad tail is zero) and names the oracle that
+        recomputes a not-ok row: the task's, never the twin's."""
         flp, f = self.vdaf.flp, self.bp.f
-        out_len = flp.OUTPUT_LEN
+        out_len = (task_vdaf or self.vdaf).flp.OUTPUT_LEN
+        # a canonical task's refs name its width: the bucket's drain clips
+        # the twin-width sum back to it
+        width = out_len if out_len < flp.OUTPUT_LEN else None
+        oracle = self.oracle_for(task_vdaf)
         has_jr = flp.JOINT_RAND_LEN > 0
         t0 = time.perf_counter()
         ver_len = out["verifiers"].shape[1]
@@ -389,12 +497,12 @@ class CudaBackend:
         for b in range(len(reports)):
             if not out["ok"][b]:
                 self.oracle_recompute_rows += 1
-                results.extend(self.oracle.prep_init_batch(verify_key, agg_id, [reports[b]]))
+                results.extend(oracle.prep_init_batch(verify_key, agg_id, [reports[b]]))
                 continue
             state = Prio3PrepareState(
                 out_share=f.from_limbs(out["out_share"][b, :out_len])
                 if resident is None
-                else ResidentRef(flush_id, start_row + b),
+                else ResidentRef(flush_id, start_row + b, width),
                 corrected_joint_rand_seed=out["corrected_seed"][b].tobytes() if has_jr else None,
             )
             share = Prio3PrepareShare(
@@ -463,6 +571,11 @@ class CudaBackend:
         f = self.bp.f
         m = torch.from_numpy(np.asarray(mask, dtype=bool)).to(self.device)
         delta = self.bp.aggregate(matrix.to(self.device), m)
+        pad = self.vdaf.flp.OUTPUT_LEN - delta.shape[0]
+        if pad > 0:
+            # a canonical flush served at its task's own shape is narrower
+            # than the twin's buffers: zero columns fill the twin's tail
+            delta = torch.nn.functional.pad(delta, (0, 0, 0, pad))
         if buffer is None:
             return delta
         return f.add(buffer, delta)
@@ -862,14 +975,16 @@ def device_path_label(vdaf) -> str:
     return "cuda: batched device prepare, executor kind=prep_init/combine"
 
 
-def make_backend(vdaf, backend: str = "cuda", device=None):
+def make_backend(vdaf, backend: str = "cuda", device=None, canonical: bool = False):
     """Backend factory: ``"cuda"`` (the default, on ``device``, the card
     unless the caller names another: ``CudaBackend``, for a Prio3 whose
     XOF is not TurboSHAKE128 ``HybridXofBackend``, for a Poplar1
     ``Poplar1Backend``) or ``"oracle"``
     (the CPU oracle, only when named).  An unknown name raises VdafError,
     and so does ``"cuda"`` with no card to run on: there is no quiet
-    fallback to the oracle."""
+    fallback to the oracle.  ``canonical`` marks ``vdaf`` as a bucket's
+    padded twin (``vdaf/canonical.py``): only ``CudaBackend`` honours it
+    (the oracle, hybrid and Poplar1 paths are never canonicalized)."""
     if backend not in BACKENDS:
         raise VdafError(f"unknown backend {backend!r}")
     if backend == "oracle":
@@ -881,4 +996,4 @@ def make_backend(vdaf, backend: str = "cuda", device=None):
         return Poplar1Backend(vdaf, device=device)
     if _host_xof(vdaf):
         return HybridXofBackend(vdaf, device=device)
-    return CudaBackend(vdaf, device=device)
+    return CudaBackend(vdaf, device=device, canonical=canonical)

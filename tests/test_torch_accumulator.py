@@ -354,6 +354,76 @@ def test_resident_flush_zero_readback_and_exact_drain(circuit, budget):
         assert store.byte_budget == HOST_BYTE_BUDGET and store.evictions == 0
 
 
+@pytest.mark.parametrize("budget", ["default", "tiny"])
+def test_canonical_flush_drains_bucket_width_and_clips(budget):
+    """A flush on a canonical twin (Histogram(17, 5) on Histogram(20, 5), the
+    twin's masked row path) keeps its out shares resident at the twin's
+    width; the refs name the task's width 17, and the bucket's drain clips
+    the 20-wide sum back to the JAX oracle's 17-wide aggregate; under a tiny
+    byte budget the same holds through the evictions."""
+    from janus_tpu_torch.vdaf.canonical import executor_shape
+
+    vdaf, jvdaf = instances.prio3_histogram(17, 5), jax_instances.prio3_histogram(17, 5)
+    key, twin = executor_shape(vdaf)
+    assert twin.flp.OUTPUT_LEN == 20
+    reports = _reports(jvdaf, lambda r: int(r.integers(0, 17)), 5, 17)
+    config = AccumulatorConfig(enabled=True, byte_budget=1 if budget == "tiny" else None)
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.02, flush_max_rows=1024, accumulator=config))
+    store = ex.accumulator
+    backend = ex.backend_for(key, lambda: CudaBackend(twin, device="cpu", canonical=True))
+    backend.one_shape_exact = False
+    vk = b"\x2b" * 16
+    for agg_id in (0, 1):
+        rows = [(n, p, s[agg_id]) for n, p, s in reports]
+        out = _run(ex.submit(key, KIND_PREP_INIT, (vk, rows, vdaf), backend=backend, agg_id=agg_id, retain_out_shares=True))
+        refs = [st.out_share for st, _ in out]
+        assert all(isinstance(r, ResidentRef) and r.width == 17 for r in refs)
+        assert store._flushes[refs[0].flush_id].matrix.shape[1] == 20
+        store.commit_rows(("canon", agg_id), backend, refs, job_token=b"job", report_ids=[r[0] for r in rows])
+        vector, _rids = store.drain(("canon", agg_id), vdaf.flp.field)
+        want = jvdaf.aggregate([st.out_share for st, _ in JaxOracleBackend(jvdaf).prep_init_batch(vk, agg_id, rows)])
+        assert vector == want
+    ex.shutdown()
+    assert backend.outshare_readback_rows == 0 and store.resident_bytes == 0
+    assert (store.evictions >= 2) == (budget == "tiny")
+
+
+@pytest.mark.parametrize("agg_id", [0, 1])
+def test_canonical_bucket_sums_one_shape_and_mixed_flushes(agg_id):
+    """One task's bucket fed by a flush of its own shape (its own prepare,
+    17 wide) and by a flush mixed with another task (the twin's, 20 wide)
+    drains the JAX oracle's 17-wide aggregate of both; a ref naming a width
+    short of the task's non-zero columns fails the drain loudly."""
+    import dataclasses
+
+    from janus_tpu_torch.executor.accumulator import AccumulatorUnavailable, DeviceAccumulatorStore
+    from janus_tpu_torch.vdaf.canonical import executor_shape
+
+    (v17, j17), (v18, j18) = ((instances.prio3_histogram(n, 5), jax_instances.prio3_histogram(n, 5)) for n in (17, 18))
+    _key, twin = executor_shape(v17)
+    backend = CudaBackend(twin, device="cpu", canonical=True)
+    store = DeviceAccumulatorStore(AccumulatorConfig(enabled=True))
+    vk = b"\x2c" * 16
+    r17 = [(n, p, s[agg_id]) for n, p, s in _reports(j17, lambda r: int(r.integers(0, 17)), 6, 31)]
+    r18 = [(n, p, s[agg_id]) for n, p, s in _reports(j18, lambda r: int(r.integers(0, 18)), 3, 32)]
+    refs = []
+    for reqs in ([(vk, r17[:3], v17)], [(vk, r17[3:], v17), (vk, r18, v18)]):
+        staged = backend.stage_prep_init_multi(agg_id, reqs)
+        assert (staged.exact is None) == (len(reqs) == 2)
+        out = backend.launch_prep_init_multi(staged, reqs, retain_store=store)
+        refs += [st.out_share for st, _ in out[0]]
+    store.commit_rows(("one-task", agg_id), backend, refs, job_token=b"job", report_ids=[r[0] for r in r17])
+    vector, _rids = store.drain(("one-task", agg_id), v17.flp.field)
+    want = j17.aggregate([st.out_share for st, _ in JaxOracleBackend(j17).prep_init_batch(vk, agg_id, r17)])
+    assert vector == want
+    reqs = [(vk, r17, v17)]
+    out = backend.launch_prep_init_multi(backend.stage_prep_init_multi(agg_id, reqs), reqs, retain_store=store)
+    bad = [dataclasses.replace(st.out_share, width=1) for st, _ in out[0]]
+    store.commit_rows(("short", agg_id), backend, bad, job_token=b"job", report_ids=[r[0] for r in r17])
+    with pytest.raises(AccumulatorUnavailable):
+        store.drain(("short", agg_id), v17.flp.field)
+
+
 def test_cuda_backend_buffer_counts_its_true_bytes():
     """A CudaBackend bucket's resident bytes are its buffer tensor's
     ``numel() * element_size()``, never 0, and the retained flush counts
@@ -571,11 +641,11 @@ def test_helper_prep_routes_through_executor_and_matches_oracle(count_backend):
     vk, decoded = _helper_decoded_rows(vdaf, 3, 21)
     ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.02, flush_max_rows=1024))
     agg = _agg_stub(ex)
-    ta = SimpleNamespace(vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+    ta = SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
     got = _run(agg._helper_prepare_batch_prio3_executor(ta, decoded))
     ex.shutdown()
     want = agg._helper_prepare_batch_prio3(
-        SimpleNamespace(vdaf=vdaf, backend=OracleBackend(vdaf), task=ta.task), decoded
+        SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=OracleBackend(vdaf), task=ta.task), decoded
     )
     assert set(got) == set(want)
     for idx in want:
@@ -601,7 +671,7 @@ def test_helper_prep_degrades_to_oracle_when_circuit_open(count_backend):
     ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.02, flush_max_rows=1024))
     ex.circuit_open = lambda shape_key: True  # breaker peek says: open
     agg = _agg_stub(ex)
-    ta = SimpleNamespace(vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+    ta = SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
     count_backend.oracle.rows = {"init": 0, "combine": 0}
     try:
         with pytest.raises(ServiceUnavailable) as exc_info:
@@ -671,7 +741,7 @@ def test_cold_shape_waits_for_its_warmup_and_never_reaches_the_oracle(count_back
         assert built.is_set() and not ex.warming(key)
         assert len(out) == 3 and not any(isinstance(o, Exception) for o in out)
         vk, decoded = _helper_decoded_rows(vdaf, 2, 33)
-        ta = SimpleNamespace(vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+        ta = SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
         got = _run(_agg_stub(ex)._helper_prepare_batch_prio3_executor(ta, decoded))
         assert all(v[0] == "finished" for v in got.values())
     finally:
@@ -803,7 +873,7 @@ def test_concurrent_same_job_deliveries_use_disjoint_buckets():
                            time_precision=Duration(3600))
     job = SimpleNamespace(aggregation_parameter=b"", aggregation_job_id=AggregationJobId.random(),
                           partial_batch_identifier=None)
-    ta = SimpleNamespace(task=task, vdaf=instances.prio3_count(), backend=backend)
+    ta = SimpleNamespace(backend_name="cuda", device="cpu", task=task, vdaf=instances.prio3_count(), backend=backend)
     agg = SimpleNamespace(_executor=SimpleNamespace(accumulator=store), datastore=None)
 
     def deliver():

@@ -109,7 +109,6 @@ device_executor:
         (JobDriverBinaryConfig, "field_backend: mxu", "limb-digit matmul"),
         (AggregatorConfig, "common: {distributed_coordinator: '10.0.0.2:8476'}", "multi-device"),
         (JobDriverBinaryConfig, "device_executor: {mesh: true}", "multi-device"),
-        (AggregatorConfig, "device_executor: {canonical_shapes: true}", "canonical mode"),
         (AggregatorConfig, "poplar_backend: jax", "card walk"),
         (JobDriverBinaryConfig, "poplar_backend: host", "card walk"),
         (JobDriverBinaryConfig, "warmup_wait_s: 2.0", "never falls to the oracle"),
@@ -119,6 +118,22 @@ device_executor:
 def test_refused_keys_name_their_reason(cls, text, reason):
     with pytest.raises(ConfigError, match=reason):
         load_config(cls, text=text)
+
+
+@pytest.mark.parametrize(
+    "cls,text,want",
+    [
+        (AggregatorConfig, "device_executor: {canonical_shapes: true}", True),
+        (JobDriverBinaryConfig, "device_executor: {canonical_shapes: false}", False),
+        (JobDriverBinaryConfig, "device_executor: {enabled: true}", True),
+    ],
+)
+def test_canonical_shapes_loads_with_the_reference_default(cls, text, want):
+    """``canonical_shapes`` loads as set, defaults to True as the JAX
+    package's does, and reaches the executor's config."""
+    cfg = load_config(cls, text=text)
+    assert cfg.device_executor.canonical_shapes is want
+    assert cfg.device_executor.to_executor_config().canonical_shapes is want
 
 
 #: the JAX tests' YAML texts (tests/test_binaries.py,
@@ -168,9 +183,10 @@ max_aggregation_job_size: 256
 """),
 ]
 
-#: defaults the port sets apart on purpose: the card backend, the minting
-#: backend's byte budget, exact-shape backends
-PORT_DEFAULTS = {"vdaf_backend": "cuda", "byte_budget": None, "canonical_shapes": False}
+#: defaults the port sets apart on purpose: the card backend and the
+#: minting backend's byte budget (``canonical_shapes`` is the reference's
+#: True, so it is compared like any other field)
+PORT_DEFAULTS = {"vdaf_backend": "cuda", "byte_budget": None}
 
 
 def _assert_same_fields(port: dict, jax: dict, where=""):

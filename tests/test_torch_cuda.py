@@ -59,6 +59,32 @@ def test_absorb_kernel_matches_plain(card, batch, blocks, out_words):
     assert torch.equal(got.cpu(), keccak_kernels.absorb_plain(planes, out_words))
 
 
+# K2's select variant: per-row message lengths over 1, 2 and 7 blocks (the
+# ring wraps), rows ending in every block, at the rate's edges and at 0.
+@pytest.mark.parametrize("blocks", [1, 2, 7])
+@pytest.mark.parametrize("batch", [3, 8, 257, 1024])
+def test_absorb_select_kernel_matches_plain(card, batch, blocks):
+    rng = np.random.default_rng([batch, blocks, 1])
+    width = 168 * blocks - 1
+    lens = rng.integers(0, width + 1, batch)
+    lens[: min(batch, 4)] = [0, width, 167, 168][: min(batch, 4)] if blocks > 1 else [0, width, 100, 1][: min(batch, 4)]
+    msgs = torch.from_numpy(rng.integers(0, 256, (batch, width), dtype=np.uint8))
+    msgs[torch.arange(width)[None, :] >= torch.from_numpy(lens)[:, None]] = 0
+    lens_t = torch.from_numpy(lens)
+    planes = keccak_kernels.rows_to_planes(storage(keccak.bytes_to_words(keccak.select_pad(msgs, 1, lens_t))))
+    last = (lens_t // 168).to(torch.int32)
+    before = keccak_kernels.absorb_select.launches
+    got = keccak_kernels.absorb_select(planes.to(card), last.to(card), 4)
+    torch.cuda.synchronize()
+    assert keccak_kernels.absorb_select.launches == before + 1
+    want = keccak_kernels.absorb_select_plain(planes, last, 4)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(
+        keccak.words_to_bytes(want.long().transpose(0, 1) & 0xFFFFFFFF),
+        keccak.turboshake128_batch_select(msgs, 1, 16, lens_t),
+    )
+
+
 # The SumVec100k chains at a small batch: 9,525 absorbed blocks (the ring
 # wraps 2,381 times) and 400,000 squeezed words (9,523 * 42 + 34, so the
 # last block is partial); the plain version runs on the host.
@@ -179,12 +205,15 @@ def test_wrappers_raise_for_card_tensors_without_the_library(card, monkeypatch):
     monkeypatch.setattr(flp_kernels, "sumvec_wires_plain", no_plain)
     monkeypatch.setattr(keccak_kernels, "squeeze_plain", no_plain)
     monkeypatch.setattr(keccak_kernels, "absorb_plain", no_plain)
+    monkeypatch.setattr(keccak_kernels, "absorb_select_plain", no_plain)
     f = TField(Field128)
     z = lambda *s: torch.zeros(s, dtype=torch.int32, device=card)  # noqa: E731
     with pytest.raises(_build.BuildError):
         keccak_kernels.squeeze(z(42, 5), 4)
     with pytest.raises(_build.BuildError):
         keccak_kernels.absorb(z(84, 5), 4)
+    with pytest.raises(_build.BuildError):
+        keccak_kernels.absorb_select(z(84, 5), z(5), 4)
     with pytest.raises(_build.BuildError):
         flp_kernels.combine_decide(f, 3, z(3, 4, 5), z(3, 4, 5), z(5, 8, 4).long())
     with pytest.raises(_build.BuildError):
@@ -406,6 +435,8 @@ def test_executor_resident_flush_on_the_card(card):
          ("keccak_squeeze", "keccak_absorb")),
         ("histogram", {"type": "Prio3Histogram", "length": 6, "chunk_length": 2}, lambda r: int(r.integers(0, 6)),
          lambda valid: np.bincount(valid, minlength=6).tolist(), ("keccak_squeeze", "keccak_absorb", "flp_wire_evals")),
+        # SumVec(10, 1, 3) resolves to its bucket's twin, SumVec(12, 1, 3);
+        # a flush of this one task runs its own planar prepare (K5)
         ("sumvec", {"type": "Prio3SumVec", "length": 10, "bits": 1, "chunk_length": 3},
          lambda r: [int(x) for x in r.integers(0, 2, 10)], lambda valid: np.sum(valid, axis=0).tolist(),
          ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires")),
@@ -427,6 +458,95 @@ def test_small_pair_on_the_card(card, family):
     reports, meas = chip_smoke.shard_reports(vdaf_from_instance(desc), rng, measure, 6)
     rec = chip_smoke.pair_run(name, desc, list(zip(meas, reports)), [False] * 5 + [True], expect, bytes(16), needs)
     assert rec["report_count"] == 5
+
+
+def test_absorb_select_refuses_out_of_range_final_blocks(card):
+    """A final block outside the message raises the plain version's
+    ValueError on the card too (the kernel would leave such a row unwritten),
+    and launches nothing."""
+    msg = torch.zeros((84, 3), dtype=torch.int32)
+    before = keccak_kernels.absorb_select.launches
+    for bad in ([0, 2, 1], [0, -1, 1]):
+        last = torch.tensor(bad, dtype=torch.int32)
+        with pytest.raises(ValueError, match="final block") as plain:
+            keccak_kernels.absorb_select(msg, last, 4)
+        with pytest.raises(ValueError) as on_card:
+            keccak_kernels.absorb_select(msg.to(card), last.to(card), 4)
+        assert str(on_card.value) == str(plain.value)
+    assert keccak_kernels.absorb_select.launches == before
+
+
+@pytest.mark.parametrize("agg_id", [0, 1])
+def test_canonical_one_shape_flush_runs_its_own_kernels(card, agg_id):
+    """A flush of Histogram(7, 3) alone on its bucket's twin runs the task's
+    own planar prepare on the card: K3 launches, K2's select variant does
+    not, and every output equals the CPU's."""
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+    from janus_tpu_torch.vdaf.canonical import canonical_vdaf_for
+    from janus_tpu_torch.vdaf.instances import prio3_histogram
+
+    vdaf = prio3_histogram(7, 3)
+    rng = np.random.default_rng(10 + agg_id)
+    rows = []
+    for _ in range(40):
+        nonce = rng.bytes(16)
+        public, shares = vdaf.shard(int(rng.integers(0, 7)), nonce, rng.bytes(vdaf.RAND_SIZE))
+        rows.append((nonce, public, shares[agg_id]))
+    reqs = [(bytes(16), rows, vdaf)]
+    on_card = CudaBackend(canonical_vdaf_for(vdaf), device=card, canonical=True)
+    on_cpu = CudaBackend(canonical_vdaf_for(vdaf), device="cpu", canonical=True)
+    wire, select = flp_kernels.wire_evals.launches, keccak_kernels.absorb_select.launches
+    got = on_card.launch_prep_init_multi(on_card.stage_prep_init_multi(agg_id, reqs), reqs)[0]
+    assert flp_kernels.wire_evals.launches > wire and keccak_kernels.absorb_select.launches == select
+    want = on_cpu.launch_prep_init_multi(on_cpu.stage_prep_init_multi(agg_id, reqs), reqs)[0]
+    assert [s.encode(vdaf) for _, s in got] == [s.encode(vdaf) for _, s in want]
+    assert [st.out_share for st, _ in got] == [st.out_share for st, _ in want]
+
+
+@pytest.mark.parametrize("agg_id", [0, 1])
+def test_canonical_twin_on_the_card_matches_the_cpu(card, agg_id):
+    """Histogram(7, 3) and (8, 3) in one flush on their twin Histogram(9,
+    3), ``CudaBackend(canonical=True)`` on the card and on the CPU at B = 64:
+    every prepare share and out share equal, each at its task's length; the
+    masked row path launches the K2 select kernel, which equals its plain
+    version at that flush's joint-rand-part shape."""
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+    from janus_tpu_torch.vdaf.canonical import canonical_vdaf_for
+    from janus_tpu_torch.vdaf.instances import prio3_histogram
+
+    tasks = [prio3_histogram(7, 3), prio3_histogram(8, 3)]
+    twin = canonical_vdaf_for(tasks[0])
+    rng = np.random.default_rng(agg_id)
+    reqs = []
+    for i, vdaf in enumerate(tasks):
+        rows = []
+        for _ in range(32):
+            nonce = rng.bytes(16)
+            public, shares = vdaf.shard(int(rng.integers(0, vdaf.flp.valid.length)), nonce, rng.bytes(vdaf.RAND_SIZE))
+            rows.append((nonce, public, shares[agg_id]))
+        reqs.append((bytes([i]) * 16, rows, vdaf))
+    on_card, on_cpu = CudaBackend(twin, device=card, canonical=True), CudaBackend(twin, device="cpu", canonical=True)
+    before = keccak_kernels.absorb_select.launches
+    got = on_card.launch_prep_init_multi(on_card.stage_prep_init_multi(agg_id, reqs), reqs)
+    assert keccak_kernels.absorb_select.launches == before + 1
+    want = on_cpu.launch_prep_init_multi(on_cpu.stage_prep_init_multi(agg_id, reqs), reqs)
+    for vdaf, g_task, w_task in zip(tasks, got, want):
+        assert [s.encode(vdaf) for _, s in g_task] == [s.encode(vdaf) for _, s in w_task]
+        assert [st.out_share for st, _ in g_task] == [st.out_share for st, _ in w_task]
+        assert all(len(st.out_share) == vdaf.flp.OUTPUT_LEN for st, _ in g_task)
+    staged = on_cpu.stage_prep_init_multi(agg_id, reqs)
+    kw = staged.placed
+    bp = on_cpu.bp
+    if agg_id == 0:
+        meas = kw["meas_limbs"].reshape(64, -1)
+    else:
+        meas = storage(bp.helper_shares(agg_id, kw["share_seeds_u8"])[0].reshape(64, -1))
+    ml = kw["meas_len"].long()
+    msg = bp._jr_part_message(agg_id, kw["blinds_u8"], kw["nonces_u8"], keccak_kernels.rows_to_planes(meas), ml)
+    last = ((bp._jr_part_head_len(kw["blinds_u8"], kw["nonces_u8"]) + 4 * bp.f.n * ml) // 168).to(torch.int32)
+    assert torch.equal(
+        keccak_kernels.absorb_select(msg.to(card), last.to(card), 4).cpu(), keccak_kernels.absorb_select_plain(msg, last, 4)
+    )
 
 
 def _poplar_rows(bits, count, seed):
@@ -519,8 +639,11 @@ def test_binaries_fleet_on_the_card(card, monkeypatch):
     """``chip_smoke.py`` phase 18 at a small width: five binaries of
     ``python -m janus_tpu_torch.binaries`` serve Histogram(8, 3) on the
     card over localhost HTTP; the aggregate is exact, every gate of the
-    phase holds (no replay, no journal row left, cuda prepares, K1-K3
-    launched after the warmup, SIGTERM exits 0)."""
+    phase holds (no replay, no journal row left, cuda prepares, the kernels
+    of the path launched after the warmup, SIGTERM exits 0).  Under the
+    reference's default canonical shapes Histogram(8, 3) resolves to its
+    twin Histogram(9, 3); its flushes hold this one task, so they run its
+    own planar prepare: K3 launches, K2's select variant does not."""
     import chip_smoke
 
     small = {"LENGTH": 8, "CHUNK": 3, "FLEET_REPORTS": 48, "FLEET_TAMPERED": 2, "FLEET_SHARD_WORKERS": 2,
@@ -530,4 +653,6 @@ def test_binaries_fleet_on_the_card(card, monkeypatch):
     rec = chip_smoke.binaries_phase(1, b"\x2a" * 16, chip_smoke.histogram_shard_job(1, 0, 24, 8, 3), {})
     assert rec["journal_replays"] == 0 and rec["jobs"] >= 1
     assert rec["journal_drains"] == rec["journal_rows"] == rec["journaled_jobs"] >= 1
-    assert all(rec["launches"][side]["flp_wire_evals"] > 0 for side in ("driver", "helper"))
+    for side in ("driver", "helper"):
+        launches = rec["launches"][side]
+        assert launches["flp_wire_evals"] > 0 and launches["keccak_absorb_select"] == 0, (side, launches)

@@ -434,3 +434,160 @@ def test_driver_surfaces_overload_as_retryable_jobsteperror():
         _run(go())
     finally:
         ex.shutdown(drain=False)
+
+
+# -- canonical shape buckets --------------------------------------------------
+
+
+def test_two_lengths_share_one_cached_backend_and_one_flush():
+    """Histogram(7, 3) and (8, 3), both below their bucket's ceiling, key to
+    one canonical entry: one cached twin backend (Histogram(9, 3)), one
+    bucket and one flush a side holding both tasks' jobs, and every row
+    equal to its own task's JAX oracle."""
+    from janus_tpu_torch.vdaf.backend import make_backend
+    from janus_tpu_torch.vdaf.canonical import executor_shape
+
+    tasks = [(instances.prio3_histogram(n, 3), jax_instances.prio3_histogram(n, 3)) for n in (7, 8)]
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.05, flush_max_rows=1024))
+    assert ex.config.canonical_shapes
+    (k7, c7), (k8, _c8) = (executor_shape(v) for v, _ in tasks)
+    assert k7 == k8 and c7.flp.valid.length == 9
+    backend = ex.backend_for(k7, lambda: make_backend(c7, "cuda", device="cpu", canonical=True))
+    assert ex.backend_for(k8, lambda: pytest.fail("the second task must hit the cache")) is backend
+    assert backend.canonical
+    vks = (b"\x05" * 16, b"\x06" * 16)
+    reports = [_shard(j, lambda r, n=v.flp.valid.length: int(r.integers(0, n)), 2 + i, 70 + i)
+               for i, (v, j) in enumerate(tasks)]
+
+    async def go():
+        return {
+            agg_id: await asyncio.gather(*[
+                ex.submit(k7, KIND_PREP_INIT, (vk, [(n, p, s[agg_id]) for n, p, s in rows], v), backend=backend,
+                          agg_id=agg_id)
+                for vk, rows, (v, _j) in zip(vks, reports, tasks)
+            ])
+            for agg_id in (0, 1)
+        }
+
+    outs = _run(go(), timeout=120.0)
+    ex.shutdown()
+    stats = ex.stats()
+    assert len(stats) == 2 and all(s["flushes"] == 1 and s["flushed_jobs"] == 2 for s in stats.values()), stats
+    for t, ((vdaf, jvdaf), vk, rows) in enumerate(zip(tasks, vks, reports)):
+        for agg_id in (0, 1):
+            want = JaxOracleBackend(jvdaf).prep_init_batch(vk, agg_id, [(n, p, s[agg_id]) for n, p, s in rows])
+            for (gs, gp), (ws, wp) in zip(outs[agg_id][t], want):
+                assert gp.encode(vdaf) == wp.encode(jvdaf)
+                assert gs.out_share == ws.out_share and len(gs.out_share) == vdaf.flp.OUTPUT_LEN
+                assert gs.corrected_joint_rand_seed == ws.corrected_joint_rand_seed
+
+
+def test_bisection_keeps_the_task_vdaf_of_each_request():
+    """A failed canonical flush is sieved in halves with each request's
+    third element (the task's VDAF) kept, so the retried rows still marshal
+    at their task's length and equal its oracle."""
+    from janus_tpu_torch.vdaf.canonical import executor_shape
+
+    vdaf, jvdaf = instances.prio3_histogram(7, 3), jax_instances.prio3_histogram(7, 3)
+    key, twin = executor_shape(vdaf)
+    backend = CudaBackend(twin, device="cpu", canonical=True)
+    real_launch = backend.launch_prep_init_multi
+    seen = []
+
+    def launch(staged, requests, retain_store=None):
+        seen.append([len(r) for r in requests])
+        if staged.rows > 1:  # the whole flush fails; singletons serve
+            raise RuntimeError("device on fire")
+        return real_launch(staged, requests, retain_store=retain_store)
+
+    backend.launch_prep_init_multi = launch
+    rows = [(n, p, s[0]) for n, p, s in _shard(jvdaf, lambda r: int(r.integers(0, 7)), 2, 9)]
+    ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.01, breaker_failure_threshold=0))
+    try:
+        got = _run(ex.submit(key, KIND_PREP_INIT, (b"\x07" * 16, rows, vdaf), backend=backend), timeout=60.0)
+    finally:
+        ex.shutdown()
+    assert seen and all(lens == [3] for lens in seen)
+    want = JaxOracleBackend(jvdaf).prep_init_batch(b"\x07" * 16, 0, rows)
+    for (gs, gp), (ws, wp) in zip(got, want):
+        assert gs.out_share == ws.out_share and gp.verifiers_share == wp.verifiers_share
+
+
+def test_driver_resolves_the_twin_and_never_caches_an_oracle_under_its_key(monkeypatch):
+    """With ``vdaf_backend: oracle`` a canonicalizable task resolves under its
+    EXACT key (an oracle under the shared canonical key would serve every
+    other bucket member a wrong-shaped circuit); on the card backend it gets
+    the bucket's twin under the tagged key; a twin that fails to build is
+    negative-cached and the task falls back to its exact-shape backend."""
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, DriverConfig
+    from janus_tpu_torch.vdaf import backend as backend_mod
+    from janus_tpu_torch.vdaf.canonical import backend_shape_key, executor_shape
+
+    h5 = instances.prio3_histogram(5, 2)
+    canon_key, canon = executor_shape(h5)
+    task = SimpleNamespace(task_id="t-canonical")
+    for name, device in (("oracle", None), ("cuda", "cpu")):
+        ex = DeviceExecutor(ExecutorConfig())
+        try:
+            driver = AggregationJobDriver(None, None, DriverConfig(vdaf_backend=name, vdaf_device=device,
+                                                                   device_executor=ex))
+            b = driver._backend_for(task, h5)
+            if name == "oracle":
+                assert isinstance(b, OracleBackend) and b.vdaf is h5
+                assert canon_key not in driver._backends and vdaf_shape_key(h5) in driver._backends
+                assert ex.cached_backend(canon_key) is None
+            else:
+                assert isinstance(b, CudaBackend) and b.canonical and b.vdaf is canon
+                assert ex.cached_backend(canon_key) is b and backend_shape_key(b) == canon_key
+                assert driver._backend_for(task, instances.prio3_histogram(5, 2)) is b
+        finally:
+            ex.shutdown(drain=False)
+
+    def refuse(vdaf, backend="cuda", device=None, canonical=False):
+        if canonical:
+            raise RuntimeError("twin build failed")
+        return CudaBackend(vdaf, device=device)
+
+    monkeypatch.setattr(backend_mod, "make_backend", refuse)
+    ex = DeviceExecutor(ExecutorConfig())
+    try:
+        driver = AggregationJobDriver(None, None, DriverConfig(vdaf_device="cpu", device_executor=ex))
+        b = driver._backend_for(task, h5)
+        assert isinstance(b, CudaBackend) and not b.canonical and b.vdaf is h5
+        assert canon_key in ex.canonical_build_failed and ex.cached_backend(canon_key) is None
+        assert backend_shape_key(b) == vdaf_shape_key(h5)
+    finally:
+        ex.shutdown(drain=False)
+
+
+def test_deferred_drain_merges_the_clipped_vector(monkeypatch):
+    """A deferred canonical bucket drained at shutdown (``drain_all`` into the
+    driver's ``_merge_drained``, the path every journaled drain takes) merges
+    the vector clipped back to the task's OUTPUT_LEN: the store clips each
+    readback to its rows' width, so the merge never sees the twin's tail."""
+    from janus_tpu_torch.aggregator import aggregation_job_writer
+    from janus_tpu_torch.aggregator.aggregation_job_driver import AggregationJobDriver, DriverConfig
+    from janus_tpu_torch.executor.accumulator import AccumulatorConfig, DeviceAccumulatorStore
+    from janus_tpu_torch.vdaf.canonical import executor_shape
+
+    merged = []
+    monkeypatch.setattr(aggregation_job_writer, "merge_share_delta",
+                        lambda tx, task, field, ident, param, vector, shard_count: merged.append(vector))
+    tx = SimpleNamespace(delete_accumulator_journal_entry=lambda *a: True)
+    datastore = SimpleNamespace(run_tx=lambda name, fn: fn(tx))
+    driver = AggregationJobDriver(datastore, None, DriverConfig(vdaf_device="cpu"))
+    h5, jh5 = instances.prio3_histogram(5, 2), jax_instances.prio3_histogram(5, 2)
+    _key, twin = executor_shape(h5)
+    backend = CudaBackend(twin, device="cpu", canonical=True)
+    backend.one_shape_exact = False
+    store = DeviceAccumulatorStore(AccumulatorConfig(enabled=True, drain_interval_s=60.0))
+    rows = [(n, p, s[0]) for n, p, s in _shard(jh5, lambda r: int(r.integers(0, 5)), 3, 55)]
+    reqs = [(b"\x08" * 16, rows, h5)]
+    out = backend.launch_prep_init_multi(backend.stage_prep_init_multi(0, reqs), reqs, retain_store=store)
+    key = ("leader", b"t", vdaf_shape_key(h5), b"ident", b"")
+    store.commit_rows(key, backend, [st.out_share for st, _ in out[0]], job_token=b"j" * 16,
+                      report_ids=[r[0] for r in rows])
+    task = SimpleNamespace(task_id="t", vdaf_instance=lambda: h5)
+    store.drain_all(lambda k, vector, journal: driver._merge_drained(task, h5.flp.field, k, vector, journal))
+    want = jh5.aggregate([st.out_share for st, _ in JaxOracleBackend(jh5).prep_init_batch(b"\x08" * 16, 0, rows)])
+    assert merged == [want] and len(want) == 5

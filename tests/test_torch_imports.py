@@ -37,6 +37,8 @@ def test_importing_the_port_loads_no_jax_or_janus_tpu():
     for m in ("binaries.main", "binaries.config", "binaries.janus_cli", "binaries.collect", "binaries.__main__",
               "aggregator_api", "core.statusz", "core.slo", "core.otlp", "native"):
         assert f"janus_tpu_torch.{m}" in mods, m
+    # canonical shape buckets
+    assert "janus_tpu_torch.vdaf.canonical" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -268,11 +268,15 @@ class Pair:
                         result.append(got)
             finally:
                 await session.close()
-            from janus_tpu_torch.vdaf.backend import vdaf_shape_key
+            from janus_tpu_torch.vdaf.canonical import executor_shape
 
             for side, agg in (("leader", leader), ("helper", helper)):
                 if side in self.executors:
-                    cached = self.executors[side].cached_backend(vdaf_shape_key(vdaf))
+                    # the key the task's prepare was served under: its
+                    # canonical bucket's where it has one
+                    ex = self.executors[side]
+                    key, _canon = executor_shape(vdaf, enabled=ex.config.canonical_shapes)
+                    cached = ex.cached_backend(key)
                     self.backends[side] = cached or (await agg.task_aggregator_for(self.task_id)).backend
             return result, meas
         finally:
@@ -400,11 +404,17 @@ def test_port_pair_collects_the_oracle_aggregate(family, transport):
     assert result.report_count == len(meas) == VALID
     assert result.aggregate_result == jax_oracle_aggregate(desc, meas)
     from janus_tpu_torch.vdaf.backend import CudaBackend, HybridXofBackend
+    from janus_tpu_torch.vdaf.canonical import canonical_vdaf_for
+    from janus_tpu_torch.vdaf.instances import vdaf_from_instance
 
     hybrid = family == "multiproof"
+    # the executors run the reference's default, canonical shapes: SumVec(10,
+    # 1, 3) and FixedPoint(BitSize16, 3) serve through their bucket's twin
+    canonical = canonical_vdaf_for(vdaf_from_instance(desc)) is not None
     for side, ex in pair.executors.items():
         backend = pair.backends[side]
         assert isinstance(backend, HybridXofBackend if hybrid else CudaBackend), side
+        assert getattr(backend, "canonical", False) == canonical, side
         assert backend.bp.device.type == "cpu" and backend.oracle_recompute_rows == 0, side
         assert not any(backend.oracle.rows.values()), side
         flushes = {k: v for k, v in ex.stats().items() if "/prep_init#" in k}
