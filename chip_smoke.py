@@ -193,7 +193,28 @@ them:
     K2's select variant is held against its plain version at that flush's
     joint-rand-part absorb and timed.  Then FixedPointBoundedL2VecSum
     (BitSize16) at 1,000 and 1,003 entries share the twin with 1,006: 504
-    valid rows and 8 norm-lie rows a task, B = 1024, the same gates.
+    valid rows and 8 norm-lie rows a task, B = 1024, the same gates;
+20. **The limb-digit matmul layout** (``field_backend: mxu``; the JAX
+    package's ``MXU_AB_ROWS`` and FixedPoint): ``CudaBackend(field_backend=
+    "mxu")`` serves Histogram(1024, 316) at phase 2's B = 4096 rows,
+    Sum(32) at 4,096 rows of 64 reports sharded in the phase (64
+    tampered), SumVec100k at phase 4's B = 128 and FixedPoint(BitSize16,
+    1000) at 1,016 rows of phase 14's reports and 8 norm-lie rows, both
+    sides, combined and aggregated, every flush on the row path: the
+    aggregate is exact, every tampered row is rejected, sampled rows equal
+    the oracle, K1, K2 and the digit reduce (``csrc/field_dot.cu``) launch
+    and K3-K5 and K2's select variant do not.  On the staged rows both
+    sides' prepare and the combine equal the vpu route's output for output;
+    both routes' device ms a side, the mxu peak memory, a profiled mxu helper
+    prepare at Histogram and FixedPoint (device activities, idle share); the
+    digit reduce
+    at the path's largest contraction against its plain version on its
+    operands and on carry-saturating ones (every element p - 1), its ms,
+    bound and launches and the digit matmul's ms.  Then the pair of phase
+    13 with ``Config``/``DriverConfig(field_backend="mxu")`` collects
+    Histogram(1024, 316) (512 reports, 8 tampered) and FixedPoint (18
+    reports, 2 norm lies) exactly, with the same gates and the digit reduce
+    launched.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -331,6 +352,20 @@ CANON_HIST_LENGTHS, CANON_HIST_WORKERS = (LENGTH, 1000), 2
 CANON_HIST_ROWS, CANON_HIST_TAMPERED = 2016, 32
 CANON_FP_LENGTHS, CANON_FP_WORKERS, CANON_FP_PER_WORKER = (1000, 1003), 2, 2
 CANON_FP_ROWS, CANON_FP_LIES = 504, 8
+#: Phase 20, the limb-digit matmul layout (``field_backend: mxu``): the JAX
+#: package's MXU_AB_ROWS (bench.py:1197: Sum(32), Histogram(1024, 316),
+#: SumVec100k) and FixedPoint(BitSize16, 1000), each at an earlier phase's
+#: flush: Histogram at phase 2's B = 4096 rows, Sum(32) at SUM_SMALL_FLUSH
+#: rows of MXU_SUM_DISTINCT reports sharded in the phase (MXU_SUM_TAMPERED
+#: tampered), SumVec100k at phase 4's B = 128, FixedPoint at phase 14's B =
+#: 1024 (FP_LIE_ROWS norm lies); rows held against the oracle a shape.
+MXU_SUM_DISTINCT, MXU_SUM_TAMPERED, MXU_SAMPLED = 64, 64, 4
+#: The kernels every mxu prepare launches: K1, K2 and the digit reduce.
+MXU_NEEDS = ("keccak_squeeze", "keccak_absorb", "field_lazy_reduce")
+#: Type conversions from 64-bit floating point to 32-bit integers per SM and
+#: clock (CUDA C++ Programming Guide, arithmetic instruction throughput, cc
+#: 9.0): the digit reduce converts each float64 partial sum once.
+CONVERT_F64_PER_CLK = 16
 #: The five binaries of phase 18 and the binary each runs.
 FLEET = {"leader": "aggregator", "helper": "aggregator", "creator": "aggregation_job_creator",
          "driver": "aggregation_job_driver", "collection": "collection_job_driver"}
@@ -391,14 +426,15 @@ KECCAK_ROUND_DEPTH = 5
 ALU_DEPENDENT_CYCLES = 4
 
 KERNEL_NAMES = ("keccak_squeeze", "keccak_absorb", "flp_wire_evals", "flp_combine_decide", "flp_sumvec_wires",
-                "keccak_absorb_select")
+                "keccak_absorb_select", "field_lazy_reduce")
 #: Each kernel's wrapper as ``/statusz`` names it (core/statusz.py).
 STATUSZ_KERNELS = dict(zip(("keccak_kernels.squeeze", "keccak_kernels.absorb", "flp_kernels.wire_evals",
-                            "flp_kernels.combine_decide", "flp_kernels.sumvec_wires", "keccak_kernels.absorb_select"),
+                            "flp_kernels.combine_decide", "flp_kernels.sumvec_wires", "keccak_kernels.absorb_select",
+                            "field_kernels.lazy_reduce_digits"),
                            KERNEL_NAMES))
 #: Each launch counter's kernel, as torch.profiler names its device events.
 DEVICE_KERNELS = dict(zip(KERNEL_NAMES, ("squeeze_kernel", "absorb_kernel", "wire_kernel", "combine_kernel", "sumvec_kernel",
-                                         "absorb_select_kernel")))
+                                         "absorb_select_kernel", "digit_reduce_kernel")))
 #: The kernels of a canonical twin's masked row path (no FLP kernel).
 CANONICAL_KERNELS = ("keccak_squeeze", "keccak_absorb_select")
 #: Small kernels a trace runs before the calls it measures: late in a long
@@ -524,21 +560,23 @@ def ops(*terms):
     return tuple(sum(n * c[i] for n, c in terms) for i in (0, 1))
 
 
-def bound(bytes_moved: float, count) -> dict:
+def bound(bytes_moved: float, count, conversions: float = 0) -> dict:
     """The least time (ms) of a call that moves ``bytes_moved`` and does
-    ``count`` = (multiply results, other integer instructions): the largest
-    of the bytes at the HBM rate, the multiplies at the integer multiply
-    rate, the other instructions at the ALU rate and all the instructions
-    (a product's two results are one) at the dispatch rate.  ``bound_by``
-    is "bytes" or "operations"; ``bound_kind`` names which of the four was
-    taken."""
+    ``count`` = (multiply results, other integer instructions) and
+    ``conversions`` float64-to-integer conversions: the largest of the
+    bytes at the HBM rate, the multiplies at the integer multiply rate, the
+    other instructions at the ALU rate, the conversions at their rate and
+    all the instructions (a product's two results are one) at the dispatch
+    rate.  ``bound_by`` is "bytes" or "operations"; ``bound_kind`` names
+    which of the five was taken."""
     mul, alu = count
     per_ms = torch.cuda.get_device_properties(0).multi_processor_count * sm_clock_hz() / 1e3
     times = {
         "bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
         "multiplies": mul / (INT_MUL_PER_CLK * per_ms),
         "alu": alu / (INT_ALU_PER_CLK * per_ms),
-        "dispatch": (mul / 2 + alu) / (DISPATCH_PER_CLK * per_ms),
+        "conversions": conversions / (CONVERT_F64_PER_CLK * per_ms),
+        "dispatch": (mul / 2 + alu + conversions) / (DISPATCH_PER_CLK * per_ms),
     }
     kind = max(times, key=times.get)
     return {"bound_ms": times[kind], "bound_by": "bytes" if kind == "bytes" else "operations", "bound_kind": kind}
@@ -566,11 +604,12 @@ def sm_clock_hz() -> float:
 
 def counters():
     """The launch-counting wrapper of every kernel, by name."""
-    from janus_tpu_torch.ops import flp_kernels, keccak_kernels
+    from janus_tpu_torch.ops import field_kernels, flp_kernels, keccak_kernels
 
     return dict(zip(KERNEL_NAMES, (
         keccak_kernels.squeeze, keccak_kernels.absorb, flp_kernels.wire_evals,
         flp_kernels.combine_decide, flp_kernels.sumvec_wires, keccak_kernels.absorb_select,
+        field_kernels.lazy_reduce_digits,
     )))
 
 
@@ -1955,7 +1994,7 @@ def tally_calls(owner, attr: str, tally: dict, key: str):
     return lambda: setattr(owner, attr, orig) if had else delattr(owner, attr)
 
 
-def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
+def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_backend=None):
     """One task through the leader/helper pair on the card: each side an
     ``Aggregator`` with its own ``EphemeralDatastore`` and its own
     ``DeviceExecutor`` with the accumulator on (``make_backend``'s
@@ -1973,8 +2012,10 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
     executors run the reference's default, canonical shapes: a task below
     its bucket's ceiling resolves to the bucket's twin, which the record
     names under ``served_as``; each flush holds this one task, so it runs
-    the task's own prepare (K2's select variant may not launch).  Returns
-    the record."""
+    the task's own prepare (K2's select variant may not launch).
+    ``field_backend`` goes into both sides' ``Config``, the driver's
+    ``DriverConfig`` and the warmed backends (None: the default, "vpu"), and
+    every backend that served must carry it.  Returns the record."""
     import asyncio
 
     from janus_tpu_torch.core import hpke_batch, trace
@@ -2026,7 +2067,8 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
         ex = {side: DeviceExecutor(ExecutorConfig(accumulator=AccumulatorConfig(enabled=True)))
               for side in ds}
         aggs = {side: Aggregator(ds[side].datastore, clock, Config(
-            vdaf_device=DEVICE, device_executor=ex[side], max_upload_batch_write_delay=0.02)) for side in ds}
+            vdaf_device=DEVICE, device_executor=ex[side], max_upload_batch_write_delay=0.02,
+            field_backend=field_backend)) for side in ds}
         net = InProcessNetwork()
         urls = {side: net.add(side, agg) for side, agg in aggs.items()}
         undo = [tally_calls(aggs["leader"], "handle_upload", layers, "leader upload handler"),
@@ -2061,7 +2103,8 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
             backends = {}
             for agg_id, side in enumerate(ds):
                 b = backends[side] = ex[side].backend_for(
-                    key, lambda: make_backend(twin or vdaf, "cuda", device=DEVICE, canonical=twin is not None))
+                    key, lambda: make_backend(twin or vdaf, "cuda", device=DEVICE, canonical=twin is not None,
+                                              field_backend=field_backend))
                 # a backend with no executor surface (HybridXofBackend) has
                 # no launch to warm
                 if ex[side].warmup_backend(b, agg_ids=(agg_id,), pad_to=min(PAIR_JOB_SIZE, len(shards))):
@@ -2092,7 +2135,7 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
                 min_aggregation_job_size=1, max_aggregation_job_size=PAIR_JOB_SIZE)).run_once()
             secs["creator"] = time.perf_counter() - t0
             driver = AggregationJobDriver(ds["leader"].datastore, net.session, DriverConfig(
-                vdaf_device=DEVICE, device_executor=ex["leader"]))
+                vdaf_device=DEVICE, device_executor=ex["leader"], field_backend=field_backend))
             undo.append(tally_calls(driver, "step_aggregation_job", layers, "leader driver step"))
             leases = await ds["leader"].datastore.run_tx_async(
                 "acquire", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(600), 1 << 10))
@@ -2157,6 +2200,8 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
                                  f"recomputed {b.oracle_recompute_rows} rows, oracle rows {b.oracle.rows} {extra}")
         if b.bp.device.type != torch.device(DEVICE).type:
             raise AssertionError(f"pair {name}: the {side}'s FLP ran on {b.bp.device}")
+        if b.bp.field_backend != (field_backend or "vpu"):
+            raise AssertionError(f"pair {name}: the {side} prepared under {b.bp.field_backend}, not {field_backend}")
         if any(c["trips"] or c["state"] != "closed" for c in circuits[side].values()):
             raise AssertionError(f"pair {name}: a breaker of the {side} tripped: {circuits[side]}")
     marshal = backends["leader"].leader_marshal_rows
@@ -2182,7 +2227,7 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs):
         "prep_init_flushes": flushes, "executor_stats": stats, "leader_marshal_rows": marshal,
         "outshare_readback_rows": readback, "backend": type(backends["leader"]).__name__,
         "device_peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
-        "report_count": result.report_count,
+        "report_count": result.report_count, "field_backend": field_backend or "vpu",
     })
     served = (f"; served by the twin {json.dumps(rec['served_as'])}" if twin is not None else "; exact shape")
     log(f"pair {name}: {len(shards)} reports ({rec['tampered']} tampered, rejected) in {rec['jobs']} jobs; aggregate "
@@ -3425,6 +3470,227 @@ def canonical_ab(seed: int) -> dict:
     return out
 
 
+def reduce_bound(P: torch.Tensor, n: int) -> dict:
+    """The bound of one digit-reduce call on partial sums P (..., M, D, N,
+    D): each float64 sum read once and the (..., M, N, n) u32 limbs written
+    once; a sum's conversion, its two halves (a mask and a shift) and their
+    two column adds; the carry pass's 9 instructions a limb of U (2n + 1
+    limbs); the two Montgomery products and four modular adds of the fold.
+    The products and adds are Field128's counts (MONT_MUL, FIELD_ADD)."""
+    D = 4 * n
+    outputs = P.numel() // (D * D)
+    sums = P.numel()
+    count = ops((sums, (0, 4)), (outputs * (2 * n + 1), (0, 9)), (2 * outputs, MONT_MUL), (4 * outputs, FIELD_ADD))
+    return bound(sums * 8 + outputs * n * 4, count, conversions=sums)
+
+
+def reduce_check(f, a, b) -> dict:
+    """The digit reduce at one contraction's operands a (R, K, M, n), b (K,
+    N, n) or (R, K, N, n) as the path gave them (one batch slice): against
+    its plain version on the digit product of a and b and on that of
+    carry-saturating operands of the same shapes (every element p - 1); the
+    matmul's and the kernel's ms (CUDA events), the plain version's, the
+    bound."""
+    from janus_tpu_torch.ops import field_kernels
+
+    D = 4 * f.n
+    R, M, N = a.shape[0], a.shape[2], b.shape[-2]
+    lhs, rhs = f.digit_operands(a, b)
+    P = torch.matmul(lhs, rhs).reshape(R, M, D, N, D)
+    err = max_abs_err(field_kernels.lazy_reduce_digits(f, P), field_kernels.lazy_reduce_digits_plain(f, P))
+    top = torch.from_numpy(f._int_to_limbs_np(f.p - 1).astype(np.int64)).to(a.device)
+    sl, sr = f.digit_operands(top.expand_as(a).contiguous(), top.expand_as(b).contiguous())
+    Ps = torch.matmul(sl, sr).reshape(R, M, D, N, D)
+    err_sat = max_abs_err(field_kernels.lazy_reduce_digits(f, Ps), field_kernels.lazy_reduce_digits_plain(f, Ps))
+    del sl, sr, Ps
+    rec = {
+        "max_abs_err": max(err, err_sat), "max_abs_err_random": err, "max_abs_err_saturated": err_sat,
+        "ms": cuda_time_ms(lambda: field_kernels.lazy_reduce_digits(f, P), 5),
+        "plain_ms": cuda_time_ms(lambda: field_kernels.lazy_reduce_digits_plain(f, P), 1, rounds=1),
+        "matmul_ms": cuda_time_ms(lambda: torch.matmul(lhs, rhs), 5),
+        "digit_operands_ms": cuda_time_ms(lambda: f.digit_operands(a, b), 5),
+        **reduce_bound(P, f.n), "library_ms": None, "tolerance": TOLERANCE,
+        "shape": f"a {tuple(a.shape)} x b {tuple(b.shape)} -> partial sums {tuple(P.shape)} float64",
+    }
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def mxu_case(name, vdaf, verify_key, batch, expect, oracle_check, rng, profile=False) -> dict:
+    """One shape under ``field_backend="mxu"`` (phase 20): the served path
+    through ``CudaBackend(field_backend="mxu")``, both sides, combined and
+    aggregated, with K1, K2 and the digit reduce launched and K3-K5 and K2's
+    select variant not; the aggregate is ``expect(valid rows)``, every
+    tampered row is rejected and ``oracle_check(results)`` holds rows
+    against the oracle.  On the staged rows both sides' prepare and the
+    combine equal the vpu route's (the chooser's: planar where eligible)
+    output for output; both routes' device ms a side, the mxu peak memory
+    and, with ``profile``, a profiled mxu helper prepare (device activities,
+    idle share; the vpu route's are phases 2 and 14's); the digit reduce at the path's largest contraction
+    (``reduce_check``).  Returns the record."""
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+
+    leader_rows, helper_rows, bad, src = batch
+    B = len(leader_rows)
+    vpu = CudaBackend(vdaf, device=DEVICE)
+    mxu = CudaBackend(vdaf, device=DEVICE, field_backend="mxu")
+    require_route(mxu, B, "prep_init")
+    vpu_route = vpu._prep_fn(0, vpu._pad_to(B)).__name__
+    t0 = time.perf_counter()
+    (aggs, accepted, results, _msgs, secs), launches = counted(
+        f"mxu {name} served path", MXU_NEEDS, lambda: run_main_path(vdaf, mxu, verify_key, leader_rows, helper_rows)
+    )
+    e2e = time.perf_counter() - t0
+    no_flp_kernels(f"mxu {name}", launches)
+    if launches["keccak_absorb_select"]:
+        raise AssertionError(f"mxu {name}: launched K2's select variant: {launches}")
+    if vdaf.unshard(aggs, int(accepted.sum())) != expect(src[~bad]):
+        raise AssertionError(f"mxu {name}: aggregate differs from the exact aggregate of the valid rows")
+    check_decisions(accepted, bad)
+    oracle_check(results)
+
+    # the same staged rows through both routes on the card
+    staged = {a: mxu.stage_prep_init_multi(a, [(verify_key, rows)]).placed for a, rows in ((0, leader_rows), (1, helper_rows))}
+    f = mxu.bp.f
+    largest = {"size": 0}
+    real = f.digit_operands
+
+    def spy(a, b):
+        size = a.shape[0] * a.shape[2] * b.shape[-2]
+        if size > largest["size"]:
+            largest.update(size=size, a=a, b=b)
+        return real(a, b)
+
+    f.digit_operands = spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        got = {a: device_prep(mxu.bp, staged[a], a, "prep_init") for a in (0, 1)}
+    finally:
+        del f.digit_operands
+    peak = torch.cuda.max_memory_allocated()
+    want = {a: device_prep(vpu.bp, staged[a], a, vpu_route) for a in (0, 1)}
+    for a in (0, 1):
+        equal_outputs(f"mxu {name}, agg {a}, against {vpu_route}", got[a], want[a])
+    parts = [got[a]["joint_rand_part"] for a in (0, 1)]
+    msg = {route: bp.prep_shares_to_prep([o[a]["verifiers"] for a in (0, 1)], parts)
+           for route, bp, o in (("mxu", mxu.bp, got), ("vpu", vpu.bp, want))}
+    equal_outputs(f"mxu {name} combine", msg["mxu"], msg["vpu"])
+    if not np.array_equal(msg["mxu"]["decide"][:B].cpu().numpy(), accepted):
+        raise AssertionError(f"mxu {name}: the device combine decides otherwise than the served path")
+    del got, want, msg
+    reps = 1 if B * vdaf.flp.MEAS_LEN > 1 << 23 else 3
+    dev_ms = {route: {side: cuda_time_ms(lambda a=a, bp=bp, r=r: device_prep(bp, staged[a], a, r), 1, rounds=reps)
+                      for side, a in (("leader", 0), ("helper", 1))}
+              for route, bp, r in (("mxu", mxu.bp, "prep_init"), ("vpu " + vpu_route, vpu.bp, vpu_route))}
+    profile = profile_device(lambda: device_prep(mxu.bp, staged[1], 1, "prep_init")) if profile else None
+    reduce = reduce_check(f, largest["a"], largest["b"])
+    reduce["launches"] = launches["field_lazy_reduce"]
+    del largest, staged
+    log(f"mxu {name}: {B} reports through prep_init; exact aggregate over {int(accepted.sum())} rows; "
+        f"{int(bad.sum())} tampered rows rejected; both sides' prepare and the combine equal {vpu_route}'s on the "
+        f"card; device ms {json.dumps(dev_ms)}; "
+        + (f"a profiled mxu helper prepare {json.dumps(profile)}; " if profile else "")
+        + f"peak memory {peak} bytes; reduce at {reduce['shape']}: "
+        f"{reduce['ms']:.5f} ms (bound {reduce['bound_ms']:.5f}, {reduce['bound_kind']}; plain "
+        f"{reduce['plain_ms']:.3f}), matmul {reduce['matmul_ms']:.5f} ms, {reduce['launches']} launches a job; "
+        f"served {e2e:.3f} s")
+    return {"reports": B, "route": "prep_init", "vpu_route": vpu_route, "seconds": e2e, "phases_s": secs,
+            "launches": launches, "device_prep_init_ms": dev_ms, "device_prep_init_profile": profile,
+            "device_peak_memory_bytes": peak, "reduce": reduce}
+
+
+def mxu_phase(verify_key, rng, hist, hist_meas, sv_served, fp_done, hist_shards, phases):
+    """Phase 20: the limb-digit matmul layout on the card at the published
+    widths (``mxu_case`` a shape), then the pair with ``Config`` and
+    ``DriverConfig(field_backend="mxu")`` for Histogram(1024, 316) and
+    FixedPoint(BitSize16, 1000).  Returns (the reduce kernel's entry, its
+    entries at the other shapes, the record)."""
+    from janus_tpu_torch.vdaf.instances import prio3_histogram, prio3_sum, prio3_sum_vec, vdaf_from_instance
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def sampled(vdaf, rows):
+        def check(results):
+            oracle_sample(vdaf, verify_key, rows[0], rows[1], results, rng, MXU_SAMPLED)
+        return check
+
+    hv = prio3_histogram(LENGTH, CHUNK)
+    out["histogram"] = mxu_case("histogram", hv, verify_key, hist,
+                                lambda valid: np.bincount(np.array(hist_meas)[valid], minlength=LENGTH).tolist(),
+                                sampled(hv, hist), rng, profile=True)
+    torch.cuda.empty_cache()
+    sv = prio3_sum(SUM_BITS)
+    reports, meas = shard_reports(sv, rng, lambda r: int(r.integers(0, 1 << SUM_BITS)), MXU_SUM_DISTINCT)
+    batch = build_batch(sv, reports, rng, SUM_SMALL_FLUSH, MXU_SUM_TAMPERED)
+    out["sum"] = mxu_case("sum", sv, verify_key, batch, lambda valid: sum(meas[i] for i in valid), sampled(sv, batch),
+                          rng)
+    torch.cuda.empty_cache()
+    svv = prio3_sum_vec(SV_LENGTH, 1, SV_CHUNK)
+    sv_batch, sv_aggs, sv_oracle = sv_served
+
+    def sv_oracle_check(results):
+        _lead, _help, bad, src = sv_batch
+        for i in range(len(sv_oracle)):
+            b = int(np.flatnonzero((src == i) & ~bad)[0])
+            for agg_id in (0, 1):
+                compare_row(svv, b, agg_id, results[agg_id][b], sv_oracle[i][agg_id])
+
+    sv_expect = svv.unshard(sv_aggs, int((~sv_batch[2]).sum()))
+    out["sumvec"] = mxu_case("sumvec", svv, verify_key, sv_batch, lambda valid: sv_expect, sv_oracle_check, rng)
+    torch.cuda.empty_cache()
+    fv = vdaf_from_instance(FP_DESC)
+    lead, help_, bad, src, fp_meas, fp_oracle = fixedpoint_rows(fv, fp_done, rng, FP_BATCH - FP_LIE_ROWS, FP_LIE_ROWS)
+
+    def fp_oracle_check(results):
+        for b in rng.choice(np.flatnonzero(~bad), MXU_SAMPLED, replace=False):
+            for agg_id in (0, 1):
+                compare_row(fv, b, agg_id, results[agg_id][b], fp_oracle[src[b]][agg_id])
+
+    out["fixedpoint"] = mxu_case(
+        "fixedpoint", fv, verify_key, (lead, help_, bad, src),
+        lambda valid: [sum(fp_meas[i][j] for i in valid) for j in range(FP_DESC["length"])], fp_oracle_check, rng,
+        profile=True)
+    torch.cuda.empty_cache()
+
+    # end to end: the pair under Config/DriverConfig(field_backend="mxu")
+    def tampered_flags(n, k):
+        flags = np.zeros(n, dtype=bool)
+        flags[rng.choice(n, k, replace=False)] = True
+        return flags.tolist()
+
+    pair = {}
+    pair["histogram"] = pair_run(
+        "histogram mxu", {"type": "Prio3Histogram", "length": LENGTH, "chunk_length": CHUNK}, hist_shards,
+        tampered_flags(len(hist_shards), PAIR_TAMPERED), lambda valid: np.bincount(valid, minlength=LENGTH).tolist(),
+        verify_key, MXU_NEEDS, field_backend="mxu")
+    torch.cuda.empty_cache()
+    fp_shards = [(m, r) for done, _lie, _s in fp_done for m, r, _o in done]
+    fp_lies = [(None, lie) for _d, lie, _s in fp_done][:PAIR_FP_LIES]
+    pair["fixedpoint"] = pair_run(
+        "fixedpoint mxu", FP_DESC, fp_shards + fp_lies, [False] * len(fp_shards) + [True] * len(fp_lies),
+        lambda valid: [sum(m[j] for m in valid) for j in range(FP_DESC["length"])], verify_key, MXU_NEEDS,
+        field_backend="mxu")
+    for name, rec in pair.items():
+        no_flp_kernels(f"pair {name} mxu", rec["launches"])
+    out["pair"] = {k: {key: rec[key] for key in ("seconds", "reports_per_s", "launches", "prep_init_flushes",
+                                                 "device_peak_memory_bytes", "field_backend")}
+                   for k, rec in pair.items()}
+    torch.cuda.empty_cache()
+    phases["mxu"] = time.perf_counter() - t_phase
+
+    head = out["histogram"]["reduce"]
+    entry = {
+        "name": "field_lazy_reduce", "route": "cuda", "source": "janus_tpu_torch/csrc/field_dot.cu",
+        "replaces": "janus_tpu/ops/field_jax.py:736 (JField._lazy_reduce_digits, XLA-fused; no Pallas kernel)",
+        "launches": out["histogram"]["launches"]["field_lazy_reduce"],
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_kind", "library_ms",
+                                "tolerance", "shape", "matmul_ms", "max_abs_err_saturated", "share_of_bound")},
+    }
+    shapes = {f"mxu_{k}": {"field_lazy_reduce": out[k]["reduce"]} for k in ("sum", "sumvec", "fixedpoint")}
+    return entry, shapes, out
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
     return subprocess.run(
@@ -3545,8 +3811,14 @@ def main() -> int:
     canonical, select_entry = canonical_phase(verify_key, rng, (reports, meas), h1000_shards, fp_done, fp1003_done,
                                               phases)
     kernels.append(select_entry)
+    torch.cuda.empty_cache()
+    reduce_entry, mxu_shapes, mxu = mxu_phase(verify_key, rng, hist_batch, meas, sv_served, fp_done, hist_shards, phases)
+    kernels.append(reduce_entry)
+    path_shapes.update(mxu_shapes)
     for k in kernels:
-        k["launches_by_path"] = {path: launches[k["name"]] for path, launches in PATH_LAUNCHES.items()}
+        # a process that never loaded a kernel's wrapper (a binary that
+        # never ran the mxu layout) launched it no time
+        k["launches_by_path"] = {path: launches.get(k["name"], 0) for path, launches in PATH_LAUNCHES.items()}
         for path, shapes in path_shapes.items():
             if k["name"] in shapes:
                 k[f"at_{path}"] = shapes[k["name"]]
@@ -3566,7 +3838,8 @@ def main() -> int:
                                    "sumvec_bits8": sumvec_bits, "histogram_executor": histogram_executor,
                                    "sumvec_executor": sumvec_executor, "fixedpoint": fixedpoint,
                                    "multiproof": multiproof, "pair": pair, "poplar1": poplar1,
-                                   "poplar1_pair": poplar1_pair, "binaries": binaries, "canonical": canonical}}))
+                                   "poplar1_pair": poplar1_pair, "binaries": binaries, "canonical": canonical,
+                                   "mxu": mxu}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: where built libraries go, the CUDA kernels' and the host XOF's
 #: (``native.py``); :func:`set_build_dir` moves it
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "janus_tpu_torch"
-SOURCES = ("keccak", "flp_wire", "flp_sumvec", "flp_combine")
+SOURCES = ("keccak", "flp_wire", "flp_sumvec", "flp_combine", "field_dot")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -99,6 +99,9 @@ class DriverConfig:
     vdaf_backend: str = "cuda"
     #: torch device of the "cuda" backend; None = "cuda" (tests name "cpu")
     vdaf_device: Optional[str] = None
+    #: Field layout of the card backends ("vpu" | "mxu", None = the process
+    #: default); see aggregator.Config.field_backend.
+    field_backend: Optional[str] = None
     http_retry: HttpRetryPolicy = field(default_factory=HttpRetryPolicy)
     #: Gather window for coalescing same-shape jobs from DIFFERENT tasks
     #: into one device launch (BASELINE configs[4]); 0 disables.  Only
@@ -442,7 +445,8 @@ class AggregationJobDriver:
 
             def factory():
                 return resolve_backend(
-                    vdaf, self.config.vdaf_backend, self.config.vdaf_device, task.task_id
+                    vdaf, self.config.vdaf_backend, self.config.vdaf_device, task.task_id,
+                    self.config.field_backend,
                 )
 
             if self._executor is not None:
@@ -450,7 +454,8 @@ class AggregationJobDriver:
                 # every driver (and its warmup) shares one backend per
                 # VDAF shape or canonical bucket.
                 _key, b = self._executor.prep_backend_for(
-                    vdaf, self.config.vdaf_backend, self.config.vdaf_device, factory
+                    vdaf, self.config.vdaf_backend, self.config.vdaf_device, factory,
+                    field_backend=self.config.field_backend,
                 )
             else:
                 b = factory()

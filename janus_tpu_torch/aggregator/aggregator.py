@@ -153,6 +153,10 @@ class Config:
     vdaf_backend: str = "cuda"
     #: torch device of the "cuda" backend; None = "cuda" (tests name "cpu")
     vdaf_device: Optional[str] = None
+    #: Field layout of the card backends: "vpu" (limb core) or "mxu" (the
+    #: limb-digit matmul layout, vdaf/backend.py FIELD_BACKENDS); None =
+    #: JANUS_TPU_TORCH_FIELD_BACKEND or "vpu".  Bit-exact either way.
+    field_backend: Optional[str] = None
     collection_job_retry_after: int = 10
     #: Aggregation-job size for agg-param VDAFs (Poplar1), whose jobs are
     #: created by the collection request (_create_agg_param_jobs) rather
@@ -168,9 +172,9 @@ class Config:
     device_executor: Optional[object] = None
 
 
-def resolve_backend(vdaf, backend_name: str, device, task_id=None):
+def resolve_backend(vdaf, backend_name: str, device, task_id=None, field_backend: Optional[str] = None):
     """The backend that serves ``vdaf``: ``make_backend(vdaf, backend_name,
-    device=)``, except that a VDAF the card does not serve
+    device=, field_backend=)``, except that a VDAF the card does not serve
     (``device_supported`` False) takes the CPU oracle — logged, and counted
     in ``janus_vdaf_backend_fallbacks_total``.  For a served circuit an
     error from building the backend propagates: no oracle hides the card."""
@@ -197,7 +201,7 @@ def resolve_backend(vdaf, backend_name: str, device, task_id=None):
                     vdaf_type=vdaf_type, reason=reason[:80]
                 ).inc()
             backend_name = "oracle"
-    return make_backend(vdaf, backend_name, device=device)
+    return make_backend(vdaf, backend_name, device=device, field_backend=field_backend)
 
 
 class TaskAggregator:
@@ -209,18 +213,20 @@ class TaskAggregator:
         task: AggregatorTask,
         backend_name: str,
         device: Optional[str] = None,
+        field_backend: Optional[str] = None,
     ):
         self.task = task
         self.vdaf = task.vdaf_instance()
         self.backend_name = backend_name
         self.device = device
+        self.field_backend = field_backend
         self._backend = None
 
     @property
     def backend(self):
         if self._backend is None:
             self._backend = resolve_backend(
-                self.vdaf, self.backend_name, self.device, self.task.task_id
+                self.vdaf, self.backend_name, self.device, self.task.task_id, self.field_backend
             )
         return self._backend
 
@@ -335,7 +341,7 @@ class Aggregator:
         )
         if task is None:
             raise UnrecognizedTask(str(task_id))
-        ta = TaskAggregator(task, self.config.vdaf_backend, self.config.vdaf_device)
+        ta = TaskAggregator(task, self.config.vdaf_backend, self.config.vdaf_device, self.config.field_backend)
         self._task_cache[key] = (_t.monotonic() + self.config.task_cache_ttl, ta)
         return ta
 
@@ -1158,7 +1164,9 @@ class Aggregator:
         """(shape key, backend) through the executor's shape-keyed cache:
         tasks sharing one VDAF shape, or one canonical bucket, share one
         backend (and the drivers' backend, in the same process)."""
-        return self._executor.prep_backend_for(ta.vdaf, ta.backend_name, ta.device, lambda: ta.backend)
+        return self._executor.prep_backend_for(
+            ta.vdaf, ta.backend_name, ta.device, lambda: ta.backend, field_backend=ta.field_backend
+        )
 
     async def _helper_prepare_batch_prio3_executor(self, ta: TaskAggregator, decoded):
         """Helper prep through the process-wide device executor: prep_init

@@ -9,9 +9,10 @@ secrets (datastore keys, auth tokens) taken from the environment, never
 the file.
 
 What the port adds: ``vdaf_device`` (the torch device of the ``cuda``
-backend; None is the card).  What it refuses: a key it cannot honour
-raises :class:`ConfigError` with the reason, never silently ignored —
-``field_backend: mxu``, a ``distributed_coordinator`` and
+backend; None is the card).  ``field_backend`` is ``vpu`` (the default)
+or ``mxu``, the limb-digit matmul layout, as in the JAX package.  What it
+refuses: a key it cannot honour raises :class:`ConfigError` with the
+reason, never silently ignored — a ``distributed_coordinator`` and
 ``device_executor.mesh`` (parts not ported yet: ROADMAP queue 1),
 ``poplar_backend`` and a non-zero ``warmup_wait_s``
 (options the port removed), and a ``vdaf_backend`` other than ``cuda`` or
@@ -39,6 +40,8 @@ REMOVED_KEYS = {
 
 #: the port's VDAF backends (vdaf/backend.py BACKENDS)
 VDAF_BACKENDS = ("cuda", "oracle")
+#: the card backends' field layouts (vdaf/backend.py FIELD_BACKENDS)
+FIELD_BACKENDS = ("vpu", "mxu")
 
 
 def _check_backends(vdaf_backend: str, field_backend: str) -> None:
@@ -47,13 +50,8 @@ def _check_backends(vdaf_backend: str, field_backend: str) -> None:
             f"vdaf_backend {vdaf_backend!r} is not a backend of the port "
             f"(one of {', '.join(VDAF_BACKENDS)}; 'tpu' is the JAX package's)"
         )
-    if field_backend == "mxu":
-        raise ConfigError(
-            "field_backend: mxu is not ported (the limb-digit matmul field "
-            "layout, ROADMAP queue 1); the port's limb core is vpu"
-        )
-    if field_backend != "vpu":
-        raise ConfigError(f"unknown field_backend {field_backend!r} (vpu)")
+    if field_backend not in FIELD_BACKENDS:
+        raise ConfigError(f"unknown field_backend {field_backend!r} (one of {', '.join(FIELD_BACKENDS)})")
 
 
 def redact_database_url(url: str) -> str:
@@ -509,8 +507,9 @@ class AggregatorConfig:
     #: torch device of the "cuda" backend; None = the card ("cpu" is how
     #: tests run the binaries)
     vdaf_device: Optional[str] = None
-    #: Field-arithmetic layout: "vpu", the port's limb core (the default);
-    #: "mxu" is refused until the limb-digit matmul layout is ported.
+    #: Field-arithmetic layout of the card backends: "vpu", the limb core
+    #: (the default), or "mxu", the limb-digit matmul layout (every flush on
+    #: the row path, its contractions as matmuls); the same bytes either way.
     field_backend: str = "vpu"
     #: Aggregation-job size for agg-param VDAFs (Poplar1), whose jobs are
     #: created by the collection request rather than the periodic creator.

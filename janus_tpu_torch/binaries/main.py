@@ -419,6 +419,54 @@ def _close_tracing() -> None:
 # ---------------------------------------------------------------------------
 
 
+def aggregator_config(cfg: AggregatorConfig, executor=None):
+    """The aggregator's ``Config`` from its binary's config file."""
+    from ..aggregator import Config
+
+    return Config(
+        max_upload_batch_size=cfg.max_upload_batch_size,
+        max_upload_batch_write_delay=cfg.max_upload_batch_write_delay_ms / 1000.0,
+        upload_open_backend=cfg.upload_open_backend,
+        upload_open_batch_size=cfg.upload_open_batch_size,
+        upload_open_batch_delay=cfg.upload_open_batch_delay_ms / 1000.0,
+        upload_queue_max=cfg.upload_queue_max,
+        upload_shed_delay_s=cfg.upload_shed_delay_s,
+        ingest_mode=cfg.ingest.mode,
+        ingest_journal_batch_size=cfg.ingest.journal_batch_size,
+        ingest_journal_write_delay=cfg.ingest.journal_write_delay_ms / 1000.0,
+        ingest_journal_queue_max=cfg.ingest.journal_queue_max,
+        ingest_stage_direct=cfg.ingest.stage_direct,
+        ingest_stage_max_reports=cfg.ingest.stage_max_reports,
+        batch_aggregation_shard_count=cfg.batch_aggregation_shard_count,
+        task_counter_shard_count=cfg.task_counter_shard_count,
+        vdaf_backend=cfg.vdaf_backend,
+        vdaf_device=cfg.vdaf_device,
+        field_backend=cfg.field_backend,
+        max_agg_param_job_size=cfg.max_agg_param_job_size,
+        device_executor=executor,
+    )
+
+
+def aggregation_driver_config(cfg: JobDriverBinaryConfig, executor=None):
+    """The aggregation-job driver's ``DriverConfig`` from its binary's
+    config file."""
+    from ..aggregator import DriverConfig
+    from ..core.retries import HttpRetryPolicy
+
+    return DriverConfig(
+        batch_aggregation_shard_count=cfg.batch_aggregation_shard_count,
+        maximum_attempts_before_failure=cfg.job_driver.maximum_attempts_before_failure,
+        max_step_attempts=cfg.job_driver.max_step_attempts,
+        retry_initial_delay_s=cfg.job_driver.retry_initial_delay_s,
+        retry_max_delay_s=cfg.job_driver.retry_max_delay_s,
+        vdaf_backend=cfg.vdaf_backend,
+        vdaf_device=cfg.vdaf_device,
+        field_backend=cfg.field_backend,
+        device_executor=executor,
+        http_retry=HttpRetryPolicy(attempt_timeout=cfg.job_driver.http_attempt_timeout_s),
+    )
+
+
 def run_aggregator(config_path: Optional[str]) -> None:
     """DAP HTTP server + optional GC loop
     (reference: binaries/aggregator.rs:31-150)."""
@@ -429,33 +477,9 @@ def run_aggregator(config_path: Optional[str]) -> None:
 
     from aiohttp import web
 
-    from ..aggregator import Aggregator, Config, GarbageCollector, aggregator_app
+    from ..aggregator import Aggregator, GarbageCollector, aggregator_app
 
-    agg = Aggregator(
-        datastore,
-        clock,
-        Config(
-            max_upload_batch_size=cfg.max_upload_batch_size,
-            max_upload_batch_write_delay=cfg.max_upload_batch_write_delay_ms / 1000.0,
-            upload_open_backend=cfg.upload_open_backend,
-            upload_open_batch_size=cfg.upload_open_batch_size,
-            upload_open_batch_delay=cfg.upload_open_batch_delay_ms / 1000.0,
-            upload_queue_max=cfg.upload_queue_max,
-            upload_shed_delay_s=cfg.upload_shed_delay_s,
-            ingest_mode=cfg.ingest.mode,
-            ingest_journal_batch_size=cfg.ingest.journal_batch_size,
-            ingest_journal_write_delay=cfg.ingest.journal_write_delay_ms / 1000.0,
-            ingest_journal_queue_max=cfg.ingest.journal_queue_max,
-            ingest_stage_direct=cfg.ingest.stage_direct,
-            ingest_stage_max_reports=cfg.ingest.stage_max_reports,
-            batch_aggregation_shard_count=cfg.batch_aggregation_shard_count,
-            task_counter_shard_count=cfg.task_counter_shard_count,
-            vdaf_backend=cfg.vdaf_backend,
-            vdaf_device=cfg.vdaf_device,
-            max_agg_param_job_size=cfg.max_agg_param_job_size,
-            device_executor=executor,
-        ),
-    )
+    agg = Aggregator(datastore, clock, aggregator_config(cfg, executor))
 
     async def main():
         loop = asyncio.get_running_loop()
@@ -710,29 +734,12 @@ def _run_job_driver_binary(config_path: Optional[str], kind: str) -> None:
     from ..aggregator import (
         AggregationJobDriver,
         CollectionJobDriver,
-        DriverConfig,
         JobDriver,
     )
 
     if kind == "aggregation":
-        from ..core.retries import HttpRetryPolicy
-
         stepper_impl = AggregationJobDriver(
-            datastore,
-            aiohttp.ClientSession,
-            DriverConfig(
-                batch_aggregation_shard_count=cfg.batch_aggregation_shard_count,
-                maximum_attempts_before_failure=cfg.job_driver.maximum_attempts_before_failure,
-                max_step_attempts=cfg.job_driver.max_step_attempts,
-                retry_initial_delay_s=cfg.job_driver.retry_initial_delay_s,
-                retry_max_delay_s=cfg.job_driver.retry_max_delay_s,
-                vdaf_backend=cfg.vdaf_backend,
-                vdaf_device=cfg.vdaf_device,
-                device_executor=executor,
-                http_retry=HttpRetryPolicy(
-                    attempt_timeout=cfg.job_driver.http_attempt_timeout_s
-                ),
-            ),
+            datastore, aiohttp.ClientSession, aggregation_driver_config(cfg, executor)
         )
         if executor is not None and cfg.device_executor.warmup_rows:
             # Registry-driven BACKGROUND warmup: resolving every task's

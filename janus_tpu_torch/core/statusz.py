@@ -38,6 +38,7 @@ _PROCESS_START = time.monotonic()
 KERNEL_WRAPPERS = (
     ("janus_tpu_torch.ops.keccak_kernels", ("squeeze", "absorb", "absorb_select")),
     ("janus_tpu_torch.ops.flp_kernels", ("wire_evals", "combine_decide", "sumvec_wires")),
+    ("janus_tpu_torch.ops.field_kernels", ("lazy_reduce_digits",)),
 )
 
 def device_status() -> dict:

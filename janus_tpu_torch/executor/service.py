@@ -460,13 +460,14 @@ class DeviceExecutor:
             self._schedule_warmup(shape_key, b)
         return b
 
-    def prep_backend_for(self, vdaf, backend_name: str, device, exact_factory):
+    def prep_backend_for(self, vdaf, backend_name: str, device, exact_factory, field_backend=None):
         """(key, backend) a prepare of ``vdaf`` submits under, for the job
         drivers and the helper alike.  With ``canonical_shapes`` on, a card
         backend named and a task that canonicalizes (vdaf/canonical.py):
         its bucket's twin, ``make_backend(twin, backend_name,
-        canonical=True)``, under the tagged key that every task of the
-        bucket shares.  Otherwise ``exact_factory()`` under the task's exact
+        canonical=True, field_backend=)``, under the tagged key that every
+        task of the bucket shares (the caller's ``field_backend``, as its
+        ``exact_factory`` has).  Otherwise ``exact_factory()`` under the task's exact
         key.  The tagged key only ever holds a canonical card backend: a
         twin that fails to build is logged and remembered, and its tasks
         take their exact keys."""
@@ -482,7 +483,10 @@ class DeviceExecutor:
         ):
             try:
                 return key, self.backend_for(
-                    key, lambda: make_backend(twin, backend_name, device=device, canonical=True)
+                    key,
+                    lambda: make_backend(
+                        twin, backend_name, device=device, canonical=True, field_backend=field_backend
+                    ),
                 )
             except Exception:
                 self.canonical_build_failed.add(key)

@@ -14,6 +14,14 @@ byte-equal.  All operations are exact integer arithmetic mod p.
 
 Kernel I/O uses int32 tensors that hold the u32 bit patterns (half the bytes
 of int64); ``words``/``storage`` convert between the two.
+
+The limb-digit matmul layer (``mat_mul_mont``, ``dot_mont``,
+``poly_eval_dot``; ``JField``'s "mxu" layout) splits each element into 4n
+base-2^8 digits and contracts the digit planes as one float64 matmul: every
+partial sum is an integer below K * 255^2 <= 2^32 < 2^53, so it is exact in
+any order of addition, on the CPU and in cuBLAS alike.  One pass an output
+element then folds the digit-pair sums into canonical limbs
+(``_lazy_reduce_digits``, on the card ``ops/field_kernels.py``'s kernel).
 """
 
 from __future__ import annotations
@@ -26,6 +34,16 @@ import torch
 
 M32 = 0xFFFFFFFF
 M16 = 0xFFFF
+M8 = 0xFF
+
+#: Longest contraction of one ``mat_mul_mont`` digit pass: a digit-pair
+#: partial sum is at most K * 255^2 and must stay below 2^32, so K <=
+#: 66051; 65536 is the JAX package's ``DOT_MAX_K``.  Longer contractions add
+#: their chunks mod p.
+DOT_MAX_K = 65536
+#: Bytes of float64 digit operands and partial sums one digit pass may hold
+#: (8 bytes a digit, 8x the limbs): a larger batch is split into slices.
+DIGIT_BYTE_BUDGET = 1 << 30
 
 
 def words(x: torch.Tensor) -> torch.Tensor:
@@ -90,6 +108,8 @@ class TField:
         self.mont_one_np = self._int_to_limbs_np(r)
         self.p_limbs = [int(x) for x in self.p_np]
         self.n_prime = (-pow(p, -1, 1 << 32)) % (1 << 32)
+        #: the bits of p - 2, most significant first (Fermat inversion)
+        self.inv_exp_bits = [int(b) for b in bin(p - 2)[2:]]
 
     # --- host-side conversions ----------------------------------------
     def _int_to_limbs_np(self, x: int) -> np.ndarray:
@@ -355,6 +375,154 @@ class TField:
         for i in range(self.n):
             _, borrow = _sbb(limbs[i], self.p_limbs[i], borrow)
         return borrow == 1
+
+    # --- inversion (Montgomery domain) -------------------------------------
+    def _fermat_inv_mont(self, a):
+        """a^(p-2) by square-and-multiply over the bits of p - 2: the
+        Montgomery form of the inverse of a's value; inv(0) = 0."""
+        acc = self.mont_one(a.device).expand_as(a)
+        for bit in self.inv_exp_bits:
+            acc = self.mont_mul(acc, acc)
+            if bit:
+                acc = self.mont_mul(acc, a)
+        return acc
+
+    def inv_mont(self, a):
+        """Inverse in the Montgomery domain, inv(0) = 0.  One element takes
+        the Fermat chain; more take Montgomery's batch trick, one chain over
+        the product of all fanned back out by the mutual products, with
+        each zero replaced by one before the product and zeroed after.  An
+        inverse and its canonical limbs are unique, so both give the same
+        limbs."""
+        if a[..., 0].numel() <= 1:
+            return self._fermat_inv_mont(a)
+        flat = a.reshape(-1, self.n)
+        zero = self.is_zero(flat)[:, None]
+        safe = torch.where(zero, self.mont_one(a.device).expand_as(flat), flat)
+        inv = self._batch_inv_nonzero(safe, 0)
+        return torch.where(zero, torch.zeros_like(inv), inv).reshape(a.shape)
+
+    def _batch_inv_nonzero(self, a, axis: int):
+        """inv(a_k) = inv(prod_j a_j) * prod_{j != k} a_j along an element
+        axis whose entries are all nonzero."""
+        length = a.shape[axis]
+        total = self.cumprod_mont(a, axis).narrow(axis, length - 1, 1)
+        return self.mont_mul(self.mutual_products_mont(a, axis), self._fermat_inv_mont(total).expand_as(a))
+
+    def batch_inv_mont(self, a, axis: int):
+        """Montgomery's batch inversion along an element axis (all nonzero)."""
+        return self._batch_inv_nonzero(a, axis % (a.dim() - 1))
+
+    # --- the limb-digit matmul layer ---------------------------------------
+    def _digits8(self, x):
+        """(..., n) limbs -> (..., 4n) base-2^8 digits, little-endian: digit
+        d has weight 2^(8d)."""
+        parts = torch.stack([(x >> (8 * i)) & M8 for i in range(4)], dim=-1)
+        return parts.reshape(x.shape[:-1] + (4 * self.n,))
+
+    def mat_mul_mont(self, a, b):
+        """Modular matmul with one Montgomery reduction an output element:
+        a (*B, K, M, n) x b (*B, K, N, n) -> (*B, M, N, n) canonical, with
+        out[m, v] = sum_k a[k, m] b[k, v] R^-1 mod p, which is sum_k
+        mont_mul(a_k, b_k): a canonical operand times a Montgomery one lands
+        canonical, as a mont_mul/sum chain does.  ``b`` may omit the batch
+        dimensions ((K, N, n)): a constant matrix shared by every batch
+        element.  A contraction longer than DOT_MAX_K adds its chunks mod p."""
+        K = a.shape[-3]
+        out = None
+        for s in range(0, K, DOT_MAX_K):
+            part = self._mat_mul_dot(a[..., s : s + DOT_MAX_K, :, :], b[..., s : s + DOT_MAX_K, :, :])
+            out = part if out is None else self.add(out, part)
+        return out
+
+    def _mat_mul_dot(self, a, b):
+        """One digit pass of ``mat_mul_mont`` (K <= DOT_MAX_K): the (M*D, K)
+        x (K, N*D) digit product (D = 4n) as one float64 matmul, then
+        ``field_kernels.lazy_reduce_digits``.  The batch is taken in slices
+        whose digit operands and partial sums stay under DIGIT_BYTE_BUDGET."""
+        from .field_kernels import lazy_reduce_digits
+
+        n, D = self.n, 4 * self.n
+        K, M, N = a.shape[-3], a.shape[-2], b.shape[-2]
+        batch = a.shape[:-3]
+        shared = b.dim() == 3
+        if not shared and b.shape[:-3] != batch:
+            raise ValueError(f"mat_mul_mont: batch dimensions {tuple(b.shape[:-3])} and {tuple(batch)} differ")
+        a = a.reshape((-1, K, M, n))
+        if not shared:
+            b = b.reshape((-1, K, N, n))
+        per_row = 8 * (M * D * K + M * D * N * D + (0 if shared else K * N * D))
+        step = max(1, DIGIT_BYTE_BUDGET // per_row)
+        outs = []
+        for s in range(0, a.shape[0], step):
+            lhs, rhs = self.digit_operands(a[s : s + step], b if shared else b[s : s + step])
+            P = torch.matmul(lhs, rhs).reshape(-1, M, D, N, D)
+            outs.append(words(lazy_reduce_digits(self, P)))
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        return out.reshape(batch + (M, N, n))
+
+    def digit_operands(self, a, b):
+        """The float64 digit operands of one digit pass: a (R, K, M, n) ->
+        (R, M*D, K) and b (K, N, n) -> (K, N*D) or (R, K, N, n) -> (R, K,
+        N*D), so that their matmul, read as (R, M, D, N, D), is the
+        digit-pair partial sums."""
+        R, K, M, _ = a.shape
+        D = 4 * self.n
+        lhs = self._digits8(a).to(torch.float64).permute(0, 2, 3, 1).reshape(R, M * D, K)
+        return lhs, self._digits8(b).to(torch.float64).reshape(b.shape[:-2] + (b.shape[-2] * D,))
+
+    def _lazy_reduce_digits(self, P):
+        """(..., M, D, N, D) digit-pair partial sums (integers below 2^32,
+        float64 or int64) -> canonical (..., M, N, n) int64 limbs.
+
+        Each sum splits into u16 halves; half lo[d, e] lands on digit column
+        d + e and hi[d, e] on d + e + 2, so a column holds at most 2D terms
+        below 2^16.  The columns carry into the 2n + 1 limbs of the integer
+        U = U0 + R U1 + R^2 U2 (R = 2^(32n)), and U R^-1 mod p =
+        from_mont(U0) + U1 + mont_mul(U2, R^2), each term canonical."""
+        n, D = self.n, 4 * self.n
+        P = P.to(torch.int64)
+        L = 2 * n + 1
+        cols = torch.zeros(P.shape[:-4] + (P.shape[-4], P.shape[-2], 4 * L), dtype=torch.int64, device=P.device)
+        for d in range(D):
+            cols[..., d : d + D] += P[..., d, :, :] & M16
+            cols[..., d + 2 : d + 2 + D] += P[..., d, :, :] >> 16
+        limbs = []
+        carry = torch.zeros_like(cols[..., 0])
+        for j in range(L):
+            c = cols[..., 4 * j : 4 * j + 4]
+            t = c[..., 0] + (c[..., 1] << 8) + (c[..., 2] << 16) + (c[..., 3] << 24) + carry
+            limbs.append(t & M32)
+            carry = t >> 32
+        zero = torch.zeros_like(carry)
+        u0 = self._join(limbs[:n])
+        u1 = self._join(limbs[n : 2 * n])
+        u2 = self._join([limbs[2 * n]] + [zero] * (n - 1))
+        r2 = torch.from_numpy(self.r2_np.astype(np.int64)).to(P.device)
+        res = self.add(self.from_mont(u0), self.add(u1, torch.zeros_like(u1)))
+        return self.add(res, self.mont_mul(u2, r2))
+
+    def dot_mont(self, a, b):
+        """sum_k mont_mul(a_k, b_k): a (*B, K, M, n) x b (*B, K, n) ->
+        (*B, M, n), one ``mat_mul_mont``."""
+        return self.mat_mul_mont(a, b.unsqueeze(-2)).squeeze(-2)
+
+    def poly_eval_dot(self, coeffs, x):
+        """``poly_eval_mont`` with both baby-step/giant-step contractions
+        (the coefficient fold a giant step and the giant fold) as
+        ``dot_mont``: coeffs (..., C, n) canonical, low order first; x
+        (..., n) Montgomery -> (..., n) canonical."""
+        C = coeffs.shape[-2]
+        bs = max(1, math.isqrt(C))
+        gs = -(-C // bs)
+        if bs * gs > C:
+            pad = torch.zeros(coeffs.shape[:-2] + (bs * gs - C, self.n), dtype=coeffs.dtype, device=coeffs.device)
+            coeffs = torch.cat([coeffs, pad], dim=-2)
+        baby = self._powers_from_one(x, bs + 1)  # x^0..x^bs
+        giant = self._powers_from_one(baby[..., bs, :], gs)  # x^(bs*g)
+        cg = coeffs.reshape(coeffs.shape[:-2] + (gs, bs, self.n))
+        inner = self.dot_mont(cg.transpose(-3, -2), baby[..., :bs, :])  # (..., gs, n)
+        return self.dot_mont(inner.unsqueeze(-2), giant).squeeze(-2)
 
 
 def field_words(words_: torch.Tensor, num_elems: int, n: int) -> torch.Tensor:

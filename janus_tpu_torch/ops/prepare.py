@@ -75,6 +75,8 @@ LAZY_SUM_MAX = 65535
 #: over the P-th roots from this P up, and a Horner scan below it, as the
 #: JAX package does.
 NTT_MIN_P = 64
+#: The row path's field layouts (``BatchedPrio3(field_backend=)``).
+FIELD_BACKENDS = ("vpu", "mxu")
 
 
 def _ones(f: TField, B: int, device) -> List[torch.Tensor]:
@@ -119,10 +121,17 @@ class _DeviceCircuit:
     single-gadget circuits keep gadget 0's plan under ``calls``, ``arity``,
     ``P`` and ``glen``, which the planar path reads; a circuit with more
     gadgets (FixedPointBoundedL2VecSum) overrides the per-gadget hooks
-    ``wire_evals_g`` and ``v_multi``."""
+    ``wire_evals_g`` and ``v_multi``.
 
-    def __init__(self, valid):
+    ``mxu`` takes the contractions over calls and bits (the wire
+    evaluations' Lagrange folds, the weighted truncates and bit
+    recompositions, the joint-rand fold of Sum) through the limb-digit
+    matmul (``TField.mat_mul_mont``/``dot_mont``) in place of mont_mul/sum
+    trees: the same canonical limbs, computed as matmuls."""
+
+    def __init__(self, valid, mxu: bool = False):
         self.valid = valid
+        self.mxu = mxu
         self.plans = [
             _GadgetPlan(calls, g.ARITY, g.DEGREE)
             for g, calls in zip(valid.new_gadgets(), valid.GADGET_CALLS)
@@ -158,6 +167,8 @@ class _DeviceCircuit:
         coefficients, seeds (B, arity, n) canonical."""
         inp = self.inputs(f, meas, jr_m, consts)  # (B, calls, arity, n)
         wires = torch.cat([seeds[:, None], inp], dim=1)  # (B, K, arity, n)
+        if self.mxu:
+            return f.dot_mont(wires, lag)
         return f.sum(f.mont_mul(wires, lag[:, :, None, :]), axis=1)
 
 
@@ -188,9 +199,14 @@ class _DSum(_DeviceCircuit):
     def v(self, f, gk, meas, jr_m, consts):
         r = jr_m[:, 0]  # (B, n) Montgomery
         r_pows = f.cumprod_mont(r[:, None, :].expand(gk.shape), axis=1)  # r^(k+1) at call k
+        if self.mxu:
+            return f.dot_mont(gk[:, :, None, :], r_pows).squeeze(1)
         return f.sum(f.mont_mul(r_pows, gk), axis=1)
 
     def truncate(self, f, meas, consts, ml=None):
+        if self.mxu:
+            # the bit weights are one constant vector shared by every row
+            return f.dot_mont(meas[:, :, None, :], consts["pow2_m"])
         return f.sum(f.mont_mul(meas, consts["pow2_m"][None]), axis=1)[:, None, :]
 
     def gadget_eval_scaled(self, f, x):
@@ -202,8 +218,8 @@ class _DSum(_DeviceCircuit):
 class _DChunked(_DeviceCircuit):
     """Shared machinery for the ParallelSum(Mul, chunk) circuits."""
 
-    def __init__(self, valid):
-        super().__init__(valid)
+    def __init__(self, valid, mxu: bool = False):
+        super().__init__(valid, mxu)
         self.chunk = valid.chunk_length
         #: the circuit's zero padding of the last call (positions
         #: MEAS_LEN..calls*chunk-1, applied inside the wire kernels)
@@ -217,13 +233,19 @@ class _DChunked(_DeviceCircuit):
             meas = torch.cat([meas, zeros], dim=1)
         return meas.reshape(B, self.calls, self.chunk, f.n)
 
-    def _zip_wires(self, f, m, evens, lagk, lag0, ccorr, seeds):
+    def _lag_fold(self, f, m, lagk):
+        """sum_k m[k, u] lag_{k+1}: m (B, calls, chunk, n) canonical, lagk
+        (B, calls, n) Montgomery -> (B, chunk, n) canonical."""
+        if self.mxu:
+            return f.dot_mont(m, lagk)
+        return f.sum(f.mont_mul(m, lagk[:, :, None, :]), axis=1)
+
+    def _zip_wires(self, f, evens, s2, lag0, ccorr, seeds):
         """The row wires [seed_i lag_0 + (evens|odds)[u]] from the even
-        evaluations, with odds[u] = sum_k m[k,u] lag_{k+1} - ccorr, where
-        ccorr = (1/shares) sum_k lag_{k+1} canonical (B, n) (mont_mul
-        distributes over mod-p addition)."""
+        evaluations and s2 = ``_lag_fold`` of m, with odds[u] = s2[u] -
+        ccorr, where ccorr = (1/shares) sum_k lag_{k+1} canonical (B, n)
+        (mont_mul distributes over mod-p addition)."""
         B = evens.shape[0]
-        s2 = f.sum(f.mont_mul(m, lagk[:, :, None, :]), axis=1)  # (B, chunk, n)
         odds = f.sub(s2, ccorr[:, None, :])
         pair = torch.stack([evens, odds], dim=2).reshape(B, 2 * self.chunk, f.n)
         return f.add(f.mont_mul(seeds, lag0[:, None, :]), pair)
@@ -251,8 +273,15 @@ class _DHistogram(_DChunked):
         m = self._blocks(f, meas)
         rch, kl, lagk, lag0, ccorr = self.planar_coeffs(f, jr_m.permute(1, 2, 0), lag.permute(1, 2, 0), consts)
         rch, kl, lagk = (x.permute(2, 0, 1) for x in (rch, kl, lagk))
-        s1 = f.sum(f.mont_mul(m, kl[:, :, None, :]), axis=1)  # (B, chunk, n)
-        return self._zip_wires(f, m, f.mont_mul(s1, rch), lagk, lag0.T, ccorr.T, seeds)
+        if self.mxu:
+            # both folds read m: the kl and lagk columns stack into one
+            # right operand (B, calls, 2, n), one contraction
+            s12 = f.mat_mul_mont(m, torch.stack([kl, lagk], dim=2))
+            s1, s2 = s12[:, :, 0], s12[:, :, 1]
+        else:
+            s1 = f.sum(f.mont_mul(m, kl[:, :, None, :]), axis=1)  # (B, chunk, n)
+            s2 = self._lag_fold(f, m, lagk)
+        return self._zip_wires(f, f.mont_mul(s1, rch), s2, lag0.T, ccorr.T, seeds)
 
     def v(self, f, gk, meas, jr_m, consts):
         meas_sum = f.sum(meas, axis=1)  # (B, n)
@@ -304,9 +333,10 @@ class _DSumVec(_DChunked):
         lag0, lagk = lag[:, 0], lag[:, 1:]
         r_pows = f.cumprod_mont(jr_m[:, :, None, :].expand(m.shape), axis=2)
         rl = f.mont_mul(r_pows, lagk[:, :, None, :])
+        # the evens' coefficient varies over both axes, so it is no matmul
         evens = f.sum(f.mont_mul(m, rl), axis=1)  # (B, chunk, n)
         ccorr = f.mont_mul(consts["shares_inv_c"], f.sum(lagk, axis=1))  # (B, n) canonical
-        return self._zip_wires(f, m, evens, lagk, lag0, ccorr, seeds)
+        return self._zip_wires(f, evens, self._lag_fold(f, m, lagk), lag0, ccorr, seeds)
 
     def v(self, f, gk, meas, jr_m, consts):
         """Circuit output: the sum of the gadget outputs (B, calls, n) -> (B, n)."""
@@ -317,6 +347,8 @@ class _DSumVec(_DChunked):
             return meas
         B = meas.shape[0]
         m = meas.reshape(B, self.valid.length, self.valid.bits, f.n)
+        if self.mxu:
+            return f.dot_mont(m.transpose(1, 2), consts["pow2_m"])  # (B, length, n)
         return f.sum(f.mont_mul(m, consts["pow2_m"][None, None]), axis=2)
 
 
@@ -329,8 +361,8 @@ class _DFixedPointL2(_DSumVec):
     both.  The norm identity and the Schwartz-Zippel fold of the two checks
     are in ``v_multi``."""
 
-    def __init__(self, valid):
-        super().__init__(valid)  # chunk and gadget 0's padding of MEAS_LEN
+    def __init__(self, valid, mxu: bool = False):
+        super().__init__(valid, mxu)  # chunk and gadget 0's padding of MEAS_LEN
         self.nbits = valid.bits_per_entry
         self.entries = valid.entries
         self.norm_bits = valid.bits_for_norm
@@ -356,7 +388,10 @@ class _DFixedPointL2(_DSumVec):
         count."""
         B = meas.shape[0]
         m = meas[:, : self.entries * self.nbits].reshape(B, self.entries, self.nbits, f.n)
-        x = f.sum(f.mont_mul(m, consts["pow2_m"][None, None]), axis=2)
+        if self.mxu:
+            x = f.dot_mont(m.transpose(1, 2), consts["pow2_m"])
+        else:
+            x = f.sum(f.mont_mul(m, consts["pow2_m"][None, None]), axis=2)
         if entries_live is not None:
             e = torch.arange(self.entries, device=x.device)[None, :]
             x = torch.where((e < entries_live[:, None])[:, :, None], x, torch.zeros_like(x))
@@ -375,7 +410,7 @@ class _DFixedPointL2(_DSumVec):
         if self.pad_len1:
             x = torch.cat([x, torch.zeros((B, self.pad_len1, f.n), dtype=x.dtype, device=x.device)], dim=1)
         xm = x.reshape(B, self.plans[1].calls, self.chunk, f.n)
-        s = f.sum(f.mont_mul(xm, lag[:, 1:, None, :]), axis=1)  # (B, chunk, n)
+        s = self._lag_fold(f, xm, lag[:, 1:])  # (B, chunk, n)
         pair = torch.stack([s, s], dim=2).reshape(B, 2 * self.chunk, f.n)
         return f.add(f.mont_mul(seeds, lag[:, 0, None, :]), pair)
 
@@ -401,7 +436,10 @@ class _DFixedPointL2(_DSumVec):
             offset = f.mont_mul(d, consts["offsq_m"])  # d * 2^(2n-2) / shares
             cl0 = (ml + self.chunk - 1) // self.chunk
             rn = torch.gather(jr_m, 1, cl0[:, None, None].expand(-1, 1, f.n))[:, 0]
-        claimed = f.sum(f.mont_mul(norm_bits, consts["pow2_norm_m"][None]), axis=1)
+        if self.mxu:
+            claimed = f.dot_mont(norm_bits[:, :, None, :], consts["pow2_norm_m"]).squeeze(1)
+        else:
+            claimed = f.sum(f.mont_mul(norm_bits, consts["pow2_norm_m"][None]), axis=1)
         computed = f.add(f.sub(sumsq, f.mont_mul(sum_x, consts["pow2n_m"])), offset)
         norm_check = f.sub(computed, claimed)
         return f.add(f.mont_mul(bit_check, rn), f.mont_mul(f.mont_mul(norm_check, rn), rn))
@@ -410,17 +448,17 @@ class _DFixedPointL2(_DSumVec):
         return self._entries_ml(f, meas, consts, ml)
 
 
-def _device_circuit(valid) -> _DeviceCircuit:
+def _device_circuit(valid, mxu: bool = False) -> _DeviceCircuit:
     if isinstance(valid, FixedPointBoundedL2VecSum):
-        return _DFixedPointL2(valid)
+        return _DFixedPointL2(valid, mxu)
     if isinstance(valid, Count):
-        return _DCount(valid)
+        return _DCount(valid, mxu)
     if isinstance(valid, Sum):
-        return _DSum(valid)
+        return _DSum(valid, mxu)
     if isinstance(valid, SumVec):
-        return _DSumVec(valid)
+        return _DSumVec(valid, mxu)
     if isinstance(valid, Histogram):
-        return _DHistogram(valid)
+        return _DHistogram(valid, mxu)
     raise NotImplementedError(
         f"the CUDA prepare path serves Count, Sum, SumVec, Histogram and FixedPointBoundedL2VecSum, "
         f"not {type(valid).__name__}"
@@ -435,32 +473,47 @@ class BatchedPrio3:
     card); the tests pass ``device="cpu"``, where every kernel wrapper takes
     its plain PyTorch version.  With ``require_device_xof=False`` an XOF
     other than TurboSHAKE128 is accepted, for the XOF-free
-    ``query_batch``/``decide_batch`` only."""
+    ``query_batch``/``decide_batch`` only.
 
-    def __init__(self, prio3: Prio3, device="cuda", require_device_xof: bool = True):
+    ``field_backend`` is the field layout of the row path: "vpu" (the
+    default), mont_mul/sum trees on limbs; "mxu", the JAX package's
+    limb-digit matmul layout, where the contractions over calls and bits,
+    the gadget outputs (one matmul against the w^(kj) table) and gpoly(t)
+    run through ``TField.mat_mul_mont``.  The outputs are the same bytes;
+    under "mxu" every flush takes the row path."""
+
+    def __init__(self, prio3: Prio3, device="cuda", require_device_xof: bool = True, field_backend: str = "vpu"):
         if require_device_xof and prio3.xof is not XofTurboShake128:
             raise NotImplementedError("the CUDA prepare path requires XofTurboShake128")
+        if field_backend not in FIELD_BACKENDS:
+            raise ValueError(f"unknown field_backend {field_backend!r}")
+        self.field_backend = field_backend
         self.device = torch.device(device)
         self.prio3 = prio3
         self.flp = prio3.flp
         self.f = TField(self.flp.field)
-        self.circ = _device_circuit(self.flp.valid)
+        self.circ = _device_circuit(self.flp.valid, mxu=field_backend == "mxu")
         self.consts_np = compute_consts(prio3, self.f, self.circ)
         self.consts = consts_from_numpy(self.consts_np, self.device)
         #: per gadget: its constants (alpha_pows_m, bary_c_m, roots_m,
         #: roots_all_m) on the device, log2 P and its NTT tables (bit
-        #: reversal (P,), per-stage twiddles) or None below NTT_MIN_P.
-        #: Gadget 0's constants are ``consts`` itself, where the planar path
-        #: reads them.
+        #: reversal (P,), per-stage twiddles) or None below NTT_MIN_P (under
+        #: "mxu" none: the gadget outputs are one matmul against
+        #: ``alpha_mat_t``, the (glen, calls, n) w^(kj) table).  Gadget 0's
+        #: constants are ``consts`` itself, where the planar path reads them.
         self.gadgets = []
         for gi, plan in enumerate(self.circ.plans):
-            ntt = None
-            if plan.P >= NTT_MIN_P:
+            consts_np = self.consts_np if gi == 0 else gadget_consts(self.f, plan)
+            consts = self.consts if gi == 0 else consts_from_numpy(consts_np, self.device)
+            g = {"consts": consts, "log2_P": plan.P.bit_length() - 1, "ntt": None}
+            if field_backend == "mxu":
+                amat = alpha_mat(plan, consts_np["roots_all_m"]).transpose(1, 0, 2)
+                g["alpha_mat_t"] = torch.from_numpy(amat.astype(np.int64)).to(self.device)
+            elif plan.P >= NTT_MIN_P:
                 bitrev, stages = compute_ntt(self.f, plan.P)
                 tw = consts_from_numpy(dict(enumerate(stages)), self.device)
-                ntt = (torch.from_numpy(bitrev).to(self.device), list(tw.values()))
-            consts = self.consts if gi == 0 else consts_from_numpy(gadget_consts(self.f, plan), self.device)
-            self.gadgets.append({"consts": consts, "log2_P": plan.P.bit_length() - 1, "ntt": ntt})
+                g["ntt"] = (torch.from_numpy(bitrev).to(self.device), list(tw.values()))
+            self.gadgets.append(g)
 
     # -- XOF helpers ----------------------------------------------------
     def _dst(self, usage: int) -> bytes:
@@ -509,7 +562,10 @@ class BatchedPrio3:
         rules for the chunked circuits, without its B % 1024 tile rule (the
         port's kernels take any batch).  Count and Sum, which the JAX
         package serves on a limb-planar path for the TPU's lanes, take the
-        row path here."""
+        row path here, and so does every circuit under "mxu", whose
+        contractions live on the row path."""
+        if self.field_backend == "mxu":
+            return False
         if isinstance(self.circ, _DHistogram):
             # the lazy u16-half meas_sum is exact only up to 65535 terms
             circuit_ok = self.flp.MEAS_LEN <= LAZY_SUM_MAX
@@ -628,7 +684,10 @@ class BatchedPrio3:
     def _gpoly_at(self, gpoly: torch.Tensor, t_m: torch.Tensor) -> torch.Tensor:
         """Gadget polynomial at t: gpoly (B, glen, n) canonical, t_m (B, n)
         Montgomery -> (B, n) canonical.  Baby-step/giant-step for glen >= 64,
-        Horner below it."""
+        Horner below it; under "mxu" baby-step/giant-step with both folds
+        as matmuls."""
+        if self.field_backend == "mxu":
+            return self.f.poly_eval_dot(gpoly, t_m)
         if gpoly.shape[1] >= 64:
             return self.f.poly_eval_mont(gpoly, t_m)
         return self.f.horner_mont(gpoly, t_m)
@@ -636,8 +695,12 @@ class BatchedPrio3:
     def _gadget_outputs(self, gpoly: torch.Tensor, gi: int = 0) -> torch.Tensor:
         """gk (B, calls, n): gadget ``gi``'s polynomial at alpha^1..alpha^calls.
         An NTT over all P roots after folding the glen coefficients mod
-        x^P - 1, or a Horner scan of every call at once below NTT_MIN_P."""
+        x^P - 1, or a Horner scan of every call at once below NTT_MIN_P;
+        under "mxu" gk[b, k] = sum_j gpoly[b, j] w^(kj), one matmul against
+        the constant table shared by every row."""
         f, plan, g = self.f, self.circ.plans[gi], self.gadgets[gi]
+        if self.field_backend == "mxu":
+            return f.mat_mul_mont(gpoly[:, :, None, :], g["alpha_mat_t"]).squeeze(1)
         if g["ntt"] is not None:
             P = plan.P
             hi = gpoly[:, P:]
@@ -1095,7 +1158,6 @@ def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, n
     same names)."""
     p = f.p
     plan = circ.plans[0]
-    w = f.oracle.root(plan.P)
 
     def mont_np(x: int) -> np.ndarray:
         return f._int_to_limbs_np(f.mont_int(x))
@@ -1109,9 +1171,7 @@ def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, n
         # the w^{kj} table of the histogram's direct gadget evaluation
         # (calls * glen entries: 4 * 15 for Histogram(1024, 316), but
         # 317 * 1023 for SumVec(100000, 1, 316), whose NTT needs none)
-        consts["alpha_mat_m"] = np.stack(
-            [np.stack([mont_np(pow(w, k * j, p)) for j in range(plan.glen)]) for k in range(1, plan.calls + 1)]
-        )
+        consts["alpha_mat_m"] = alpha_mat(plan, consts["roots_all_m"])
     valid = circ.valid
     if isinstance(circ, _DFixedPointL2):
         nb = valid.bits_per_entry
@@ -1132,6 +1192,15 @@ def compute_consts(prio3: Prio3, f: TField, circ: _DeviceCircuit) -> Dict[str, n
         # the bit weights 2^b (b < bits) of the weighted truncate
         consts["pow2_m"] = np.stack([mont_np(1 << b) for b in range(bits)])
     return consts
+
+
+def alpha_mat(plan: _GadgetPlan, roots_all_m: np.ndarray) -> np.ndarray:
+    """The (calls, glen, n) table w^(kj), k = 1..calls, j < glen, in
+    Montgomery form, from the P-th roots w^i (i < P) of ``gadget_consts``:
+    w^(kj) = w^(kj mod P)."""
+    k = np.arange(1, plan.calls + 1)[:, None]
+    j = np.arange(plan.glen)[None, :]
+    return roots_all_m[(k * j) % plan.P]
 
 
 def compute_ntt(f: TField, P: int) -> Tuple[np.ndarray, List[np.ndarray]]:

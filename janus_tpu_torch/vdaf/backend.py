@@ -42,6 +42,7 @@ behind the executor's ``poplar_init`` kind.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -52,7 +53,7 @@ import torch
 from ..core import faults
 from ..fields import next_power_of_2
 from ..ops.field import tensor_to_u32, u32_to_tensor, words
-from ..ops.prepare import BatchedPrio3
+from ..ops.prepare import FIELD_BACKENDS, BatchedPrio3
 from ..xof import XofTurboShake128
 from .prio3 import (
     USAGE_JOINT_RAND_PART,
@@ -158,6 +159,24 @@ def prep_request(backend, verify_key: bytes, reports, vdaf) -> tuple:
     return (verify_key, reports)
 
 
+def default_field_backend() -> str:
+    """The process default field layout of the card backends:
+    ``JANUS_TPU_TORCH_FIELD_BACKEND`` ("vpu" or "mxu"), else "vpu".  The
+    variable carries the port's prefix, so that one shell cannot switch
+    both packages."""
+    return os.environ.get("JANUS_TPU_TORCH_FIELD_BACKEND", "vpu")
+
+
+def _resolve_field_backend(field_backend: Optional[str]) -> str:
+    """``field_backend`` (None: the process default), checked against
+    ``FIELD_BACKENDS``: "vpu", the limb core, or "mxu", the limb-digit
+    matmul layout (``ops/field.py``), the same bytes either way."""
+    fb = field_backend or default_field_backend()
+    if fb not in FIELD_BACKENDS:
+        raise VdafError(f"unknown field_backend {fb!r} (one of {', '.join(FIELD_BACKENDS)})")
+    return fb
+
+
 def _req_parts(req):
     """A prepare request is ``(verify_key, reports)`` or — on a canonical
     backend — ``(verify_key, reports, task_vdaf)``, the third element naming
@@ -176,10 +195,14 @@ class CudaBackend:
     #: leading-axis rows of an accumulator buffer (one card)
     accum_buffer_rows = 1
 
-    def __init__(self, vdaf: Prio3, device="cuda", canonical: bool = False):
+    def __init__(self, vdaf: Prio3, device="cuda", canonical: bool = False, field_backend: Optional[str] = None):
         if vdaf.xof is not XofTurboShake128:
             raise VdafError("the CUDA backend requires the TurboSHAKE XOF")
         self.vdaf = vdaf
+        #: "vpu" | "mxu": the field layout of every prepare this backend
+        #: runs (None resolves to ``default_field_backend()``); under "mxu"
+        #: every flush takes the row path
+        self.field_backend = _resolve_field_backend(field_backend)
         #: canonical mode: ``vdaf`` is a bucket's padded twin shared by every
         #: task of the bucket; requests carry the task's VDAF (3-tuples); a
         #: flush of one task shape runs that shape's prepare, a flush that
@@ -187,7 +210,7 @@ class CudaBackend:
         #: twin's masked row path
         self.canonical = canonical
         self.device = torch.device(device)
-        self.bp = BatchedPrio3(vdaf, device=self.device)
+        self.bp = BatchedPrio3(vdaf, device=self.device, field_backend=self.field_backend)
         self.oracle = OracleBackend(vdaf)
         self._oracles: Dict[tuple, OracleBackend] = {}
         #: canonical mode: each task shape's own batched prepare
@@ -252,7 +275,7 @@ class CudaBackend:
         key = vdaf_shape_key(vdaf)
         bp = self._exact_bps.get(key)
         if bp is None:
-            bp = self._exact_bps[key] = BatchedPrio3(vdaf, device=self.device)
+            bp = self._exact_bps[key] = BatchedPrio3(vdaf, device=self.device, field_backend=self.field_backend)
         return bp
 
     def _one_shape(self, segments):
@@ -634,10 +657,14 @@ class HybridXofBackend:
 
     name = "cuda-hybrid"
 
-    def __init__(self, vdaf: Prio3, device="cuda"):
+    def __init__(self, vdaf: Prio3, device="cuda", field_backend: Optional[str] = None):
         self.vdaf = vdaf
         self.device = torch.device(device)
-        self.bp = BatchedPrio3(vdaf, device=self.device, require_device_xof=False)
+        #: the field layout of the FLP query (see ``CudaBackend``)
+        self.field_backend = _resolve_field_backend(field_backend)
+        self.bp = BatchedPrio3(
+            vdaf, device=self.device, require_device_xof=False, field_backend=self.field_backend
+        )
         self.oracle = OracleBackend(vdaf)
         #: rows whose device ok flag was False, recomputed by the oracle
         self.oracle_recompute_rows = 0
@@ -975,7 +1002,9 @@ def device_path_label(vdaf) -> str:
     return "cuda: batched device prepare, executor kind=prep_init/combine"
 
 
-def make_backend(vdaf, backend: str = "cuda", device=None, canonical: bool = False):
+def make_backend(
+    vdaf, backend: str = "cuda", device=None, canonical: bool = False, field_backend: Optional[str] = None
+):
     """Backend factory: ``"cuda"`` (the default, on ``device``, the card
     unless the caller names another: ``CudaBackend``, for a Prio3 whose
     XOF is not TurboSHAKE128 ``HybridXofBackend``, for a Poplar1
@@ -984,7 +1013,11 @@ def make_backend(vdaf, backend: str = "cuda", device=None, canonical: bool = Fal
     and so does ``"cuda"`` with no card to run on: there is no quiet
     fallback to the oracle.  ``canonical`` marks ``vdaf`` as a bucket's
     padded twin (``vdaf/canonical.py``): only ``CudaBackend`` honours it
-    (the oracle, hybrid and Poplar1 paths are never canonicalized)."""
+    (the oracle, hybrid and Poplar1 paths are never canonicalized).
+    ``field_backend`` ("vpu" | "mxu", None: ``default_field_backend()``)
+    is the Prio3 card backends' field layout; an unknown value raises
+    VdafError there, and the oracle and Poplar1 have no field layer and
+    ignore it."""
     if backend not in BACKENDS:
         raise VdafError(f"unknown backend {backend!r}")
     if backend == "oracle":
@@ -995,5 +1028,5 @@ def make_backend(vdaf, backend: str = "cuda", device=None, canonical: bool = Fal
     if type(vdaf).__name__ == "Poplar1":
         return Poplar1Backend(vdaf, device=device)
     if _host_xof(vdaf):
-        return HybridXofBackend(vdaf, device=device)
-    return CudaBackend(vdaf, device=device, canonical=canonical)
+        return HybridXofBackend(vdaf, device=device, field_backend=field_backend)
+    return CudaBackend(vdaf, device=device, canonical=canonical, field_backend=field_backend)

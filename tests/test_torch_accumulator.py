@@ -641,11 +641,11 @@ def test_helper_prep_routes_through_executor_and_matches_oracle(count_backend):
     vk, decoded = _helper_decoded_rows(vdaf, 3, 21)
     ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.02, flush_max_rows=1024))
     agg = _agg_stub(ex)
-    ta = SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+    ta = SimpleNamespace(backend_name="cuda", device="cpu", field_backend=None, vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
     got = _run(agg._helper_prepare_batch_prio3_executor(ta, decoded))
     ex.shutdown()
     want = agg._helper_prepare_batch_prio3(
-        SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=OracleBackend(vdaf), task=ta.task), decoded
+        SimpleNamespace(backend_name="cuda", device="cpu", field_backend=None, vdaf=vdaf, backend=OracleBackend(vdaf), task=ta.task), decoded
     )
     assert set(got) == set(want)
     for idx in want:
@@ -671,7 +671,7 @@ def test_helper_prep_degrades_to_oracle_when_circuit_open(count_backend):
     ex = DeviceExecutor(ExecutorConfig(flush_window_s=0.02, flush_max_rows=1024))
     ex.circuit_open = lambda shape_key: True  # breaker peek says: open
     agg = _agg_stub(ex)
-    ta = SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+    ta = SimpleNamespace(backend_name="cuda", device="cpu", field_backend=None, vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
     count_backend.oracle.rows = {"init": 0, "combine": 0}
     try:
         with pytest.raises(ServiceUnavailable) as exc_info:
@@ -741,7 +741,7 @@ def test_cold_shape_waits_for_its_warmup_and_never_reaches_the_oracle(count_back
         assert built.is_set() and not ex.warming(key)
         assert len(out) == 3 and not any(isinstance(o, Exception) for o in out)
         vk, decoded = _helper_decoded_rows(vdaf, 2, 33)
-        ta = SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
+        ta = SimpleNamespace(backend_name="cuda", device="cpu", field_backend=None, vdaf=vdaf, backend=count_backend, task=SimpleNamespace(vdaf_verify_key=vk))
         got = _run(_agg_stub(ex)._helper_prepare_batch_prio3_executor(ta, decoded))
         assert all(v[0] == "finished" for v in got.values())
     finally:
@@ -873,7 +873,7 @@ def test_concurrent_same_job_deliveries_use_disjoint_buckets():
                            time_precision=Duration(3600))
     job = SimpleNamespace(aggregation_parameter=b"", aggregation_job_id=AggregationJobId.random(),
                           partial_batch_identifier=None)
-    ta = SimpleNamespace(backend_name="cuda", device="cpu", task=task, vdaf=instances.prio3_count(), backend=backend)
+    ta = SimpleNamespace(backend_name="cuda", device="cpu", field_backend=None, task=task, vdaf=instances.prio3_count(), backend=backend)
     agg = SimpleNamespace(_executor=SimpleNamespace(accumulator=store), datastore=None)
 
     def deliver():

@@ -96,7 +96,7 @@ def test_served_circuit_build_failure_raises_and_is_not_served_by_the_oracle(mon
     does not: the driver's resolution and the helper's ``TaskAggregator``
     both raise the build error for a circuit the card serves."""
 
-    def broken_build(vdaf, backend="cuda", device=None):
+    def broken_build(vdaf, backend="cuda", device=None, field_backend=None):
         raise RuntimeError("nvcc failed")
 
     monkeypatch.setattr(aggregator_mod, "make_backend", broken_build)

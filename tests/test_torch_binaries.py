@@ -1,6 +1,7 @@
 """The port's service binaries (``janus_tpu_torch/binaries``): the config
 loader against the JAX package's (the cases of ``tests/test_binaries.py``,
-one case per key the port refuses, and the JAX tests' YAML texts loaded by
+one case per key the port refuses, ``field_backend: mxu`` reaching the
+aggregator's and the driver's configs, and the JAX tests' YAML texts loaded by
 both loaders to equal fields), the ops CLI's commands, the ``collect``
 binary's usage checks, the statusz and build-root wiring, the torch
 profiler listener, and one boot of the ``aggregator`` binary in a
@@ -105,8 +106,7 @@ device_executor:
 @pytest.mark.parametrize(
     "cls,text,reason",
     [
-        (AggregatorConfig, "field_backend: mxu", "limb-digit matmul"),
-        (JobDriverBinaryConfig, "field_backend: mxu", "limb-digit matmul"),
+        (AggregatorConfig, "field_backend: tpu", "unknown field_backend"),
         (AggregatorConfig, "common: {distributed_coordinator: '10.0.0.2:8476'}", "multi-device"),
         (JobDriverBinaryConfig, "device_executor: {mesh: true}", "multi-device"),
         (AggregatorConfig, "poplar_backend: jax", "card walk"),
@@ -118,6 +118,22 @@ device_executor:
 def test_refused_keys_name_their_reason(cls, text, reason):
     with pytest.raises(ConfigError, match=reason):
         load_config(cls, text=text)
+
+
+@pytest.mark.parametrize(
+    "cls,build",
+    [(AggregatorConfig, "aggregator_config"), (JobDriverBinaryConfig, "aggregation_driver_config")],
+)
+def test_field_backend_mxu_reaches_the_config(cls, build):
+    """``field_backend: mxu`` loads and reaches the aggregator's ``Config``
+    and the aggregation-job driver's ``DriverConfig`` as the binaries build
+    them."""
+    from janus_tpu_torch.binaries import main
+
+    cfg = load_config(cls, text="field_backend: mxu")
+    assert cfg.field_backend == "mxu"
+    assert getattr(main, build)(cfg).field_backend == "mxu"
+    assert getattr(main, build)(load_config(cls, text="")).field_backend == "vpu"
 
 
 @pytest.mark.parametrize(

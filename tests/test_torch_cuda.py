@@ -656,3 +656,73 @@ def test_binaries_fleet_on_the_card(card, monkeypatch):
     for side in ("driver", "helper"):
         launches = rec["launches"][side]
         assert launches["flp_wire_evals"] > 0 and launches["keccak_absorb_select"] == 0, (side, launches)
+
+
+def _field_operand(f, shape, seed, fill=None):
+    """(..., n) canonical limbs (int64 words), random below p or all ``fill``."""
+    if fill is not None:
+        return torch.from_numpy(f._int_to_limbs_np(fill).astype(np.int64)).expand(shape + (f.n,)).contiguous()
+    x = _words(np.random.default_rng(seed), shape + (f.n,))
+    x[..., -1] >>= 1
+    return x
+
+
+@pytest.mark.parametrize("name", ["Field64", "Field128"])
+@pytest.mark.parametrize("shape", [(3, 7, 5, 2), (8, 317, 316, 1), (4, 1023, 1, 317)])
+def test_digit_reduce_kernel_matches_plain(card, name, shape):
+    """The limb-digit matmul's reduce kernel (``csrc/field_dot.cu``) against
+    its plain version on the digit products of random and of
+    carry-saturating operands (every element p - 1), at a small shape, the
+    SumVec100k wire fold's and its gadget outputs'; the whole contraction on
+    the card against the CPU's."""
+    from janus_tpu_torch import fields
+    from janus_tpu_torch.ops import field_kernels
+
+    f = TField(getattr(fields, name))
+    B, K, M, N = shape
+    D = 4 * f.n
+    for fill in (None, f.p - 1):
+        a, b = _field_operand(f, (B, K, M), 1, fill), _field_operand(f, (B, K, N), 2, fill)
+        lhs, rhs = f.digit_operands(a.to(card), b.to(card))
+        P = torch.matmul(lhs, rhs).reshape(B, M, D, N, D)
+        before = field_kernels.lazy_reduce_digits.launches
+        got = field_kernels.lazy_reduce_digits(f, P)
+        torch.cuda.synchronize()
+        assert field_kernels.lazy_reduce_digits.launches == before + 1
+        assert torch.equal(got, field_kernels.lazy_reduce_digits_plain(f, P))
+        assert torch.equal(f.mat_mul_mont(a.to(card), b.to(card)).cpu(), f.mat_mul_mont(a, b))
+
+
+@pytest.mark.parametrize("which", ["count", "sum8", "histogram40x7", "sumvec20x3x4"])
+def test_mxu_prepare_on_the_card_matches_the_cpu(card, which):
+    """``BatchedPrio3(field_backend="mxu").prep_init`` of both sides on the
+    card against the CPU's and the vpu route's, the reduce kernel launched."""
+    from janus_tpu_torch.ops import field_kernels
+    from janus_tpu_torch.ops.prepare import BatchedPrio3
+    from janus_tpu_torch.vdaf.backend import CudaBackend
+    from janus_tpu_torch.vdaf.instances import prio3_count, prio3_histogram, prio3_sum, prio3_sum_vec
+
+    rng = np.random.default_rng(5)
+    vdaf, measure = {
+        "count": (prio3_count(), lambda: int(rng.integers(0, 2))),
+        "sum8": (prio3_sum(8), lambda: int(rng.integers(0, 256))),
+        "histogram40x7": (prio3_histogram(40, 7), lambda: int(rng.integers(0, 40))),
+        "sumvec20x3x4": (prio3_sum_vec(20, 3, 4), lambda: [int(x) for x in rng.integers(0, 8, 20)]),
+    }[which]
+    reports = []
+    for _ in range(8):
+        nonce = rng.bytes(16)
+        reports.append((nonce,) + tuple(vdaf.shard(measure(), nonce, rng.bytes(vdaf.RAND_SIZE))))
+    for agg_id in (0, 1):
+        rows = [(n, p, s[agg_id]) for n, p, s in reports]
+        outs = {}
+        for fb, dev in (("mxu", card), ("vpu", card), ("mxu", torch.device("cpu"))):
+            backend = CudaBackend(vdaf, device=dev, field_backend=fb)
+            kw = dict(backend.stage_prep_init_multi(agg_id, [(bytes(16), rows)]).placed)
+            vk, nonces = kw.pop("verify_key_u8"), kw.pop("nonces_u8")
+            before = field_kernels.lazy_reduce_digits.launches
+            outs[fb, dev.type] = {k: v.cpu() for k, v in BatchedPrio3.prep_init(backend.bp, agg_id, vk, nonces, **kw).items()}
+            launched = field_kernels.lazy_reduce_digits.launches - before
+            assert launched > 0 if (fb, dev.type) == ("mxu", "cuda") else launched == 0
+        for k, v in outs["mxu", "cuda"].items():
+            assert torch.equal(v, outs["mxu", "cpu"][k]) and torch.equal(v, outs["vpu", "cuda"][k]), (agg_id, k)

@@ -263,7 +263,7 @@ def _helper_decoded_rows(vdaf, agg_param, measurements, seed):
 
 def _helper(vdaf, ex):
     backend = _backend(vdaf)
-    ta = SimpleNamespace(backend_name="cuda", device="cpu", vdaf=vdaf, backend=backend, task=SimpleNamespace(vdaf_verify_key=VK))
+    ta = SimpleNamespace(backend_name="cuda", device="cpu", field_backend=None, vdaf=vdaf, backend=backend, task=SimpleNamespace(vdaf_verify_key=VK))
     return _HelperStub(ex), ta
 
 
