@@ -214,7 +214,24 @@ them:
     13 with ``Config``/``DriverConfig(field_backend="mxu")`` collects
     Histogram(1024, 316) (512 reports, 8 tampered) and FixedPoint (18
     reports, 2 norm lies) exactly, with the same gates and the digit reduce
-    launched.
+    launched;
+21. **The prepare across cards** (``MeshBackend``): Histogram(1024, 316)
+    at phase 2's B = 4096 rows on a mesh over every visible card and on 2
+    and 4 logical shards of the first card.  On the staged rows both
+    sides' outputs (ok, verifiers, joint-rand parts, corrected seeds and
+    the out-share pieces joined) equal one ``CudaBackend``'s, and so does
+    the drain's cross-shard sum; the device prepare ms of each mesh and of
+    one card (CUDA events) and the drain readback's ms.  Then one executor
+    job of both sides on each mesh, as phase 11 runs it: one flush a side,
+    out shares resident, the aggregate exact, tampered rows rejected, no
+    out-share row read back, and each kernel launched shards x phase 11's
+    count.  SumVec100k at B = 1024 on a 2-shard mesh against one card, K5
+    on every shard.  Phase 13's Histogram pair task with
+    ``vdaf_backend="mesh"`` and with ``ExecutorConfig(mesh=True)``, exact,
+    every backend a ``MeshBackend``.  ``dryrun_multichip`` over the visible
+    cards and over 4 logical shards of the first card.  With one card the
+    logical shards share its SMs: their times measure the mesh's overhead,
+    not scaling.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -362,6 +379,10 @@ CANON_FP_ROWS, CANON_FP_LIES = 504, 8
 MXU_SUM_DISTINCT, MXU_SUM_TAMPERED, MXU_SAMPLED = 64, 64, 4
 #: The kernels every mxu prepare launches: K1, K2 and the digit reduce.
 MXU_NEEDS = ("keccak_squeeze", "keccak_absorb", "field_lazy_reduce")
+#: Phase 21, the mesh: logical shard counts on the first card (run beside a
+#: mesh over every visible card), the SumVec100k mesh's shard count, and the
+#: timed calls a round of each mesh's device prepare and drain readback.
+MESH_LOGICAL, MESH_SV_SHARDS, MESH_REPS = (2, 4), 2, 1
 #: Type conversions from 64-bit floating point to 32-bit integers per SM and
 #: clock (CUDA C++ Programming Guide, arithmetic instruction throughput, cc
 #: 9.0): the digit reduce converts each float64 partial sum once.
@@ -1585,10 +1606,11 @@ def check_byte_marshal(backend, rows) -> int:
     return B
 
 
-def executor_for(vdaf, batch: int, warmup: bool):
+def executor_for(vdaf, batch: int, warmup: bool, make=None):
     """A ``DeviceExecutor`` with the accumulator at its default budget
     whose flushes close at ``batch`` rows, and a ``make_backend(vdaf,
-    "cuda")`` backend a side (leader 0, helper 1), each warmed at ``batch``
+    "cuda")`` backend a side (``make()`` where given; leader 0, helper 1),
+    each warmed at ``batch``
     (kernel build and one launch) when ``warmup`` is set.  The warmup's synthetic row is read
     back; each backend's readback count then restarts at 0 for the job.
     Returns (executor, backends, warmup seconds or None)."""
@@ -1596,7 +1618,7 @@ def executor_for(vdaf, batch: int, warmup: bool):
     from janus_tpu_torch.vdaf.backend import make_backend
 
     ex = DeviceExecutor(ExecutorConfig(flush_max_rows=batch, accumulator=AccumulatorConfig(enabled=True)))
-    backends = {a: make_backend(vdaf, "cuda", device=DEVICE) for a in (0, 1)}
+    backends = {a: make() if make else make_backend(vdaf, "cuda", device=DEVICE) for a in (0, 1)}
     warm_s = None
     if warmup:
         t0 = time.perf_counter()
@@ -1994,7 +2016,8 @@ def tally_calls(owner, attr: str, tally: dict, key: str):
     return lambda: setattr(owner, attr, orig) if had else delattr(owner, attr)
 
 
-def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_backend=None):
+def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_backend=None, vdaf_backend="cuda",
+             mesh=False):
     """One task through the leader/helper pair on the card: each side an
     ``Aggregator`` with its own ``EphemeralDatastore`` and its own
     ``DeviceExecutor`` with the accumulator on (``make_backend``'s
@@ -2015,7 +2038,11 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_back
     the task's own prepare (K2's select variant may not launch).
     ``field_backend`` goes into both sides' ``Config``, the driver's
     ``DriverConfig`` and the warmed backends (None: the default, "vpu"), and
-    every backend that served must carry it.  Returns the record."""
+    every backend that served must carry it.  ``vdaf_backend`` goes into
+    both sides' ``Config`` and the driver's (``"mesh"``: every card of the
+    process) and ``mesh`` into both executors' ``ExecutorConfig``; with
+    either, every backend that served must be a ``MeshBackend``.  Returns
+    the record."""
     import asyncio
 
     from janus_tpu_torch.core import hpke_batch, trace
@@ -2064,11 +2091,11 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_back
     async def run():
         clock = MockClock(Time(now))
         ds = {side: EphemeralDatastore(clock) for side in ("leader", "helper")}
-        ex = {side: DeviceExecutor(ExecutorConfig(accumulator=AccumulatorConfig(enabled=True)))
+        ex = {side: DeviceExecutor(ExecutorConfig(mesh=mesh, accumulator=AccumulatorConfig(enabled=True)))
               for side in ds}
         aggs = {side: Aggregator(ds[side].datastore, clock, Config(
-            vdaf_device=DEVICE, device_executor=ex[side], max_upload_batch_write_delay=0.02,
-            field_backend=field_backend)) for side in ds}
+            vdaf_backend=vdaf_backend, vdaf_device=DEVICE, device_executor=ex[side],
+            max_upload_batch_write_delay=0.02, field_backend=field_backend)) for side in ds}
         net = InProcessNetwork()
         urls = {side: net.add(side, agg) for side, agg in aggs.items()}
         undo = [tally_calls(aggs["leader"], "handle_upload", layers, "leader upload handler"),
@@ -2103,7 +2130,7 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_back
             backends = {}
             for agg_id, side in enumerate(ds):
                 b = backends[side] = ex[side].backend_for(
-                    key, lambda: make_backend(twin or vdaf, "cuda", device=DEVICE, canonical=twin is not None,
+                    key, lambda: make_backend(twin or vdaf, vdaf_backend, device=DEVICE, canonical=twin is not None,
                                               field_backend=field_backend))
                 # a backend with no executor surface (HybridXofBackend) has
                 # no launch to warm
@@ -2135,7 +2162,8 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_back
                 min_aggregation_job_size=1, max_aggregation_job_size=PAIR_JOB_SIZE)).run_once()
             secs["creator"] = time.perf_counter() - t0
             driver = AggregationJobDriver(ds["leader"].datastore, net.session, DriverConfig(
-                vdaf_device=DEVICE, device_executor=ex["leader"], field_backend=field_backend))
+                vdaf_backend=vdaf_backend, vdaf_device=DEVICE, device_executor=ex["leader"],
+                field_backend=field_backend))
             undo.append(tally_calls(driver, "step_aggregation_job", layers, "leader driver step"))
             leases = await ds["leader"].datastore.run_tx_async(
                 "acquire", lambda tx: tx.acquire_incomplete_aggregation_jobs(Duration(600), 1 << 10))
@@ -2204,6 +2232,8 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_back
             raise AssertionError(f"pair {name}: the {side} prepared under {b.bp.field_backend}, not {field_backend}")
         if any(c["trips"] or c["state"] != "closed" for c in circuits[side].values()):
             raise AssertionError(f"pair {name}: a breaker of the {side} tripped: {circuits[side]}")
+        if (mesh or vdaf_backend == "mesh") and type(b).__name__ != "MeshBackend":
+            raise AssertionError(f"pair {name}: the {side} served from {type(b).__name__}, not a MeshBackend")
     marshal = backends["leader"].leader_marshal_rows
     if marshal != {"bytes": len(shards), "values": 0}:
         raise AssertionError(f"pair {name}: leader rows marshalled {marshal}, not all {len(shards)} from their bytes")
@@ -2228,6 +2258,8 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_back
         "outshare_readback_rows": readback, "backend": type(backends["leader"]).__name__,
         "device_peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
         "report_count": result.report_count, "field_backend": field_backend or "vpu",
+        "vdaf_backend": vdaf_backend, "executor_mesh": mesh,
+        "mesh_devices": list(getattr(backends["leader"], "mesh_devices", ())),
     })
     served = (f"; served by the twin {json.dumps(rec['served_as'])}" if twin is not None else "; exact shape")
     log(f"pair {name}: {len(shards)} reports ({rec['tampered']} tampered, rejected) in {rec['jobs']} jobs; aggregate "
@@ -3690,6 +3722,163 @@ def mxu_phase(verify_key, rng, hist, hist_meas, sv_served, fp_done, hist_shards,
     shapes = {f"mxu_{k}": {"field_lazy_reduce": out[k]["reduce"]} for k in ("sum", "sumvec", "fixedpoint")}
     return entry, shapes, out
 
+def mesh_layouts():
+    """(name, devices) of each mesh phase 21 runs: every visible card, then
+    MESH_LOGICAL shards on the first card."""
+    from janus_tpu_torch.vdaf.backend import local_mesh
+
+    cards = local_mesh(DEVICE)
+    return [(f"cards{len(cards)}", cards)] + [(f"logical{n}", [cards[0]] * n) for n in MESH_LOGICAL]
+
+
+def one_card_base(one, verify_key, sides, reps=MESH_REPS) -> dict:
+    """Each side's prepare on one card (``one``), out shares kept on the
+    card: by side, (host outputs, out-share matrix, device prepare ms, the
+    drained sum of every row)."""
+    base = {}
+    for side, (agg_id, rows) in sides.items():
+        staged = one.stage_prep_init_multi(agg_id, [(verify_key, rows)])
+        want, matrix = one._prepare(staged, True)
+        ms = cuda_time_ms(lambda: one._prepare(staged, True), reps)
+        mask = np.zeros(staged.pad_to, dtype=bool)
+        mask[: len(rows)] = True
+        base[side] = (want, matrix, ms, one.read_accum_buffer(one.accumulate_rows(None, matrix, mask)))
+    return base
+
+
+def mesh_staged(name, base, mesh, verify_key, sides, reps=MESH_REPS) -> dict:
+    """Both sides' prepare of the same rows on ``mesh``, out shares kept on
+    the cards, against one card's (``base``, from ``one_card_base``): the
+    mesh's host outputs equal the card's array for array and its out-share
+    pieces, joined, equal the card's matrix; its device prepare ms (CUDA
+    events around calls that end only when every shard has synchronised:
+    one call, then 3 rounds of ``reps``); then the drain: the mesh's
+    per-shard sums of every row read back as one vector
+    (``read_accum_buffer``, timed) equal the card's.  Returns the record."""
+    rec = {"devices": list(mesh.mesh_devices), "shards": len(mesh.devices), "prep_ms": {}, "drain_ms": {}}
+    for side, (agg_id, rows) in sides.items():
+        s_mesh = mesh.stage_prep_init_multi(agg_id, [(verify_key, rows)])
+        want, matrix, one_ms, drained = base[side]
+        got, pieces = mesh._prepare(s_mesh, True)
+        for k in want:
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"mesh {name}: the {side}'s {k} differs from one card's")
+        joined = torch.cat([p.to(matrix.device) for p in pieces.pieces])
+        if not torch.equal(joined[: len(rows)], matrix[: len(rows)]):
+            raise AssertionError(f"mesh {name}: the {side}'s out shares differ from one card's")
+        mask = np.zeros(s_mesh.pad_to, dtype=bool)
+        mask[: len(rows)] = True
+        buffer = mesh.accumulate_rows(None, pieces, mask)
+        if mesh.read_accum_buffer(buffer) != drained:
+            raise AssertionError(f"mesh {name}: the {side}'s drained sum differs from one card's")
+        rec["prep_ms"][side] = {"mesh": cuda_time_ms(lambda: mesh._prepare(s_mesh, True), reps), "one_card": one_ms}
+        rec["drain_ms"][side] = cuda_time_ms(lambda: mesh.read_accum_buffer(buffer), reps)
+        del got, pieces, joined, buffer
+    rec["route"] = mesh._prep_fn(1, mesh._pad_to(len(rows))).__name__
+    return rec
+
+
+def mesh_phase(vdaf, verify_key, batch, meas, sv_served, hist_shards, rng, phases):
+    """Phase 21: the prepare across cards.  Histogram(1024, 316) at phase
+    2's B = 4096 rows on a MeshBackend over every visible card and over
+    MESH_LOGICAL logical shards of the first card: held against one
+    CudaBackend on the same staged rows (``mesh_staged``), then one
+    executor job of both sides (one flush a side, out shares resident, the
+    accumulator's drain) with an exact aggregate, the tampered rows
+    rejected, no out-share row read back, and each kernel launched
+    shards x phase 11's launches (every shard launches what a one-card
+    flush of its size launches, on the same route).  SumVec100k at B = 1024
+    on a MESH_SV_SHARDS-shard mesh (K5 on every shard) against one card.
+    Phase 13's Histogram pair task under ``vdaf_backend="mesh"`` and under
+    ``ExecutorConfig(mesh=True)``, exact.  ``dryrun_multichip`` over the
+    visible cards and over 4 logical shards.  Returns the record."""
+    from janus_tpu_torch.dryrun import dryrun_multichip
+    from janus_tpu_torch.vdaf.backend import CudaBackend, MeshBackend
+    from janus_tpu_torch.vdaf.instances import prio3_sum_vec
+
+    t_phase = time.perf_counter()
+    leader_rows, helper_rows, tampered, src = batch
+    leader_rows = decoded_leader_rows(vdaf, leader_rows)
+    B = len(leader_rows)
+    want = np.bincount(np.array(meas)[src[~tampered]], minlength=LENGTH).tolist()
+    one_card = PATH_LAUNCHES["histogram executor path"]
+    sides = {"leader": (0, leader_rows), "helper": (1, helper_rows)}
+    base = one_card_base(CudaBackend(vdaf, device=DEVICE), verify_key, sides)
+    out = {"histogram": {}}
+    for name, devices in mesh_layouts():
+        t0 = time.perf_counter()
+        rec = mesh_staged(name, base, MeshBackend(vdaf, devices=devices), verify_key, sides)
+        ex, backends, warm_s = executor_for(vdaf, B, warmup=True, make=lambda: MeshBackend(vdaf, devices=devices))
+        (aggs, accepted, _results, job), launches = counted(
+            f"mesh {name} executor path", KERNEL_NAMES[:3],
+            lambda: executor_job(vdaf, ex, backends, verify_key, leader_rows, helper_rows, EXECUTOR_JOBS),
+        )
+        if vdaf.unshard(aggs, int(accepted.sum())) != want:
+            raise AssertionError(f"mesh {name}: the drained aggregate differs from the expected histogram")
+        check_decisions(accepted, tampered)
+        shards = len(devices)
+        wrong = {k: (v, shards * one_card[k]) for k, v in launches.items() if v != shards * one_card[k]}
+        if wrong:
+            raise AssertionError(f"mesh {name}: launches (got, {shards} x one card's) differ: {wrong}")
+        rec.update(job=job, warmup_s=warm_s, launches=launches, seconds=time.perf_counter() - t0)
+        out["histogram"][name] = rec
+        log(f"mesh {name} ({shards} shards on {sorted(set(rec['devices']))}): outputs equal one card's; job "
+            f"{job['seconds']:.3f} s, aggregate exact, no out-share readback; route {rec['route']}; device prepare ms "
+            f"{json.dumps(rec['prep_ms'])}; drain readback ms {json.dumps(rec['drain_ms'])}")
+        del ex, backends
+        torch.cuda.empty_cache()
+    del base
+    phases["mesh_histogram"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    sv_vdaf = prio3_sum_vec(SV_LENGTH, 1, SV_CHUNK)
+    (sv_lead, sv_help, _t, _s), _aggs, _oracle = sv_served
+    sv_sides = {"leader": (0, decoded_leader_rows(sv_vdaf, sv_lead) * SV_TILE), "helper": (1, sv_help * SV_TILE)}
+    cards = mesh_layouts()[0][1]
+    sv_devices = cards[:MESH_SV_SHARDS] if len(cards) >= MESH_SV_SHARDS else [cards[0]] * MESH_SV_SHARDS
+    sv_mesh = MeshBackend(sv_vdaf, devices=sv_devices)
+    sv_base = one_card_base(CudaBackend(sv_vdaf, device=DEVICE), verify_key, sv_sides)
+    rec, launches = counted("mesh sumvec staged path", ("keccak_squeeze", "keccak_absorb", "flp_sumvec_wires"),
+                            lambda: mesh_staged("sumvec", sv_base, sv_mesh, verify_key, sv_sides))
+    if rec["route"] != "prep_init_planar":
+        raise AssertionError(f"mesh sumvec: a shard of {SV_BATCH * SV_TILE // MESH_SV_SHARDS} rows took {rec['route']}")
+    # every mesh prepare of the window (a compared call, a warm-up call and
+    # 3 timed rounds a side) launched K5 once on each shard
+    k5 = MESH_SV_SHARDS * 2 * (2 + 3 * MESH_REPS)
+    if launches["flp_sumvec_wires"] != k5:
+        raise AssertionError(f"mesh sumvec: K5 launched {launches['flp_sumvec_wires']} times, not {k5}")
+    rec["launches"] = launches
+    out["sumvec"] = rec
+    log(f"mesh sumvec ({MESH_SV_SHARDS} shards on {sorted(set(rec['devices']))}, B = {SV_BATCH * SV_TILE}): outputs "
+        f"equal one card's; device prepare ms {json.dumps(rec['prep_ms'])}")
+    del sv_sides, sv_mesh, sv_base
+    torch.cuda.empty_cache()
+    phases["mesh_sumvec"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    flags = np.zeros(len(hist_shards), dtype=bool)
+    flags[rng.choice(len(hist_shards), PAIR_TAMPERED, replace=False)] = True
+    desc = {"type": "Prio3Histogram", "length": LENGTH, "chunk_length": CHUNK}
+    expect = lambda valid: np.bincount(valid, minlength=LENGTH).tolist()  # noqa: E731
+    out["pair"] = {
+        "vdaf_backend_mesh": pair_run("histogram mesh backend", desc, hist_shards, flags.tolist(), expect, verify_key,
+                                      KERNEL_NAMES[:3], vdaf_backend="mesh"),
+        "executor_mesh": pair_run("histogram executor mesh", desc, hist_shards, flags.tolist(), expect, verify_key,
+                                  KERNEL_NAMES[:3], mesh=True),
+    }
+    phases["mesh_pair"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["dryrun"] = {}
+    for name, kw in ((f"cards{len(cards)}", {"n_devices": len(cards)}),
+                     ("logical4", {"n_devices": 4, "device": str(cards[0])})):
+        total, launches = counted(f"mesh dryrun {name}", ("keccak_squeeze",), lambda kw=kw: dryrun_multichip(**kw))
+        out["dryrun"][name] = {"count": total, "launches": launches}
+    phases["mesh_dryrun"] = time.perf_counter() - t0
+    phases["mesh"] = time.perf_counter() - t_phase
+    out["seconds"] = phases["mesh"]
+    return out
+
 
 def nvidia_smi(query: str) -> str:
     """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
@@ -3815,6 +4004,8 @@ def main() -> int:
     reduce_entry, mxu_shapes, mxu = mxu_phase(verify_key, rng, hist_batch, meas, sv_served, fp_done, hist_shards, phases)
     kernels.append(reduce_entry)
     path_shapes.update(mxu_shapes)
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(hist_vdaf, verify_key, hist_batch, meas, sv_served, hist_shards, rng, phases)
     for k in kernels:
         # a process that never loaded a kernel's wrapper (a binary that
         # never ran the mxu layout) launched it no time
@@ -3839,7 +4030,7 @@ def main() -> int:
                                    "sumvec_executor": sumvec_executor, "fixedpoint": fixedpoint,
                                    "multiproof": multiproof, "pair": pair, "poplar1": poplar1,
                                    "poplar1_pair": poplar1_pair, "binaries": binaries, "canonical": canonical,
-                                   "mxu": mxu}}))
+                                   "mxu": mxu, "mesh": mesh}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

@@ -94,8 +94,9 @@ class DriverConfig:
     #: peer_suspect_dwell_s once at startup, and test harnesses call
     #: peer_health.tracker().configure() explicitly — a per-driver copy
     #: would either be dead or clobber tuned values.)
-    #: VDAF execution backend: "cuda" (the card, the default) or "oracle"
-    #: (only when named); see aggregator.Config.vdaf_backend.
+    #: VDAF execution backend: "cuda" (the card, the default), "mesh"
+    #: (every card of the process) or "oracle" (only when named); see
+    #: aggregator.Config.vdaf_backend.
     vdaf_backend: str = "cuda"
     #: torch device of the "cuda" backend; None = "cuda" (tests name "cpu")
     vdaf_device: Optional[str] = None

@@ -145,8 +145,9 @@ class Config:
     global_hpke_cache_refresh_interval: float = 60.0
     peer_aggregator_cache_refresh_interval: float = 60.0
     #: VDAF execution backend: "cuda" (the batched prepare on the card,
-    #: vdaf/backend.py CudaBackend) or "oracle" (the CPU oracle, only when
-    #: named).  A VDAF the card does not serve (device_supported False:
+    #: vdaf/backend.py CudaBackend), "mesh" (the same prepare sharded over
+    #: every card of the process, MeshBackend) or "oracle" (the CPU
+    #: oracle, only when named).  A VDAF the card does not serve (device_supported False:
     #: FixedPointBoundedL2VecSum, the Fake* test VDAFs) takes the oracle,
     #: logged and counted; for a served circuit a backend that fails to
     #: build raises.
@@ -179,7 +180,7 @@ def resolve_backend(vdaf, backend_name: str, device, task_id=None, field_backend
     in ``janus_vdaf_backend_fallbacks_total``.  For a served circuit an
     error from building the backend propagates: no oracle hides the card."""
     if backend_name not in BACKENDS:
-        raise VdafError(f"unknown backend {backend_name!r} (cuda|oracle)")
+        raise VdafError(f"unknown backend {backend_name!r} (cuda|mesh|oracle)")
     if backend_name != "oracle":
         ok, reason = device_supported(vdaf)
         if not ok:

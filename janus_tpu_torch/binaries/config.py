@@ -10,13 +10,15 @@ the file.
 
 What the port adds: ``vdaf_device`` (the torch device of the ``cuda``
 backend; None is the card).  ``field_backend`` is ``vpu`` (the default)
-or ``mxu``, the limb-digit matmul layout, as in the JAX package.  What it
-refuses: a key it cannot honour raises :class:`ConfigError` with the
-reason, never silently ignored — a ``distributed_coordinator`` and
-``device_executor.mesh`` (parts not ported yet: ROADMAP queue 1),
-``poplar_backend`` and a non-zero ``warmup_wait_s``
-(options the port removed), and a ``vdaf_backend`` other than ``cuda`` or
-``oracle``.  The canary's sections come with the canary plane.  A config
+or ``mxu``, the limb-digit matmul layout, as in the JAX package.
+``vdaf_backend: mesh`` and ``device_executor.mesh: true`` shard each flush
+over every card of the process (``MeshBackend``).  What it refuses: a key
+it cannot honour raises :class:`ConfigError` with the reason, never
+silently ignored — a ``distributed_coordinator`` (the multi-process mesh,
+not ported yet: ROADMAP queue 1, the multi-device mesh across
+processes), ``poplar_backend`` and a non-zero
+``warmup_wait_s`` (options the port removed), and a ``vdaf_backend`` other
+than ``cuda``, ``mesh`` or ``oracle``.  The canary's sections come with the canary plane.  A config
 file whose name ends in ``.json`` is read as JSON (a subset of YAML).
 """
 
@@ -39,7 +41,7 @@ REMOVED_KEYS = {
 }
 
 #: the port's VDAF backends (vdaf/backend.py BACKENDS)
-VDAF_BACKENDS = ("cuda", "oracle")
+VDAF_BACKENDS = ("cuda", "mesh", "oracle")
 #: the card backends' field layouts (vdaf/backend.py FIELD_BACKENDS)
 FIELD_BACKENDS = ("vpu", "mxu")
 
@@ -186,9 +188,10 @@ class CommonConfig:
     max_transaction_retries: int = 30
     log_level: str = "INFO"
     #: Cluster membership for gang-scheduled SPMD deployments (the JAX
-    #: package's jax.distributed fields).  The port runs one card a
-    #: process and has no mesh yet (ROADMAP queue 1, multi-device): a
-    #: non-empty coordinator is refused.  Cross-host scale-out is the
+    #: package's jax.distributed fields).  The port's mesh spans the cards
+    #: of one process; the multi-process mesh is not ported (ROADMAP queue
+    #: 1, the multi-device mesh across processes): a non-empty
+    #: coordinator is refused.  Cross-host scale-out is the
     #: N-stateless-replica shared-datastore model.
     distributed_coordinator: str = ""  # "host:port"; empty = no cluster
     distributed_num_processes: int = 0
@@ -257,8 +260,10 @@ class CommonConfig:
     def __post_init__(self):
         if self.distributed_coordinator:
             raise ConfigError(
-                "distributed_coordinator is not supported by the port: one "
-                "card a process, no mesh yet (ROADMAP queue 1, multi-device)"
+                "distributed_coordinator is not supported by the port: its mesh "
+                "spans the cards of one process, and the gang-scheduled "
+                "multi-process mesh is not ported (ROADMAP queue 1, the "
+                "multi-device mesh across processes)"
             )
 
 
@@ -310,8 +315,9 @@ class DeviceExecutorConfig:
     driver and aggregator config the binary builds."""
 
     enabled: bool = False
-    #: Mesh-sharded mega-batches: not ported (ROADMAP queue 1,
-    #: multi-device); true is refused.
+    #: Mesh-sharded mega-batches: every one-card backend the executor
+    #: caches becomes a MeshBackend over the process's cards (the same as
+    #: ``vdaf_backend: mesh`` on every producer)
     mesh: bool = False
     #: flush a bucket once it holds this many rows (pow2-padded launch)
     flush_max_rows: int = 16384
@@ -355,18 +361,12 @@ class DeviceExecutorConfig:
     #: device-resident accumulator store (default off)
     accumulator: AccumulatorStoreConfig = field(default_factory=AccumulatorStoreConfig)
 
-    def __post_init__(self):
-        if self.mesh:
-            raise ConfigError(
-                "device_executor.mesh is not ported (ROADMAP queue 1, "
-                "multi-device): the port's executor drives one card"
-            )
-
     def to_executor_config(self):
         """Build the runtime ExecutorConfig (torch-free import path)."""
         from ..executor import ExecutorConfig
 
         return ExecutorConfig(
+            mesh=self.mesh,
             flush_max_rows=self.flush_max_rows,
             flush_window_s=self.flush_window_ms / 1000.0,
             max_queue_rows=self.max_queue_rows,
@@ -501,8 +501,10 @@ class AggregatorConfig:
     batch_aggregation_shard_count: int = 8
     task_counter_shard_count: int = 8
     #: "cuda" routes whole-job prepare through one batched launch on the
-    #: card (vdaf/backend.py CudaBackend); "oracle" is the CPU oracle, only
-    #: when named.  With "cuda" and no card the binary fails at startup.
+    #: card (vdaf/backend.py CudaBackend); "mesh" shards each flush over
+    #: every card of the process (MeshBackend); "oracle" is the CPU
+    #: oracle, only when named.  With "cuda" or "mesh" and no card the
+    #: binary fails at startup.
     vdaf_backend: str = "cuda"
     #: torch device of the "cuda" backend; None = the card ("cpu" is how
     #: tests run the binaries)
@@ -559,7 +561,7 @@ class JobDriverBinaryConfig:
     common: CommonConfig = field(default_factory=CommonConfig)
     job_driver: JobDriverConfig = field(default_factory=JobDriverConfig)
     batch_aggregation_shard_count: int = 8
-    #: "cuda" | "oracle" — see AggregatorConfig.vdaf_backend.
+    #: "cuda" | "mesh" | "oracle" — see AggregatorConfig.vdaf_backend.
     vdaf_backend: str = "cuda"
     #: torch device of the "cuda" backend; None = the card
     vdaf_device: Optional[str] = None

@@ -19,8 +19,9 @@ SIGTERM-driven graceful stop → healthz server → main loop
 executor: a binary whose ``device_executor`` is enabled builds one
 ``DeviceExecutor`` and hands it to every driver and aggregator config it
 builds (and to ``/statusz``).  A binary that prepares with
-``vdaf_backend: cuda`` checks its device at startup: with no card it
-fails with the backend's ``VdafError`` and never serves on the oracle.
+``vdaf_backend: cuda`` (or ``mesh``: every card of the process) checks its
+device at startup: with no card it fails with the backend's ``VdafError``
+and never serves on the oracle.
 ``canary`` and ``janus_interop_*`` are not ported yet.
 """
 
@@ -152,14 +153,16 @@ def _bootstrap(config_common):
 
 def _check_vdaf_device(vdaf_backend: str, vdaf_device: Optional[str]) -> None:
     """Startup check of a binary that prepares: the ``cuda`` backend's
-    device must exist (``make_backend`` raises ``VdafError`` with no card),
-    so a misplaced replica fails now instead of refusing every job."""
-    if vdaf_backend != "cuda":
+    device, and every card of a ``mesh`` backend, must exist
+    (``make_backend`` raises ``VdafError`` with no card; a mesh builds its
+    prepare's constants on each of its cards), so a misplaced replica fails
+    now instead of refusing every job."""
+    if vdaf_backend not in ("cuda", "mesh"):
         return
     from ..vdaf.backend import make_backend
     from ..vdaf.instances import vdaf_from_instance
 
-    make_backend(vdaf_from_instance({"type": "Prio3Count"}), "cuda", device=vdaf_device)
+    make_backend(vdaf_from_instance({"type": "Prio3Count"}), vdaf_backend, device=vdaf_device)
 
 
 def _build_executor(device_executor):

@@ -16,10 +16,11 @@ reports the torch device (``device``: the CUDA runtime, whether this
 process holds a CUDA context, the cards' names and the memory it has
 allocated there, and each kernel wrapper's launches in this process).  The
 executor's ``canonicalization`` section counts the shape plans of
-``vdaf/canonical.py``.  The canary section and the executor's
-bucket-quarantine section are left out until those parts are ported
-(ROADMAP queue 1: "The canary plane and the interop harness" and
-"Multi-device").
+``vdaf/canonical.py``, and its ``bucket_quarantine`` section the shape
+buckets whose work is refused while they are quarantined; a mesh's circuit
+is labelled ``mesh[n]#digest``.  The canary section is left out until the
+canary plane is ported (ROADMAP queue 1: "The canary plane and the interop
+harness").
 """
 
 from __future__ import annotations
@@ -150,6 +151,9 @@ def runtime_status(executor=None) -> dict:
             # per-task cost-attribution ledger occupancy: tracked labels
             # vs the cardinality cap, and how much landed on "other"
             "cost_attribution": _cost_stats(),
+            # quarantined shape buckets (their work refused as retryable)
+            # and the per-shape failure streaks feeding the gate
+            "bucket_quarantine": ex.bucket_quarantine_stats(),
         }
         doc["accumulator"] = (
             ex.accumulator.stats() if ex.accumulator is not None else None

@@ -24,6 +24,7 @@ from .service import (
     DeviceExecutor,
     ExecutorConfig,
     ExecutorOverloadedError,
+    breaker_domain,
     bucket_label,
     shape_label,
 )
@@ -43,6 +44,7 @@ __all__ = [
     "KIND_PREP_INIT",
     "ResidentRef",
     "StaleAccumulatorDelta",
+    "breaker_domain",
     "bucket_label",
     "shape_label",
 ]

@@ -148,7 +148,9 @@ class _Flush:
 
     ``matrix`` is a device tensor until evicted, then a host copy; the
     accumulate launch consumes either (the backend moves host inputs to its
-    device).
+    device).  A mesh backend's matrix is its per-shard pieces
+    (``ShardedRows``), with the same ``shape``, ``numel``, ``element_size``
+    and ``cpu``.
     """
 
     def __init__(self, flush_id: int, backend, matrix, rows: int, nbytes: int):
@@ -422,9 +424,11 @@ class DeviceAccumulatorStore:
     def _buffer_nbytes(buffer) -> int:
         """Resident bytes of a bucket's accumulator buffer: its own size (a
         tensor's ``numel() * element_size()``, an array's ``nbytes``), so
-        any limb dtype is counted as it is.  No failure is read as 0 bytes:
-        a silent 0 would keep the byte budget and eviction from ever
-        engaging."""
+        any limb dtype is counted as it is, and a mesh backend's buffer
+        (``vdaf/backend.py`` ``ShardedRows``: one (OUT, n) partial row on
+        each shard's card) counts all of its ``accum_buffer_rows`` rows.
+        No failure is read as 0 bytes: a silent 0 would keep the byte
+        budget and eviction from ever engaging."""
         if hasattr(buffer, "element_size"):
             return int(buffer.numel() * buffer.element_size())
         return int(np.asarray(buffer).nbytes)

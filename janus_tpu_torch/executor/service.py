@@ -2,9 +2,11 @@
 
 Copy of ``janus_tpu/executor/service.py`` for the PyTorch port.  What
 differs: the warmup builds the CUDA kernels (nvcc) and runs one launch at
-the warmup batch in place of an XLA compile; and the port keeps only what
-its one-card backends use, so it has no mesh upgrade and no per-shape
-quarantine (ROADMAP.md queue 1, "Multi-device", brings them back).  The
+the warmup batch in place of an XLA compile; the mesh upgrade
+(``ExecutorConfig.mesh``) makes a ``MeshBackend`` over the process's cards
+(``vdaf/backend.py``), one circuit breaker a mesh; and where the JAX
+package serves a quarantined shape bucket on the CPU oracle, the port
+refuses its work as retryable, as it does for an open circuit.  The
 Poplar1 ``poplar_init`` kind and its aggregation-parameter buckets are
 here, and so are canonical shapes (``canonical_shapes``,
 ``vdaf/canonical.py``): the producers key a bucket's tasks by their padded
@@ -81,7 +83,9 @@ class ExecutorOverloadedError(Exception):
 
 class CircuitOpenError(Exception):
     """The shape's device circuit is open: K consecutive launches failed
-    and the breaker has not yet half-open-probed its way back.
+    and the breaker has not yet half-open-probed its way back (or the
+    shape's bucket is quarantined: its own launches keep failing while
+    other shapes on its breaker domain succeed).
 
     The device is sick, not busy.  The caller refuses the work as
     retryable (the driver's JobStepError, the helper's 503) and the lease
@@ -99,6 +103,13 @@ _CIRCUIT_STATE_NAMES = {0: "closed", 1: "open", 2: "half_open"}
 class ExecutorConfig:
     """Tuning knobs; defaults favor throughput at ~5 ms added latency."""
 
+    #: Mesh-sharded mega-batches: upgrade every exact-type CudaBackend
+    #: this executor caches to a MeshBackend over the process's cards
+    #: (vdaf/backend.py ``local_mesh``), so staging lands each
+    #: mega-batch's shards directly on their cards.  Equivalent to
+    #: ``vdaf_backend: mesh`` on every producer; oracle, hybrid and
+    #: Poplar1 backends pass through untouched.
+    mesh: bool = False
     #: flush a bucket as soon as it holds this many rows
     flush_max_rows: int = 16384
     #: deadline from a bucket's first pending submission to its flush
@@ -158,6 +169,18 @@ class ExecutorConfig:
     #: per-report retry-charge cap during a bisection sieve; a range whose
     #: most-charged row hits the budget is quarantined wholesale
     bisection_per_item_budget: int = 16
+    #: repeated NON-injected device failures confined to ONE shape while
+    #: another shape on the same breaker domain stays healthy quarantine
+    #: that shape bucket (its work is refused as retryable) instead of
+    #: opening the shared (mesh-wide) breaker; 0 = off
+    bucket_quarantine_threshold: int = 2
+    #: how long a quarantined shape bucket refuses its work before device
+    #: submissions flow again
+    bucket_quarantine_s: float = 60.0
+    #: a failing shape only quarantines (vs counting against the breaker)
+    #: when ANOTHER shape on its breaker domain succeeded within this
+    #: window — the proof the mesh itself is healthy
+    bucket_quarantine_success_window_s: float = 30.0
 
 
 class CircuitBreaker:
@@ -365,6 +388,23 @@ def shape_label(backend, shape_key: tuple) -> str:
     return f"{circuit}#{_shape_digest(shape_key)}"
 
 
+def breaker_domain(shape_key: tuple, backend):
+    """The breaker's failure unit: the MESH for mesh backends (its device
+    set, ``mesh_devices`` — one circuit a mesh, shared by every shape
+    launching on it), the VDAF shape otherwise."""
+    devices = getattr(backend, "mesh_devices", None)
+    if devices is not None:
+        return ("mesh", tuple(devices))
+    return shape_key
+
+
+def mesh_label(backend) -> str:
+    """Per-mesh breaker label: the shard count and a stable digest of the
+    device set."""
+    devices = tuple(backend.mesh_devices)
+    return "mesh[%d]#%s" % (len(devices), _shape_digest(devices))
+
+
 class DeviceExecutor:
     """The continuous batcher.  One per process: its owner hands it to every
     driver and aggregator there (their configs' ``device_executor``)."""
@@ -376,8 +416,26 @@ class DeviceExecutor:
         #: canonical keys whose twin backend failed to build (negative
         #: cache: a job step or a request must not re-pay a doomed build)
         self.canonical_build_failed: set = set()
-        #: shape_key -> breaker: a one-card backend fails per VDAF shape
-        self._breakers: Dict[tuple, CircuitBreaker] = {}
+        #: breaker DOMAIN -> breaker.  The domain is the failure unit: the
+        #: VDAF shape for one-card backends, the MESH for mesh backends
+        #: (losing a card sickens every shape launching on that mesh, so
+        #: they share one circuit)
+        self._breakers: Dict[object, CircuitBreaker] = {}
+        #: shape_key -> its domain's breaker (the circuit_open peek index)
+        self._breaker_by_shape: Dict[tuple, CircuitBreaker] = {}
+        #: domain -> shape_keys referencing it (retirement bookkeeping)
+        self._breaker_shapes: Dict[object, set] = {}
+        #: shape-bucket quarantine: shape_key -> quarantine expiry
+        #: (monotonic).  While set, circuit_open() peeks True and submit()
+        #: raises CircuitOpenError for the shape — callers refuse the work
+        #: as retryable — WITHOUT the shared breaker tripping.
+        self._quarantined_shapes: Dict[tuple, float] = {}
+        #: shape_key -> consecutive non-injected launch-failure streak
+        self._shape_fail_streak: Dict[tuple, int] = {}
+        #: breaker domain -> (monotonic time, shape_key) of last success:
+        #: the mesh-health witness the quarantine gate consults
+        self._domain_last_success: Dict[object, tuple] = {}
+        self._bucket_quarantines = 0
         self._lock = threading.Lock()
         self._stage_pool: Optional[ThreadPoolExecutor] = None
         self._launch_pool: Optional[ThreadPoolExecutor] = None
@@ -440,12 +498,16 @@ class DeviceExecutor:
         """One backend instance (and its compiled graphs) per VDAF shape,
         shared across every driver in the process.  Newly created backends
         are warmed up (kernels built, one launch at the warmup batch) when
-        configured."""
+        configured.  With ``config.mesh`` set, one-card backends are
+        upgraded to a MeshBackend over the process's cards before caching,
+        so every producer's mega-batches shard across the cards."""
         created = False
         with self._lock:
             b = self._backends.get(shape_key)
             if b is None:
                 b = factory()
+                if self.config.mesh:
+                    b = self._meshify(b)
                 self._backends[shape_key] = b
                 created = True
                 if shape_key not in self._warmup_state:
@@ -459,6 +521,27 @@ class DeviceExecutor:
         if created and self.config.warmup_rows and hasattr(b, "stage_prep_init_multi"):
             self._schedule_warmup(shape_key, b)
         return b
+
+    @staticmethod
+    def _meshify(backend):
+        """``device_executor.mesh: true`` — upgrade an exact-type
+        CudaBackend to a MeshBackend over the cards of its process
+        (``local_mesh(backend.device)``: every visible card, or the CPU
+        device alone); mesh, oracle, hybrid and Poplar1 backends pass
+        through.  The field layout, canonical mode and the one-shape rule
+        carry over: the mesh runs the same per-shard prepares."""
+        from ..vdaf.backend import CudaBackend, MeshBackend, local_mesh
+
+        if type(backend) is not CudaBackend:
+            return backend
+        mesh = MeshBackend(
+            backend.vdaf,
+            devices=local_mesh(backend.device),
+            canonical=backend.canonical,
+            field_backend=backend.field_backend,
+        )
+        mesh.one_shape_exact = backend.one_shape_exact
+        return mesh
 
     def prep_backend_for(self, vdaf, backend_name: str, device, exact_factory, field_backend=None):
         """(key, backend) a prepare of ``vdaf`` submits under, for the job
@@ -679,6 +762,14 @@ class DeviceExecutor:
                 f"device circuit {breaker.label} is open after "
                 f"{breaker.consecutive_failures} consecutive launch failure(s)"
             )
+        if self._bucket_quarantined(shape_key):
+            # the same caller-visible contract as an open circuit (a
+            # retryable refusal), scoped to this one shape: the rest of
+            # the mesh keeps launching
+            raise CircuitOpenError(
+                f"shape bucket #{_shape_digest(shape_key)} is quarantined after "
+                f"repeated launch failures of its own"
+            )
         loop = asyncio.get_running_loop()
         now = time.monotonic()
         timeout = self.config.submit_timeout_s if deadline_s is None else deadline_s
@@ -738,17 +829,27 @@ class DeviceExecutor:
         return await sub.future
 
     def _breaker_for(self, shape_key: tuple, backend) -> Optional[CircuitBreaker]:
-        """One CircuitBreaker per VDAF shape (None when disabled): a
-        one-card backend fails per shape (a bad build or an OOM is
-        shape-local), so every bucket of it — both aggregator sides, both
-        kinds — shares the verdict."""
+        """One CircuitBreaker per failure DOMAIN (None when disabled).  A
+        one-card backend fails per VDAF shape (a bad build or an OOM is
+        shape-local), so its domain is the shape: every bucket of it —
+        both aggregator sides, both kinds — shares the verdict.  A mesh
+        backend fails per MESH (a lost card sickens every shape launching
+        on it), so every shape on one mesh shares one breaker: a
+        ``backend.device_lost`` trip opens the circuit for all of them at
+        once, and their work is refused as retryable until the probe heals
+        the mesh."""
         if self.config.breaker_failure_threshold <= 0:
             return None
+        domain = breaker_domain(shape_key, backend)
         with self._lock:
-            br = self._breakers.get(shape_key)
+            br = self._breakers.get(domain)
             if br is None:
                 br = CircuitBreaker(
-                    shape_label(backend, shape_key),
+                    (
+                        mesh_label(backend)
+                        if getattr(backend, "mesh_devices", None) is not None
+                        else shape_label(backend, shape_key)
+                    ),
                     self.config.breaker_failure_threshold,
                     self.config.breaker_reset_timeout_s,
                     # black box on trip: the ring of recent flushes ships
@@ -762,7 +863,9 @@ class DeviceExecutor:
                         },
                     ),
                 )
-                self._breakers[shape_key] = br
+                self._breakers[domain] = br
+            self._breaker_by_shape[shape_key] = br
+            self._breaker_shapes.setdefault(domain, set()).add(shape_key)
             return br
 
     def _spawn(self, coro) -> None:
@@ -1157,6 +1260,7 @@ class DeviceExecutor:
                 return
             if bucket.breaker is not None:
                 bucket.breaker.record_success()
+            self._note_launch_success(bucket)
             launch_ok = True
             done = time.monotonic()
             launch_s = done - t_launch
@@ -1275,8 +1379,7 @@ class DeviceExecutor:
                     fault=isinstance(e, faults.FaultInjectedError),
                     error=e,
                 )
-                if bucket.breaker is not None:
-                    bucket.breaker.record_failure()
+                self._record_flush_failure(bucket, e)
             else:
                 logger.exception(
                     "flush bookkeeping failed after a successful launch "
@@ -1362,7 +1465,8 @@ class DeviceExecutor:
         quarantine.note_bisection()
         if outcome.offenders and not outcome.attributable:
             # every singleton failed: the pass is broken (device lost, bad
-            # build) — not poison.  Legacy path: fail-all + breaker.
+            # build) — not poison.  Legacy path: fail-all + breaker (or
+            # bucket quarantine when the rest of the domain is healthy).
             return False
 
         from ..vdaf.prio3 import VdafError
@@ -1408,6 +1512,7 @@ class DeviceExecutor:
             # the sieve proved the device healthy — a poison row must
             # never trip the circuit
             bucket.breaker.record_success()
+        self._note_launch_success(bucket)
         bucket.flushes += 1
         bucket.flushed_rows += rows
         bucket.flushed_jobs += len(live)
@@ -1455,6 +1560,85 @@ class DeviceExecutor:
             " [budget exhausted]" if outcome.exhausted else "",
         )
         return True
+
+    def _note_launch_success(self, bucket: _Bucket) -> None:
+        """A launch landed: clear the shape's failure streak and stamp its
+        breaker domain's health witness (the quarantine gate's evidence
+        that the mesh itself works)."""
+        shape_key = bucket.key[0]
+        with self._lock:
+            self._shape_fail_streak.pop(shape_key, None)
+            self._quarantined_shapes.pop(shape_key, None)
+            domain = breaker_domain(shape_key, bucket.backend)
+            self._domain_last_success[domain] = (time.monotonic(), shape_key)
+
+    def _record_flush_failure(self, bucket: _Bucket, exc: Exception) -> None:
+        """Count a launch failure.  Usually against the breaker — but
+        repeated NON-injected failures confined to ONE shape while another
+        shape on the same breaker domain stays demonstrably healthy
+        quarantine that shape bucket instead: a shape-local failure (a bad
+        build, a pathological input shape) must not open the mesh-wide
+        circuit and refuse every healthy shape's work with it."""
+        shape_key = bucket.key[0]
+        if self.config.bucket_quarantine_threshold > 0 and not isinstance(exc, faults.FaultInjectedError):
+            now = time.monotonic()
+            quarantined = False
+            with self._lock:
+                streak = self._shape_fail_streak.get(shape_key, 0) + 1
+                self._shape_fail_streak[shape_key] = streak
+                last = self._domain_last_success.get(breaker_domain(shape_key, bucket.backend))
+                domain_healthy = (
+                    last is not None
+                    and last[1] != shape_key
+                    and now - last[0] <= self.config.bucket_quarantine_success_window_s
+                )
+                if streak >= self.config.bucket_quarantine_threshold and domain_healthy:
+                    self._quarantined_shapes[shape_key] = now + self.config.bucket_quarantine_s
+                    self._bucket_quarantines += 1
+                    quarantined = True
+            if quarantined:
+                from ..core import quarantine
+
+                quarantine.record("bucket", task=bucket.label, error=exc, durable=False)
+                logger.warning(
+                    "quarantined shape bucket %s for %.0fs after %d shape-local failure(s): "
+                    "its work is refused as retryable; breaker %s stays closed",
+                    bucket.label,
+                    self.config.bucket_quarantine_s,
+                    streak,
+                    bucket.breaker.label if bucket.breaker else "<none>",
+                )
+                return
+        if bucket.breaker is not None:
+            bucket.breaker.record_failure()
+
+    def _bucket_quarantined(self, shape_key: tuple) -> bool:
+        """Is the shape bucket inside its quarantine dwell?  Expired
+        entries are reaped on the way out (the next submission runs on the
+        device and a success clears the streak)."""
+        now = time.monotonic()
+        with self._lock:
+            exp = self._quarantined_shapes.get(shape_key)
+            if exp is None:
+                return False
+            if now >= exp:
+                del self._quarantined_shapes[shape_key]
+                return False
+            return True
+
+    def bucket_quarantine_stats(self) -> dict:
+        """The /statusz face of the shape-bucket quarantine: the total
+        quarantines, each quarantined shape's seconds left, and the
+        failure streaks feeding the gate."""
+        now = time.monotonic()
+        with self._lock:
+            return {
+                "total": self._bucket_quarantines,
+                "quarantined": {
+                    f"#{_shape_digest(k)}": round(max(0.0, exp - now), 2) for k, exp in self._quarantined_shapes.items()
+                },
+                "fail_streaks": {f"#{_shape_digest(k)}": v for k, v in self._shape_fail_streak.items()},
+            }
 
     @staticmethod
     def _release_dropped_refs(store, outcomes) -> None:
@@ -1594,9 +1778,14 @@ class DeviceExecutor:
         to refuse the job as retryable without paying a
         submit-then-CircuitOpenError round trip.  Returns False
         once the dwell has elapsed so the next real submission runs the
-        half-open probe that can close the circuit."""
+        half-open probe that can close the circuit.  Mesh-backed shapes
+        share their mesh's breaker, so after a card loss this returns True
+        for EVERY shape on that mesh.  A quarantined shape bucket also
+        peeks True, scoped to the one shape, until its dwell expires."""
+        if self._bucket_quarantined(shape_key):
+            return True
         with self._lock:
-            br = self._breakers.get(shape_key)
+            br = self._breaker_by_shape.get(shape_key) or self._breakers.get(shape_key)
         return br is not None and br.is_open_peek()
 
     def retire_idle_buckets(self, max_idle_s: float = 600.0) -> int:
@@ -1629,11 +1818,16 @@ class DeviceExecutor:
                         del self._task_deficit[tk]
                     retired.append(bucket.label)
             live_shapes = {key[0] for key in self._buckets}
-            for shape_key, breaker in list(self._breakers.items()):
-                # a breaker retires only when its shape has no live bucket
-                # and its circuit is closed
-                if shape_key not in live_shapes and breaker.state == CIRCUIT_CLOSED:
-                    del self._breakers[shape_key]
+            for domain, breaker in list(self._breakers.items()):
+                # a breaker retires only when NONE of the shapes in its
+                # domain (one for a per-shape breaker, many for a mesh's)
+                # still has a live bucket, and its circuit is closed
+                shapes = self._breaker_shapes.get(domain, {domain})
+                if not (shapes & live_shapes) and breaker.state == CIRCUIT_CLOSED:
+                    del self._breakers[domain]
+                    for sk in self._breaker_shapes.pop(domain, set()):
+                        if self._breaker_by_shape.get(sk) is breaker:
+                            del self._breaker_by_shape[sk]
                     retired_circuits.append(breaker.label)
         if retired or retired_circuits:
             from ..core.metrics import GLOBAL_METRICS

@@ -55,8 +55,11 @@ def lazy_reduce_digits(f: TField, P: torch.Tensor) -> torch.Tensor:
     out = torch.empty(P.shape[:-3] + (cols, n), dtype=torch.int32, device=P.device)
     rows = P.numel() // (D * cols * D)
     r2 = [int(x) for x in f.r2_np] + [0] * (4 - n)
-    err = _entry()(P.data_ptr(), out.data_ptr(), rows, cols, n, r2[0] | (r2[1] << 32), r2[2] | (r2[3] << 32),
-                   torch.cuda.current_stream(P.device).cuda_stream)
+    entry = _entry()
+    # the C entry launches on the runtime's current device: make it P's card
+    with torch.cuda.device(P.device):
+        err = entry(P.data_ptr(), out.data_ptr(), rows, cols, n, r2[0] | (r2[1] << 32), r2[2] | (r2[3] << 32),
+                    torch.cuda.current_stream(P.device).cuda_stream)
     _build.check(err, "janus_digit_reduce")
     lazy_reduce_digits.launches += 1
     return out

@@ -70,6 +70,10 @@ def _check_planes(what: str, B: int, *planes: torch.Tensor) -> None:
 
 
 def _stream(x: torch.Tensor) -> int:
+    """The current stream of ``x``'s card; every launch runs inside
+    ``torch.cuda.device(x.device)``, since the C entry points launch on the
+    CUDA runtime's current device (K5's shared-memory attribute is set
+    there too)."""
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
@@ -144,9 +148,11 @@ def wire_evals(
         raise NotImplementedError("chunk exceeds the kernel's grid y dimension")
     ev = torch.empty((chunk, n, B), dtype=torch.int32, device=m.device)
     od = torch.empty_like(ev)
-    err = _kernel("flp_wire", "janus_wire_evals", 9, 4)(
-        *(t.data_ptr() for t in args), ev.data_ptr(), od.data_ptr(), B, meas_len, chunk, calls, _stream(m),
-    )
+    entry = _kernel("flp_wire", "janus_wire_evals", 9, 4)
+    with torch.cuda.device(m.device):
+        err = entry(
+            *(t.data_ptr() for t in args), ev.data_ptr(), od.data_ptr(), B, meas_len, chunk, calls, _stream(m),
+        )
     _build.check(err, "janus_wire_evals")
     wire_evals.launches += 1
     return ev, od
@@ -229,9 +235,11 @@ def sumvec_wires(
         raise NotImplementedError("the CUDA SumVec wire kernel serves Field128 only")
     ev = torch.empty((chunk, n, B), dtype=torch.int32, device=m.device)
     od = torch.empty_like(ev)
-    err = _kernel("flp_sumvec", "janus_sumvec_wires", 8, 4)(
-        *(t.data_ptr() for t in args), ev.data_ptr(), od.data_ptr(), B, meas_len, chunk, calls, _stream(m),
-    )
+    entry = _kernel("flp_sumvec", "janus_sumvec_wires", 8, 4)
+    with torch.cuda.device(m.device):
+        err = entry(
+            *(t.data_ptr() for t in args), ev.data_ptr(), od.data_ptr(), B, meas_len, chunk, calls, _stream(m),
+        )
     _build.check(err, "janus_sumvec_wires")
     sumvec_wires.launches += 1
     return ev, od
@@ -274,9 +282,11 @@ def combine_decide(
     if n != 4:
         raise NotImplementedError("the CUDA combine kernel serves Field128 only")
     g = torch.empty((n, B), dtype=torch.int32, device=he.device)
-    err = _kernel("flp_combine", "janus_combine_decide", 4, 3)(
-        he.data_ptr(), ho.data_ptr(), pv.data_ptr(), g.data_ptr(), B, chunk, pv.shape[1], _stream(he),
-    )
+    entry = _kernel("flp_combine", "janus_combine_decide", 4, 3)
+    with torch.cuda.device(he.device):
+        err = entry(
+            he.data_ptr(), ho.data_ptr(), pv.data_ptr(), g.data_ptr(), B, chunk, pv.shape[1], _stream(he),
+        )
     _build.check(err, "janus_combine_decide")
     combine_decide.launches += 1
     return g

@@ -68,6 +68,10 @@ def _check_planes(x: torch.Tensor, rows_multiple: int, what: str) -> None:
 
 
 def _stream(x: torch.Tensor) -> int:
+    """The current stream of ``x``'s card.  The C entry points launch on
+    the CUDA runtime's current device, so every launch below runs inside
+    ``torch.cuda.device(x.device)``: a tensor on another card than the
+    current one launches on its own card."""
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
@@ -91,7 +95,9 @@ def squeeze(msg: torch.Tensor, out_words: int) -> torch.Tensor:
     B = msg.shape[1]
     nb = -(-out_words // RATE_WORDS)
     out = torch.empty((out_words, B), dtype=torch.int32, device=msg.device)
-    err = _lib().janus_keccak_squeeze(msg.data_ptr(), out.data_ptr(), B, nb, out_words, _stream(msg))
+    lib = _lib()
+    with torch.cuda.device(msg.device):
+        err = lib.janus_keccak_squeeze(msg.data_ptr(), out.data_ptr(), B, nb, out_words, _stream(msg))
     _build.check(err, "janus_keccak_squeeze")
     squeeze.launches += 1
     return out
@@ -118,7 +124,9 @@ def absorb(msg: torch.Tensor, out_words: int) -> torch.Tensor:
     B = msg.shape[1]
     na = msg.shape[0] // RATE_WORDS
     out = torch.empty((out_words, B), dtype=torch.int32, device=msg.device)
-    err = _lib().janus_keccak_absorb(msg.data_ptr(), out.data_ptr(), B, na, out_words, _stream(msg))
+    lib = _lib()
+    with torch.cuda.device(msg.device):
+        err = lib.janus_keccak_absorb(msg.data_ptr(), out.data_ptr(), B, na, out_words, _stream(msg))
     _build.check(err, "janus_keccak_absorb")
     absorb.launches += 1
     return out
@@ -154,9 +162,11 @@ def absorb_select(msg: torch.Tensor, last_block: torch.Tensor, out_words: int) -
     # as the plain version does (one reduction and a sync)
     check_final_blocks(last_block, na)
     out = torch.empty((out_words, B), dtype=torch.int32, device=msg.device)
-    err = _lib().janus_keccak_absorb_select(
-        msg.data_ptr(), last_block.data_ptr(), out.data_ptr(), B, na, out_words, _stream(msg)
-    )
+    lib = _lib()
+    with torch.cuda.device(msg.device):
+        err = lib.janus_keccak_absorb_select(
+            msg.data_ptr(), last_block.data_ptr(), out.data_ptr(), B, na, out_words, _stream(msg)
+        )
     _build.check(err, "janus_keccak_absorb_select")
     absorb_select.launches += 1
     return out

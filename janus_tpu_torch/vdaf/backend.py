@@ -42,8 +42,11 @@ behind the executor's ``poplar_init`` kind.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -80,7 +83,9 @@ class StagedPrepInit:
     the card (``stage_prep_init_multi``), consumed by ``launch_prep_init_multi``."""
 
     agg_id: int
-    placed: Dict[str, torch.Tensor]
+    #: the marshalled tensors on the card; on a ``MeshBackend`` one dict a
+    #: shard, each on its shard's device
+    placed: Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
     #: padded batch size the launch runs at
     pad_to: int
     #: real rows in the batch (readbacks slice to this)
@@ -342,14 +347,8 @@ class CudaBackend:
         """Power-of-two buckets, as the JAX backend pads."""
         return next_power_of_2(B)
 
-    def _place(self, kw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        placed = {}
-        for k, v in kw.items():
-            if v.dtype == np.uint32:
-                placed[k] = u32_to_tensor(v, self.device)
-            else:
-                placed[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-        return placed
+    def _place(self, kw: Dict[str, np.ndarray]):
+        return _place_on(kw, self.device)
 
     # -- batch APIs ------------------------------------------------------
     def prep_init_batch(self, verify_key: bytes, agg_id: int, reports: Sequence[Report]) -> List[PrepOutcome]:
@@ -382,7 +381,7 @@ class CudaBackend:
         kw["verify_key_u8"] = np.concatenate([vk, np.repeat(vk[-1:], pad_to - B, axis=0)])
         return StagedPrepInit(agg_id=agg_id, placed=self._place(kw), pad_to=pad_to, rows=B, exact=exact)
 
-    def _prep_fn(self, agg_id: int, pad_to: int, exact=None):
+    def _prep_fn(self, agg_id: int, pad_to: int, exact=None, device=None):
         """The prepare that serves a flush padded to ``pad_to`` rows, chosen
         up front from the padded size as the JAX ``TpuBackend._prep_fn``
         chooses: the planar path for Histogram and one-bit SumVec, the row
@@ -392,9 +391,51 @@ class CudaBackend:
         kernels do not take).  ``exact`` is a canonical flush's one task
         shape: its own prepare serves.  Where the JAX package takes its
         limb-planar Count/Sum path, the port takes the row path, which is
-        the faster one on the card."""
+        the faster one on the card.  ``device`` names a mesh shard's card
+        (one card here: unused)."""
         bp = self._bp_for(exact)
         return getattr(bp, bp.prep_route(agg_id, pad_to, masked=self.canonical and exact is None))
+
+    def _launch_prepare(self, agg_id: int, placed: Dict[str, torch.Tensor], pad_to: int, exact=None, device=None):
+        """One prepare over ``placed`` (one card's tensors) -> its device
+        outputs; the route is ``_prep_fn``'s for a flush of ``pad_to``."""
+        kw = dict(placed)
+        vk = kw.pop("verify_key_u8")
+        masks = {"meas_len": kw["meas_len"]} if "meas_len" in kw else {}
+        return self._prep_fn(agg_id, pad_to, exact, device)(
+            agg_id,
+            vk,
+            kw["nonces_u8"],
+            share_seeds_u8=kw.get("share_seeds_u8"),
+            meas_limbs=kw.get("meas_limbs"),
+            proofs_limbs=kw.get("proofs_limbs"),
+            blinds_u8=kw.get("blinds_u8"),
+            public_parts_u8=kw.get("public_parts_u8"),
+            **masks,
+        )
+
+    def _read_prepare(self, out: Dict[str, torch.Tensor], rows: int, retain: bool) -> Dict[str, np.ndarray]:
+        """The host outputs of a prepare's first ``rows`` rows: ok, the
+        verifiers, the joint-rand part and corrected seed, and (unless the
+        out shares stay on the card, ``retain``) the out shares."""
+        outputs = {"ok": out["ok"][:rows].cpu().numpy(), "verifiers": tensor_to_u32(out["verifiers"][:rows])}
+        if self.vdaf.flp.JOINT_RAND_LEN > 0:
+            outputs["joint_rand_part"] = out["joint_rand_part"][:rows].cpu().numpy()
+            outputs["corrected_seed"] = out["corrected_seed"][:rows].cpu().numpy()
+        if not retain:
+            outputs["out_share"] = tensor_to_u32(out["out_share"][:rows])
+        return outputs
+
+    def _prepare(self, staged: StagedPrepInit, retain: bool):
+        """The device work of a launch: the prepare and its readback.
+        Returns (host outputs of the real rows, the (pad, OUT, n) out-share
+        matrix left on the card when ``retain``, else None)."""
+        out = self._launch_prepare(staged.agg_id, staged.placed, staged.pad_to, staged.exact)
+        outputs = self._read_prepare(out, staged.rows, retain)
+        matrix = out["out_share"] if retain else None
+        del out
+        self._sync()
+        return outputs, matrix
 
     def launch_prep_init_multi(self, staged: StagedPrepInit, requests, retain_store=None) -> List[List[PrepOutcome]]:
         """Device half: run the batched prepare, read back once, slice the
@@ -420,33 +461,13 @@ class CudaBackend:
         resident = None
         try:
             with trace_span("prep_launch", cat="device", backend=self.name, batch=B):
-                kw = dict(staged.placed)
-                vk = kw.pop("verify_key_u8")
-                masks = {"meas_len": kw["meas_len"]} if "meas_len" in kw else {}
-                out = self._prep_fn(agg_id, staged.pad_to, staged.exact)(
-                    agg_id,
-                    vk,
-                    kw["nonces_u8"],
-                    share_seeds_u8=kw.get("share_seeds_u8"),
-                    meas_limbs=kw.get("meas_limbs"),
-                    proofs_limbs=kw.get("proofs_limbs"),
-                    blinds_u8=kw.get("blinds_u8"),
-                    public_parts_u8=kw.get("public_parts_u8"),
-                    **masks,
-                )
-                outputs = {"ok": out["ok"][:B].cpu().numpy(), "verifiers": tensor_to_u32(out["verifiers"][:B])}
-                if self.vdaf.flp.JOINT_RAND_LEN > 0:
-                    outputs["joint_rand_part"] = out["joint_rand_part"][:B].cpu().numpy()
-                    outputs["corrected_seed"] = out["corrected_seed"][:B].cpu().numpy()
+                outputs, matrix = self._prepare(staged, retain_store is not None)
                 if retain_store is not None:
-                    matrix = out["out_share"]
                     nbytes = matrix.numel() * matrix.element_size()
                     resident = (retain_store.retain_flush(self, matrix, B, nbytes), 0)
                 else:
-                    outputs["out_share"] = tensor_to_u32(out["out_share"][:B])
                     self.outshare_readback_rows += B
-                del out
-                self._sync()
+                del matrix
             _observe_prepare(self.name, "init", B, time.monotonic() - t0)
             results: List[List[PrepOutcome]] = []
             start = 0
@@ -561,19 +582,14 @@ class CudaBackend:
             limbs = f.to_limbs([x for row in prep_shares for x in row[a].verifiers_share])
             self.host_seconds["verifiers_in"] += time.perf_counter() - t0
             limbs = limbs.reshape(B, ver_len, f.n)
-            limbs = np.concatenate([limbs, np.repeat(limbs[-1:], pad_to - B, axis=0)])
-            vs.append(torch.from_numpy(limbs.astype(np.int64)).to(self.device))
+            vs.append(np.concatenate([limbs, np.repeat(limbs[-1:], pad_to - B, axis=0)]).astype(np.int64))
             if has_jr:
                 arr = np.frombuffer(
                     b"".join(row[a].joint_rand_part for row in prep_shares), dtype=np.uint8
                 ).reshape(B, vdaf.xof.SEED_SIZE)
-                arr = np.concatenate([arr, np.repeat(arr[-1:], pad_to - B, axis=0)])
-                parts.append(torch.from_numpy(arr).to(self.device))
+                parts.append(np.concatenate([arr, np.repeat(arr[-1:], pad_to - B, axis=0)]))
         t0 = time.monotonic()
-        out = self.bp.prep_shares_to_prep(vs, parts if has_jr else None)
-        decide = out["decide"][:B].cpu().numpy()
-        seeds = out["prep_msg_seed"][:B].cpu().numpy() if has_jr else None
-        self._sync()
+        decide, seeds = self._combine(vs, parts if has_jr else None, B)
         _observe_prepare(self.name, "combine", B, time.monotonic() - t0)
         results: List[Union[Optional[bytes], VdafError]] = []
         for b in range(B):
@@ -585,23 +601,21 @@ class CudaBackend:
                 results.append(None)
         return results
 
+    def _combine(self, vs: List[np.ndarray], parts: Optional[List[np.ndarray]], rows: int):
+        """The device half of a combine: every aggregator's padded verifier
+        rows (pad, VER, n) int64 and joint-rand parts (pad, SEED) uint8 ->
+        (decide, prep-message seeds or None) of the first ``rows`` rows."""
+        out = _combine_on(self.bp, self.device, vs, parts, rows)
+        self._sync()
+        return out
+
     # -- aggregation -------------------------------------------------------
     def accumulate_rows(self, buffer, matrix: torch.Tensor, mask: np.ndarray):
         """Add the ``mask``-selected rows of an out-share matrix (pad, OUT, n)
         to ``buffer`` ((OUT, n) int64 words on the card; None starts one).
         Device work only, no readback; a matrix the store evicted to the
         host goes back to the card for the sum."""
-        f = self.bp.f
-        m = torch.from_numpy(np.asarray(mask, dtype=bool)).to(self.device)
-        delta = self.bp.aggregate(matrix.to(self.device), m)
-        pad = self.vdaf.flp.OUTPUT_LEN - delta.shape[0]
-        if pad > 0:
-            # a canonical flush served at its task's own shape is narrower
-            # than the twin's buffers: zero columns fill the twin's tail
-            delta = torch.nn.functional.pad(delta, (0, 0, 0, pad))
-        if buffer is None:
-            return delta
-        return f.add(buffer, delta)
+        return _accumulate_on(self.bp, self.device, self.vdaf.flp.OUTPUT_LEN, buffer, matrix, mask)
 
     def read_accum_buffer(self, buffer) -> List[int]:
         """The drain's readback: ONE (OUT,) field vector."""
@@ -619,6 +633,46 @@ class CudaBackend:
             m = np.concatenate([m, np.zeros(pad_to - B, dtype=bool)])
         agg = self.bp.aggregate(u32_to_tensor(shares, self.device), torch.from_numpy(m).to(self.device))
         return self.bp.f.from_limbs(tensor_to_u32(agg))
+
+
+def _place_on(kw: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Host marshal arrays -> tensors on ``device`` (uint32 limbs as int32
+    storage)."""
+    placed = {}
+    for k, v in kw.items():
+        if v.dtype == np.uint32:
+            placed[k] = u32_to_tensor(v, device)
+        else:
+            placed[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return placed
+
+
+def _combine_on(bp: BatchedPrio3, device, vs, parts, rows: int):
+    """``bp``'s combine and decide of padded verifier rows and joint-rand
+    parts (host arrays) on ``device`` -> (decide, seeds or None) of the first
+    ``rows`` rows, read back."""
+    vs = [torch.from_numpy(v).to(device) for v in vs]
+    parts = None if parts is None else [torch.from_numpy(np.ascontiguousarray(p)).to(device) for p in parts]
+    out = bp.prep_shares_to_prep(vs, parts)
+    decide = out["decide"][:rows].cpu().numpy()
+    seeds = out["prep_msg_seed"][:rows].cpu().numpy() if parts is not None else None
+    return decide, seeds
+
+
+def _accumulate_on(bp: BatchedPrio3, device, out_len: int, buffer, matrix: torch.Tensor, mask: np.ndarray):
+    """``buffer`` ((OUT, n) int64 words on ``device``, None: zero) plus the
+    ``mask``-selected rows of ``matrix`` (rows, OUT', n), moved to ``device``
+    if it is not there (an evicted host copy).  A canonical flush served at
+    its task's own shape (OUT' < OUT) is narrower than the twin's buffers:
+    zero columns fill the twin's tail."""
+    m = torch.from_numpy(np.asarray(mask, dtype=bool)).to(device)
+    delta = bp.aggregate(matrix.to(device), m)
+    pad = out_len - delta.shape[0]
+    if pad > 0:
+        delta = torch.nn.functional.pad(delta, (0, 0, 0, pad))
+    if buffer is None:
+        return delta
+    return bp.f.add(buffer, delta)
 
 
 def leader_limbs(vdaf: Prio3, reports: Sequence[Report], marshal_rows: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray]:
@@ -640,6 +694,292 @@ def leader_limbs(vdaf: Prio3, reports: Sequence[Report], marshal_rows: Dict[str,
     marshal_rows["values"] += B - n_kept
     both = np.frombuffer(encoded, dtype="<u4").reshape(B, width, field.ENCODED_SIZE // 4)
     return both[:, : flp.MEAS_LEN], both[:, flp.MEAS_LEN :]
+
+
+class ShardedRows:
+    """One row-sharded tensor of a ``MeshBackend``: its per-shard pieces,
+    each on its shard's device, in shard order.  A retained flush's
+    (pad, OUT, n) out-share matrix is one (each piece (pad / shards, OUT,
+    n)), and so is an accumulator buffer (one (OUT, n) partial row a
+    shard).  It has what the accumulator store asks of a tensor: ``shape``
+    (a matrix's: the rows of every piece together), ``numel``,
+    ``element_size`` and ``cpu`` (the eviction's host copy, piece by
+    piece)."""
+
+    def __init__(self, pieces: Sequence[torch.Tensor]):
+        self.pieces = list(pieces)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (sum(p.shape[0] for p in self.pieces),) + tuple(self.pieces[0].shape[1:])
+
+    def numel(self) -> int:
+        return sum(p.numel() for p in self.pieces)
+
+    def element_size(self) -> int:
+        return self.pieces[0].element_size()
+
+    def cpu(self) -> "ShardedRows":
+        return ShardedRows([p.cpu() for p in self.pieces])
+
+
+def local_mesh(device=None) -> List[torch.device]:
+    """The devices of a one-process mesh for a backend on ``device``: every
+    visible card for a card (None, ``"cuda"`` or any ``"cuda:i"``: one
+    process, every local card), else ``device`` alone.  VdafError when a
+    card is asked for and none is visible: no quiet fallback."""
+    device = torch.device(device or "cuda")
+    if device.type != "cuda":
+        return [device]
+    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+        raise VdafError("the mesh backend needs a CUDA card, and none is available")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _on_device(device):
+    """``torch.cuda.device(device)`` for a card, a no-op context for the
+    CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class MeshBackend(CudaBackend):
+    """Batched prepare over the cards of one process: each flush's rows are
+    split into equal contiguous shards, one a device in ``devices``, and
+    every shard runs on its card the prepare a one-card flush of its size
+    runs, with the same kernels (counterpart of the JAX ``MeshBackend``,
+    ``janus_tpu/vdaf/backend.py:698-916``, whose ``shard_map`` runs the
+    same per-shard program on every chip of a local mesh).
+
+    The flush is marshalled once on the host, padded to a power of two
+    rounded up to a multiple of the shard count, and each slice of rows is
+    placed on its card; the shards launch from one worker thread per
+    distinct device (owned by the backend), each inside
+    ``torch.cuda.device(d)`` on that card's current stream, so a host
+    synchronisation inside one shard's prepare does not hold up another
+    card.  The prepare route is chosen from the shard's rows, as JAX
+    evaluates ``planar_eligible`` per shard.  Results are read back in
+    shard order and equal one ``CudaBackend``'s on the same rows, byte for
+    byte.  A failing shard raises out of the launch after every shard has
+    ended; nothing retained is adopted, and no shard's rows move to
+    another card or to the oracle.
+
+    Out shares kept resident stay per shard (``ShardedRows``): each card
+    sums its mask-selected rows into its own (OUT, n) partial row
+    (``accumulate_rows``, no cross-card traffic), and the partial rows
+    cross cards once, at drain (``read_accum_buffer``: copied to the first
+    device and summed there with the modular field sum).
+
+    ``devices`` may repeat a device: repeats are logical shards of one card
+    (or of the CPU, for tests), which share its SMs and measure overhead,
+    not scaling.  None is every visible card (``local_mesh``).  The
+    gang-scheduled multi-process mesh (the JAX package's
+    ``JANUS_TPU_MESH_SPAN=global`` over ``jax.distributed``) is not here.
+    """
+
+    name = "mesh"
+
+    def __init__(self, vdaf: Prio3, devices=None, canonical: bool = False, field_backend: Optional[str] = None):
+        devs = local_mesh() if devices is None else [torch.device(d) for d in devices]
+        if not devs:
+            raise VdafError("a mesh needs at least one device")
+        if any(d.type == "cuda" for d in devs) and not torch.cuda.is_available():
+            raise VdafError("the mesh backend needs a CUDA card, and none is available")
+        super().__init__(vdaf, device=devs[0], canonical=canonical, field_backend=field_backend)
+        #: the shards' devices, in shard order (a device may repeat)
+        self.devices = devs
+        #: the mesh's identity: the breaker domain every shape on this
+        #: device set shares (executor/service.py ``breaker_domain``)
+        self.mesh_devices = tuple(str(d) for d in devs)
+        #: accumulator buffers keep one (OUT, n) partial row a shard
+        self.accum_buffer_rows = len(devs)
+        self._distinct = list(dict.fromkeys(devs))
+        #: (task shape key or None for the own VDAF, device) -> its batched
+        #: prepare: one per distinct card, so its constants are built once
+        #: a card
+        self._mesh_bps: Dict[tuple, BatchedPrio3] = {(None, str(devs[0])): self.bp}
+        for d in self._distinct[1:]:
+            self._mesh_bps[(None, str(d))] = BatchedPrio3(vdaf, device=d, field_backend=self.field_backend)
+        #: one worker thread a distinct device, started on first use
+        self._pools: Dict[str, ThreadPoolExecutor] = {}
+        self._pool_lock = threading.Lock()
+
+    # -- shards ------------------------------------------------------------
+    def _bp_for(self, vdaf=None, device=None) -> BatchedPrio3:
+        """The batched prepare of ``vdaf`` (None or own: this backend's) on
+        ``device`` (None: the first shard's)."""
+        device = torch.device(device) if device is not None else self.devices[0]
+        own = vdaf is None or vdaf is self.vdaf
+        key = (None if own else vdaf_shape_key(vdaf), str(device))
+        bp = self._mesh_bps.get(key)
+        if bp is None:
+            bp = self._mesh_bps[key] = BatchedPrio3(
+                self.vdaf if own else vdaf, device=device, field_backend=self.field_backend
+            )
+        return bp
+
+    def _pool(self, device: torch.device):
+        """The worker thread that issues every shard on ``device``."""
+        with self._pool_lock:
+            pool = self._pools.get(str(device))
+            if pool is None:
+                pool = self._pools[str(device)] = ThreadPoolExecutor(1, thread_name_prefix=f"janus-mesh-{device}")
+            return pool
+
+    def _each_shard(self, fn) -> list:
+        """``fn(i)`` for every shard i on its device's worker thread, inside
+        ``torch.cuda.device`` of that device; waits for every shard, then
+        raises the first failure in shard order, else returns the results
+        in shard order."""
+
+        def run(i):
+            with _on_device(self.devices[i]):
+                return fn(i)
+
+        futures = [self._pool(d).submit(run, i) for i, d in enumerate(self.devices)]
+        wait(futures)
+        return [f.result() for f in futures]
+
+    def _shard_rows(self, total: int) -> int:
+        return total // len(self.devices)
+
+    def _real_rows(self, real: int, per: int, i: int) -> int:
+        """Of ``real`` rows padded and split ``per`` a shard, shard i's."""
+        return min(max(real - i * per, 0), per)
+
+    def _pad_to(self, B: int) -> int:
+        """The power-of-two bucket (at least one row a shard) rounded up to
+        a multiple of the shard count, so that every shard gets the same
+        rows (JAX ``MeshBackend._pad_to``)."""
+        return self._align_pad(max(next_power_of_2(B), len(self.devices)))
+
+    def _align_pad(self, pad_to: int) -> int:
+        n = len(self.devices)
+        return -(-pad_to // n) * n
+
+    def _sync(self) -> None:
+        for d in self._distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def resident_byte_budget(self) -> Optional[int]:
+        """The mesh's budget: a quarter of each distinct card's memory,
+        summed; None off the card."""
+        cards = [d for d in self._distinct if d.type == "cuda"]
+        if not cards:
+            return None
+        return sum(torch.cuda.get_device_properties(d).total_memory // 4 for d in cards)
+
+    # -- prepare -------------------------------------------------------------
+    def stage_prep_init_multi(self, agg_id: int, requests, pad_to: Optional[int] = None) -> Optional[StagedPrepInit]:
+        """Marshal once on the host, then place each shard's rows on its
+        device (``StagedPrepInit.placed``: one dict a shard).  A requested
+        ``pad_to`` (the warmup's) is rounded up to a multiple of the
+        shard count."""
+        return super().stage_prep_init_multi(agg_id, requests, pad_to=self._align_pad(pad_to) if pad_to else None)
+
+    def _place(self, kw: Dict[str, np.ndarray]) -> List[Dict[str, torch.Tensor]]:
+        rows = self._shard_rows(len(kw["nonces_u8"]))
+        return [
+            _place_on({k: v[i * rows : (i + 1) * rows] for k, v in kw.items()}, d) for i, d in enumerate(self.devices)
+        ]
+
+    def _prep_fn(self, agg_id: int, pad_to: int, exact=None, device=None):
+        """As ``CudaBackend._prep_fn``, with the route chosen from the
+        shard's rows (``pad_to`` / shards) and the prepare of ``device``."""
+        bp = self._bp_for(exact, device)
+        rows = self._shard_rows(pad_to)
+        return getattr(bp, bp.prep_route(agg_id, rows, masked=self.canonical and exact is None))
+
+    def _prepare(self, staged: StagedPrepInit, retain: bool):
+        rows = self._shard_rows(staged.pad_to)
+
+        def shard(i):
+            device = self.devices[i]
+            out = self._launch_prepare(staged.agg_id, staged.placed[i], staged.pad_to, staged.exact, device)
+            outputs = self._read_prepare(out, self._real_rows(staged.rows, rows, i), retain)
+            piece = out["out_share"] if retain else None
+            del out
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return outputs, piece
+
+        results = self._each_shard(shard)
+        outputs = {k: np.concatenate([r[0][k] for r in results]) for k in results[0][0]}
+        return outputs, (ShardedRows([r[1] for r in results]) if retain else None)
+
+    def _combine(self, vs: List[np.ndarray], parts: Optional[List[np.ndarray]], rows: int):
+        """The combine split as the prepare is: each shard combines and
+        decides its rows on its card; read back in shard order."""
+        per = self._shard_rows(vs[0].shape[0])
+
+        def shard(i):
+            cut = slice(i * per, (i + 1) * per)
+            out = _combine_on(
+                self._bp_for(None, self.devices[i]),
+                self.devices[i],
+                [v[cut] for v in vs],
+                None if parts is None else [p[cut] for p in parts],
+                self._real_rows(rows, per, i),
+            )
+            if self.devices[i].type == "cuda":
+                torch.cuda.synchronize(self.devices[i])
+            return out
+
+        results = self._each_shard(shard)
+        decide = np.concatenate([r[0] for r in results])
+        seeds = None if parts is None else np.concatenate([r[1] for r in results])
+        return decide, seeds
+
+    # -- aggregation -----------------------------------------------------------
+    def accumulate_rows(self, buffer, matrix: ShardedRows, mask: np.ndarray) -> ShardedRows:
+        """Each shard adds the ``mask``-selected rows of its piece of the
+        out-share matrix (evicted pieces go back to their card) to its own
+        (OUT, n) partial row, on its card: no cross-card traffic.  The mask
+        is split as the rows are."""
+        mask = np.asarray(mask, dtype=bool)
+        pieces, start = [], 0
+        for i, (device, piece) in enumerate(zip(self.devices, matrix.pieces)):
+            rows = piece.shape[0]
+            with _on_device(device):
+                pieces.append(
+                    _accumulate_on(
+                        self._bp_for(None, device),
+                        device,
+                        self.vdaf.flp.OUTPUT_LEN,
+                        None if buffer is None else buffer.pieces[i],
+                        piece,
+                        mask[start : start + rows],
+                    )
+                )
+            start += rows
+        return ShardedRows(pieces)
+
+    def read_accum_buffer(self, buffer: ShardedRows) -> List[int]:
+        """The one cross-card step: each shard's partial row is copied to
+        the first device and the rows are summed there with the modular
+        field sum (an integer sum of the limbs would lose the carries),
+        then ONE (OUT,) vector is read back."""
+        first, f = self.devices[0], self.bp.f
+        total = None
+        with _on_device(first):
+            for piece in buffer.pieces:
+                row = piece.to(first)
+                total = row if total is None else f.add(total, row)
+            return f.from_limbs(tensor_to_u32(total))
+
+    def aggregate_batch(self, out_shares_limbs, mask) -> List[int]:
+        """Masked out-share sum over the mesh: each shard sums its rows on
+        its card, then the partial rows are summed as at drain."""
+        shares = np.asarray(out_shares_limbs, dtype=np.uint32)
+        m = np.asarray(mask, dtype=bool)
+        B = shares.shape[0]
+        pad_to = self._pad_to(B)
+        if pad_to != B:  # zero rows masked off: no effect on the sum
+            shares = np.concatenate([shares, np.zeros((pad_to - B,) + shares.shape[1:], np.uint32)])
+            m = np.concatenate([m, np.zeros(pad_to - B, dtype=bool)])
+        per = self._shard_rows(pad_to)
+        pieces = ShardedRows([u32_to_tensor(shares[i * per : (i + 1) * per], d) for i, d in enumerate(self.devices)])
+        return self.read_accum_buffer(self.accumulate_rows(None, pieces, m))
 
 
 class HybridXofBackend:
@@ -918,7 +1258,7 @@ class Poplar1Backend:
         return self.launch_poplar_init_multi(self.stage_poplar_init_multi(agg_id, requests), retain_store=retain_store)
 
 
-BACKENDS = {"oracle": OracleBackend, "cuda": CudaBackend}
+BACKENDS = {"oracle": OracleBackend, "cuda": CudaBackend, "mesh": MeshBackend}
 
 
 def vdaf_shape_key(vdaf) -> tuple:
@@ -1003,7 +1343,12 @@ def device_path_label(vdaf) -> str:
 
 
 def make_backend(
-    vdaf, backend: str = "cuda", device=None, canonical: bool = False, field_backend: Optional[str] = None
+    vdaf,
+    backend: str = "cuda",
+    device=None,
+    canonical: bool = False,
+    field_backend: Optional[str] = None,
+    devices=None,
 ):
     """Backend factory: ``"cuda"`` (the default, on ``device``, the card
     unless the caller names another: ``CudaBackend``, for a Prio3 whose
@@ -1017,16 +1362,27 @@ def make_backend(
     ``field_backend`` ("vpu" | "mxu", None: ``default_field_backend()``)
     is the Prio3 card backends' field layout; an unknown value raises
     VdafError there, and the oracle and Poplar1 have no field layer and
-    ignore it."""
+    ignore it.
+
+    ``"mesh"`` is ``MeshBackend`` over ``devices`` (None: ``local_mesh(device)``,
+    every visible card unless ``device`` names the CPU); with no card it
+    raises VdafError as ``"cuda"`` does.  A Poplar1 and a Prio3 with a host
+    XOF keep their one-card backends on the mesh's first device, as the
+    JAX ``_meshify`` passes them through."""
     if backend not in BACKENDS:
         raise VdafError(f"unknown backend {backend!r}")
     if backend == "oracle":
         return OracleBackend(vdaf)
+    if backend == "mesh":
+        devs = local_mesh(device) if devices is None else [torch.device(d) for d in devices]
+        device = devs[0]
     device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise VdafError("the cuda backend needs a CUDA card, and none is available")
+        raise VdafError(f"the {backend} backend needs a CUDA card, and none is available")
     if type(vdaf).__name__ == "Poplar1":
         return Poplar1Backend(vdaf, device=device)
     if _host_xof(vdaf):
         return HybridXofBackend(vdaf, device=device, field_backend=field_backend)
+    if backend == "mesh":
+        return MeshBackend(vdaf, devices=devs, canonical=canonical, field_backend=field_backend)
     return CudaBackend(vdaf, device=device, canonical=canonical, field_backend=field_backend)

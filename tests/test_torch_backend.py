@@ -334,11 +334,12 @@ def test_launch_fault_opens_the_breaker_and_the_oracle_serves_the_same_bytes():
 
 @pytest.mark.parametrize("name", ["tpu", "mesh", "oracle ", "cuda", None])
 def test_make_backend_refuses_what_it_cannot_serve(name):
-    """Unknown names raise VdafError; so do "cuda" and the default, which
-    is "cuda", with no card: no quiet fallback to the oracle or the CPU."""
+    """Unknown names raise VdafError; so do "cuda", "mesh" and the default,
+    which is "cuda", with no card: no quiet fallback to the oracle or the
+    CPU."""
     from janus_tpu_torch.vdaf.backend import make_backend
 
-    if name in ("cuda", None):
+    if name in ("cuda", "mesh", None):
         import torch
 
         if torch.cuda.is_available():

@@ -108,7 +108,7 @@ device_executor:
     [
         (AggregatorConfig, "field_backend: tpu", "unknown field_backend"),
         (AggregatorConfig, "common: {distributed_coordinator: '10.0.0.2:8476'}", "multi-device"),
-        (JobDriverBinaryConfig, "device_executor: {mesh: true}", "multi-device"),
+        (JobDriverBinaryConfig, "common: {distributed_coordinator: '10.0.0.2:8476'}", "multi-device"),
         (AggregatorConfig, "poplar_backend: jax", "card walk"),
         (JobDriverBinaryConfig, "poplar_backend: host", "card walk"),
         (JobDriverBinaryConfig, "warmup_wait_s: 2.0", "never falls to the oracle"),

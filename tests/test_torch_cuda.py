@@ -11,7 +11,7 @@ import torch
 
 from janus_tpu_torch.fields import Field128
 from janus_tpu_torch.ops import flp_kernels, keccak, keccak_kernels
-from janus_tpu_torch.ops.field import TField, storage
+from janus_tpu_torch.ops.field import TField, storage, words
 
 pytestmark = pytest.mark.cuda
 
@@ -726,3 +726,116 @@ def test_mxu_prepare_on_the_card_matches_the_cpu(card, which):
             assert launched > 0 if (fb, dev.type) == ("mxu", "cuda") else launched == 0
         for k, v in outs["mxu", "cuda"].items():
             assert torch.equal(v, outs["mxu", "cpu"][k]) and torch.equal(v, outs["vpu", "cuda"][k]), (agg_id, k)
+
+
+def _mesh_reports(vdaf, count, measure, seed):
+    rng = np.random.default_rng(seed)
+    reports = []
+    for _ in range(count):
+        nonce = rng.bytes(16)
+        public, shares = vdaf.shard(measure(rng), nonce, rng.bytes(vdaf.RAND_SIZE))
+        reports.append((nonce, public, shares))
+    return reports
+
+
+def _mesh_matches_one_card(devices):
+    """Histogram(10, 3) at 37 reports (padded to a multiple of the shard
+    count; planar on every shard) on a mesh over ``devices``: both sides,
+    the combine and the masked aggregate equal one ``CudaBackend``'s, and a
+    resident flush drains the same aggregate with no out-share readback."""
+    from janus_tpu_torch.executor import AccumulatorConfig, DeviceAccumulatorStore
+    from janus_tpu_torch.vdaf.backend import CudaBackend, MeshBackend
+    from janus_tpu_torch.vdaf.instances import prio3_histogram
+
+    vdaf = prio3_histogram(10, 3)
+    reports = _mesh_reports(vdaf, 37, lambda rng: int(rng.integers(0, 10)), 21)
+    mesh, one = MeshBackend(vdaf, devices=devices), CudaBackend(vdaf)
+    assert mesh._prep_fn(0, mesh._pad_to(37)).__name__ == "prep_init_planar"
+    vk = bytes(range(16))
+    sides = []
+    for agg_id in (0, 1):
+        rows = [(n, p, s[agg_id]) for n, p, s in reports]
+        got, want = mesh.prep_init_batch(vk, agg_id, rows), one.prep_init_batch(vk, agg_id, rows)
+        assert [p.encode(vdaf) for _, p in got] == [p.encode(vdaf) for _, p in want]
+        assert [(s.out_share, s.corrected_joint_rand_seed) for s, _ in got] == [
+            (s.out_share, s.corrected_joint_rand_seed) for s, _ in want]
+        sides.append(got)
+        store = DeviceAccumulatorStore(AccumulatorConfig(enabled=True))
+        staged = mesh.stage_prep_init_multi(agg_id, [(vk, rows)])
+        assert [p["nonces_u8"].device for p in staged.placed] == [torch.device(d) for d in devices]
+        read_back = mesh.outshare_readback_rows
+        (out,) = mesh.launch_prep_init_multi(staged, [(vk, rows)], retain_store=store)
+        store.commit_rows((agg_id,), mesh, [s.out_share for s, _ in out], job_token=1, report_ids=[r[0] for r in rows])
+        assert mesh.outshare_readback_rows == read_back
+        f = one.bp.f
+        limbs = f.to_limbs([x for s, _ in want for x in s.out_share]).reshape(37, -1, f.n)
+        assert store.drain((agg_id,), vdaf.flp.field)[0] == one.aggregate_batch(limbs, np.ones(37, dtype=bool))
+        assert mesh.aggregate_batch(limbs, np.arange(37) % 2 == 0) == one.aggregate_batch(limbs, np.arange(37) % 2 == 0)
+    pairs = [[sides[0][b][1], sides[1][b][1]] for b in range(37)]
+    assert mesh.prep_shares_to_prep_batch(pairs) == one.prep_shares_to_prep_batch(pairs)
+
+
+def test_mesh_of_two_logical_shards_on_one_card(card):
+    _mesh_matches_one_card(["cuda:0", "cuda:0"])
+
+
+def test_mesh_over_every_card(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards for a real mesh")
+    _mesh_matches_one_card([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+
+
+def test_mesh_kernel_wrappers_launch_on_their_tensors_card(card):
+    """Every kernel wrapper, given tensors on cuda:1 while cuda:0 is the
+    current device, launches on cuda:1 (the C entry points launch on the
+    runtime's current device) and equals its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    from janus_tpu_torch import fields
+    from janus_tpu_torch.ops import field_kernels
+
+    other = torch.device("cuda:1")
+    rng = np.random.default_rng(5)
+    f = TField(Field128)
+
+    def canonical(*shape):
+        w = _words(rng, shape)
+        w[..., -1, :] >>= 1
+        return storage(w).contiguous()
+
+    msg = _message_planes(rng, 42, 33)
+    msgs2 = _message_planes(rng, 84, 33)
+    last = torch.from_numpy(rng.integers(0, 2, 33).astype(np.int32))
+    meas_len, chunk, B = 14, 4, 33
+    calls = -(-meas_len // chunk)
+    wire = (canonical(meas_len, 4, B).reshape(-1, B), canonical(2 * chunk + 1, 4, B).reshape(-1, B),
+            canonical(chunk, 4, B), canonical(calls, 4, B), canonical(calls, 4, B), canonical(1, 4, B)[0],
+            canonical(1, 4, B)[0])
+    sumvec = (wire[0], wire[1][: 2 * chunk * 4], wire[3], wire[4], wire[5], wire[6])
+    he, ho = canonical(chunk, 4, B), canonical(chunk, 4, B)
+    pv = words(canonical(B, 4, 2 * chunk + 2)).transpose(1, 2).contiguous()
+    f64 = TField(fields.Field64)
+    a, b = _field_operand(f64, (2, 7, 5), 1), _field_operand(f64, (2, 7, 3), 2)
+    lhs, rhs = f64.digit_operands(a, b)
+    P = torch.matmul(lhs, rhs).reshape(2, 5, 8, 3, 8).contiguous()
+    cases = [
+        (keccak_kernels.squeeze, (msg, 50), keccak_kernels.squeeze_plain(msg, 50)),
+        (keccak_kernels.absorb, (msgs2, 8), keccak_kernels.absorb_plain(msgs2, 8)),
+        (keccak_kernels.absorb_select, (msgs2, last, 8), keccak_kernels.absorb_select_plain(msgs2, last, 8)),
+        (lambda *x: flp_kernels.wire_evals(f, meas_len, chunk, *x), wire,
+         flp_kernels.wire_evals_plain(f, meas_len, chunk, *wire)),
+        (lambda *x: flp_kernels.sumvec_wires(f, meas_len, chunk, *x), sumvec,
+         flp_kernels.sumvec_wires_plain(f, meas_len, chunk, *sumvec)),
+        (lambda *x: flp_kernels.combine_decide(f, chunk, *x), (he, ho, pv),
+         flp_kernels.combine_decide_plain(f, chunk, he, ho, pv)),
+        (lambda x: field_kernels.lazy_reduce_digits(f64, x), (P,), field_kernels.lazy_reduce_digits_plain(f64, P)),
+    ]
+    with torch.cuda.device(0):
+        for fn, args, want in cases:
+            got = fn(*(x.to(other) if isinstance(x, torch.Tensor) else x for x in args))
+            torch.cuda.synchronize(other)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert all(g.device == other for g in got)
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        assert torch.cuda.current_device() == 0

@@ -39,6 +39,8 @@ def test_importing_the_port_loads_no_jax_or_janus_tpu():
         assert f"janus_tpu_torch.{m}" in mods, m
     # canonical shape buckets
     assert "janus_tpu_torch.vdaf.canonical" in mods
+    # the multi-card dry run
+    assert "janus_tpu_torch.dryrun" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
