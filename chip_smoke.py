@@ -175,9 +175,18 @@ them:
     to its twin Histogram(1264, 316), and a flush of this one task runs the
     task's own planar prepare, so K2's select variant stays at 0);
     /statusz shows the Histogram buckets, a canonicalized plan and the
-    card; SIGTERM stops all five with exit 0.
+    card.  Then, with the fleet still running, the ``canary`` binary
+    provisions a Prio3Sum(8) and a Prio3Histogram(4, 2) task through both
+    aggregators' task APIs and probes them every second: each family
+    reaches 2 ``ok`` verdicts within 120 s with no ``error``, ``timeout``
+    or ``corrupt`` verdict and no backoff; its /statusz shows the fleet
+    ``healthy`` with a last-good time a family; the driver's and the
+    helper's cuda-prepared reports rose by at least the ok probes' reports,
+    K1 launched again in both, with no fallback or journal replay; SIGTERM
+    stops all six with exit 0.
     Startup-to-ready seconds, upload/s, seconds from the first upload to
-    the collected aggregate and the flush counts are printed;
+    the collected aggregate, the flush counts and the canary's seconds to
+    its ok probes and stage latencies are printed;
 19. **Canonical buckets**: Histogram(1024, 316) and Histogram(1000, 316)
     (both 4 gadget calls, below their bucket's ceiling) share the twin
     Histogram(1264, 316): phase 1's 64 reports and 64 of the second task
@@ -231,7 +240,19 @@ them:
     every backend a ``MeshBackend``.  ``dryrun_multichip`` over the visible
     cards and over 4 logical shards of the first card.  With one card the
     logical shards share its SMs: their times measure the mesh's overhead,
-    not scaling.
+    not scaling;
+22. **The interop binaries**: seven processes of ``python -m
+    janus_tpu_torch.binaries janus_interop_<role> --port P`` (the leader's
+    and the helper's aggregator with no backend in the environment, so on
+    the card; 4 clients; a collector) driven only through
+    ``/internal/test/*`` over localhost HTTP: Prio3Count with 1,024 uploads
+    and Prio3Histogram(1024, 316) with 128, measurements from ``--seed``,
+    sent concurrently round-robin over the clients, each collected in
+    time-interval mode.  Each ``report_count`` and ``result`` is exact,
+    nvidia-smi counts two more compute apps while the aggregators run, each
+    aggregator's SIGTERM line shows K1-K3 launched and 0 backend fallbacks,
+    and all seven exit 0 on SIGTERM.  Each process's startup-to-ready, each
+    task's uploads/s and first upload to collected aggregate are printed.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -354,6 +375,21 @@ POPLAR_FLUSH_WINDOW_S = 1.0
 FLEET_REPORTS, FLEET_TAMPERED, FLEET_SHARD_WORKERS = 1024, 8, 6
 FLEET_JOB_SIZE, FLEET_CREATE_S, FLEET_DRAIN_S, FLEET_MAINTENANCE_S = 256, 0.5, 1.0, 0.25
 FLEET_WARMUP_ROWS, FLEET_FLUSH_WINDOW_MS, FLEET_TIMEOUT_S = 1024, 20, 300.0
+#: Phase 18's canary: the families it probes (the JAX package's defaults),
+#: its probe cadence, collection poll and collection budget, seconds; the ok
+#: probes each family must reach, and the seconds it has to reach them.
+CANARY_FAMILIES = ("prio3_sum", "prio3_histogram")
+CANARY_PROBE_S, CANARY_POLL_S, CANARY_COLLECT_S = 1.0, 0.5, 60.0
+CANARY_OK, CANARY_TIMEOUT_S = 2, 120.0
+#: Phase 22, the interop binaries: client processes (a Histogram(1024, 316)
+#: upload shards and seals in the client's handler, about 0.3 s of a core),
+#: each task as (name, interop VDAF object with its numbers as strings,
+#: uploads), the uploads in flight at once, and the seconds the processes
+#: have to answer ``ready`` and a task to collect.
+INTEROP_CLIENTS = 4
+INTEROP_TASKS = (("count", {"type": "Prio3Count"}, 1024),
+                 ("histogram", {"type": "Prio3Histogram", "length": str(LENGTH), "chunk_length": str(CHUNK)}, 128))
+INTEROP_IN_FLIGHT, INTEROP_READY_S, INTEROP_COLLECT_S = 32, 120.0, 120.0
 #: Phase 19, canonical buckets: two Histogram tasks below their bucket's
 #: ceiling (calls 4, P = 8) that share the twin Histogram(1264, 316), each
 #: with the phase's DISTINCT reports (the second task's sharded by
@@ -471,6 +507,11 @@ PROFILE_MARGIN_S = 0.05
 PROFILE_ATTEMPTS = 3
 #: The profiler range around the measured calls.
 MEASURED = "chip_smoke.measured"
+#: The side whose prepare the direct paths' profiled call traces (Histogram,
+#: SumVec100k, FixedPoint): the helper's, the bench's headline side.  The
+#: leader's does the same work, and the profiler reads a trace of one such
+#: prepare (32,000-47,000 device activities) for many seconds.
+PROFILED_SIDES = (("helper", 1),)
 #: Traces taken, primer events missing from them, and traces that lost
 #: events of the port's kernels (logged at the end of the run).
 TRACE_TALLY = {"traces": 0, "primer_events_missing": 0, "lost": 0}
@@ -1220,7 +1261,7 @@ def histogram_phases(vdaf, reports, meas, verify_key, rng, phases):
     t0 = time.perf_counter()
     staged = {a: backend.stage_prep_init_multi(a, [(verify_key, rows)]) for a, rows in ((0, leader_rows), (1, helper_rows))}
     dev_ms = {a: cuda_time_ms(lambda a=a: device_prep(bp, staged[a].placed, a), 2) for a in (0, 1)}
-    profile = {side: profile_device(lambda a=a: device_prep(bp, staged[a].placed, a)) for side, a in (("leader", 0), ("helper", 1))}
+    profile = {side: profile_device(lambda a=a: device_prep(bp, staged[a].placed, a)) for side, a in PROFILED_SIDES}
     phases["histogram_device_timing"] = time.perf_counter() - t0
 
     # Phase 3: the planar combine on the same staged batch (helper's view).
@@ -1549,7 +1590,7 @@ def sumvec_phases(verify_key, rng, done, phases):
             raise AssertionError("sumvec device path: aggregate differs from 8x the B = 128 aggregate")
     del ok, decide, dev_aggs
     dev_ms = {a: cuda_time_ms(lambda a=a: device_prep(bp, tiled[a], a), 2) for a in (0, 1)}
-    profile = {side: profile_device(lambda a=a: device_prep(bp, tiled[a], a)) for side, a in (("leader", 0), ("helper", 1))}
+    profile = {side: profile_device(lambda a=a: device_prep(bp, tiled[a], a)) for side, a in PROFILED_SIDES}
     log(f"sumvec device path at B = {SV_BATCH * SV_TILE}: decide and aggregate equal {SV_TILE}x the B = {SV_BATCH} results; "
         f"peak memory {peak} bytes")
     phases["sumvec_device"] = time.perf_counter() - t0
@@ -1864,8 +1905,7 @@ def fixedpoint_phase(verify_key, rng, fp_done, phases):
     # a call takes over a second here: one a round
     dev_ms = staged_ms(bp, staged, "prep_init", 1)
     peak = torch.cuda.max_memory_allocated()
-    profile = {side: profile_device(lambda a=a: device_prep(bp, staged[a], a, "prep_init"))
-               for side, a in (("leader", 0), ("helper", 1))}
+    profile = {side: profile_device(lambda a=a: device_prep(bp, staged[a], a, "prep_init")) for side, a in PROFILED_SIDES}
     log(f"fixedpoint: device ms at B = {FP_BATCH} {json.dumps(dev_ms)}; peak memory {peak} bytes")
     phases["fixedpoint_device"] = time.perf_counter() - t0
 
@@ -2855,6 +2895,93 @@ def metric_sum(samples, name: str, **labels) -> float:
     return sum(v for n, lab, v in samples if n == name and all(lab.get(k) == x for k, x in labels.items()))
 
 
+def fleet_canary(work, root, env, url, task_api, health, procs, logs, statusz, metrics):
+    """Phase 18's canary: ``python -m janus_tpu_torch.binaries canary``
+    against the running fleet, its tasks provisioned through both
+    aggregators' task APIs, probing CANARY_FAMILIES every CANARY_PROBE_S.
+    Raises unless each family reaches CANARY_OK ``ok`` verdicts within
+    CANARY_TIMEOUT_S with no ``error``, ``timeout`` or ``corrupt`` verdict
+    and no backoff; the canary's /statusz shows the fleet verdict
+    ``healthy`` and a last-good time a family; the driver's and the
+    helper's cuda-prepared reports rose by at least the reports of the ok
+    probes, K1 launched again in both, and no backend fallback or journal
+    replay was counted.  Leaves the canary running (the caller stops it);
+    returns the record."""
+    import os
+
+    from janus_tpu_torch.core.canary import FAMILIES
+
+    port = free_port()
+    health["canary"] = f"http://127.0.0.1:{port}/"
+    config = {
+        "common": {"health_check_listen_address": f"127.0.0.1:{port}"},
+        "canary": {
+            "leader_endpoint": url["leader"], "helper_endpoint": url["helper"],
+            "leader_task_api": f"http://127.0.0.1:{task_api['leader']}",
+            "helper_task_api": f"http://127.0.0.1:{task_api['helper']}", "task_api_auth_token": "fleet-api",
+            "families": list(CANARY_FAMILIES), "probe_interval_s": CANARY_PROBE_S,
+            "poll_interval_s": CANARY_POLL_S, "collect_timeout_s": CANARY_COLLECT_S,
+        },
+    }
+    path = os.path.join(work, "canary.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    sides = ("driver", "helper")
+    prepared = {n: metric_sum(metrics(n), "janus_vdaf_prepare_reports_total", backend="cuda") for n in sides}
+    launched = {n: statusz(n)["device"]["kernel_launches"] for n in sides}
+    t0 = time.perf_counter()
+    with open(logs["canary"], "w") as out:
+        procs["canary"] = subprocess.Popen([sys.executable, "-m", "janus_tpu_torch.binaries", "canary", "--config-file",
+                                            path], cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    while True:
+        if procs["canary"].poll() is not None:
+            raise AssertionError(f"canary: the binary exited {procs['canary'].returncode}")
+        try:
+            samples = metrics("canary")
+        except OSError:
+            samples = None
+        if samples is not None:
+            verdicts = {(lab["task"], lab["outcome"]): v for n, lab, v in samples if n == "janus_canary_verdict_total"}
+            bad = {f"{t}/{o}": v for (t, o), v in verdicts.items() if o != "ok" and v}
+            backoffs = metric_sum(samples, "janus_canary_backoffs_total")
+            if bad or backoffs:
+                raise AssertionError(f"canary: verdicts {bad}, {backoffs} backoffs")
+            ok = {fam: verdicts.get((fam, "ok"), 0) for fam in CANARY_FAMILIES}
+            if all(v >= CANARY_OK for v in ok.values()):
+                break
+        if time.perf_counter() - t0 > CANARY_TIMEOUT_S:
+            raise AssertionError(f"canary: not {CANARY_OK} ok probes a family after {CANARY_TIMEOUT_S} s")
+        time.sleep(0.25)
+    rec = {"seconds_to_ok": time.perf_counter() - t0, "ok": ok}
+    t1 = time.perf_counter()
+    doc = statusz("canary")["canary"]
+    rec["statusz_s"] = time.perf_counter() - t1
+    rec["verdict"] = doc["verdict"]
+    rec["last_good_unix"] = {fam: doc["families"][fam]["last_good_unix"] for fam in CANARY_FAMILIES}
+    rec["stage_latency_s"] = doc["stage_latency_s"]
+    if doc["verdict"] != "healthy" or None in rec["last_good_unix"].values():
+        raise AssertionError(f"canary: /statusz shows {doc}")
+    want = sum(len(FAMILIES[fam].measurements) * ok[fam] for fam in CANARY_FAMILIES)
+    m = {n: metrics(n) for n in (*sides, "collection")}
+    rec["cuda_prepared"], rec["launches"] = {}, {}
+    for n in sides:
+        rose = metric_sum(m[n], "janus_vdaf_prepare_reports_total", backend="cuda") - prepared[n]
+        rec["cuda_prepared"][n] = rose
+        if rose < want:
+            raise AssertionError(f"canary: the {n} prepared {rose} reports on cuda, fewer than the ok probes' {want}")
+        if metric_sum(m[n], "janus_vdaf_backend_fallback_total"):
+            raise AssertionError(f"canary: the {n} counted backend fallbacks")
+        launches = {STATUSZ_KERNELS[k]: v - launched[n][k] for k, v in statusz(n)["device"]["kernel_launches"].items()}
+        PATH_LAUNCHES[f"canary {n}"] = rec["launches"][n] = launches
+        log(f"canary {n} launches: {json.dumps(launches)}")
+        if launches["keccak_squeeze"] <= 0 and DEVICE == "cuda":  # a CPU rehearsal takes the plain versions
+            raise AssertionError(f"canary: the {n} launched no K1 while the canary probed")
+    replays = sum(metric_sum(m[n], "janus_accumulator_journal_consumed_total", path="replay") for n in m)
+    if replays:
+        raise AssertionError(f"canary: {replays} journal rows replayed")
+    return rec
+
+
 def binaries_phase(seed, verify_key, hist_shards, phases):
     """Phase 18: the service binaries on the card.  Five processes of
     ``python -m janus_tpu_torch.binaries``: the leader's aggregator, the
@@ -2914,6 +3041,7 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
     env = dict(os.environ, DATASTORE_KEYS=b64(ds_key))
     ports = {name: free_port() for name in FLEET}
     dap = {side: free_port() for side in ("leader", "helper")}
+    task_api = {side: free_port() for side in dap}
     url = {side: f"http://127.0.0.1:{dap[side]}/" for side in dap}
     health = {name: f"http://127.0.0.1:{port}/" for name, port in ports.items()}
     db = {side: os.path.join(work, f"{side}.sqlite3") for side in dap}
@@ -2923,10 +3051,12 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
     common = lambda name, side: (  # noqa: E731
         f"common:\n  database: {{path: {db[side]}}}\n  health_check_listen_address: 127.0.0.1:{ports[name]}\n"
         f"  status_sample_interval_s: 0.5\n")
+    api = lambda side: f"task_api_listen_address: 127.0.0.1:{task_api[side]}\ntask_api_auth_tokens: [fleet-api]\n"  # noqa: E731
     configs = {
         "leader": common("leader", "leader") + f"listen_address: 127.0.0.1:{dap['leader']}\n"
-                  f"max_upload_batch_write_delay_ms: 20\n{device}",
-        "helper": common("helper", "helper") + f"listen_address: 127.0.0.1:{dap['helper']}\n{device}{executor}",
+                  f"max_upload_batch_write_delay_ms: 20\n{api('leader')}{device}",
+        "helper": common("helper", "helper") + f"listen_address: 127.0.0.1:{dap['helper']}\n{api('helper')}"
+                  f"{device}{executor}",
         "creator": common("creator", "leader") + f"aggregation_job_creation_interval_s: {FLEET_CREATE_S}\n"
                    f"min_aggregation_job_size: 1\nmax_aggregation_job_size: {FLEET_JOB_SIZE}\n",
         "driver": common("driver", "leader") + "job_driver: {job_discovery_interval_s: 0.1, max_concurrent_job_workers: 16}\n"
@@ -2937,7 +3067,7 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
     for name, text in configs.items():
         with open(os.path.join(work, f"{name}.yaml"), "w") as f:
             f.write(text)
-    logs = {name: os.path.join(work, f"{name}.log") for name in FLEET}
+    logs = {name: os.path.join(work, f"{name}.log") for name in (*FLEET, "canary")}
     procs, secs, rec = {}, {}, {"reports": FLEET_REPORTS, "tampered": FLEET_TAMPERED}
 
     def binary(*args, timeout=120):
@@ -3152,10 +3282,19 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
             if launches["keccak_absorb_select"]:
                 raise AssertionError(f"binaries: the {name}'s flushes of one task took the twin's masked path: {launches}")
 
-        # -- SIGTERM stops all five with exit 0
-        for p in procs.values():
-            p.send_signal(signal.SIGTERM)
-        codes = {name: p.wait(timeout=60) for name, p in procs.items()}
+        # -- the canary probes the running fleet, its tasks provisioned
+        # through both task APIs
+        t0 = time.perf_counter()
+        rec["canary"] = fleet_canary(work, root, env, url, task_api, health, procs, logs, statusz, metrics)
+        secs["canary"] = time.perf_counter() - t0
+
+        # -- SIGTERM stops all six with exit 0, the canary first
+        codes = {}
+        for name in ["canary"] + [n for n in procs if n != "canary"]:
+            procs[name].send_signal(signal.SIGTERM)
+            if name == "canary":
+                codes[name] = procs[name].wait(timeout=CANARY_COLLECT_S + 30)
+        codes.update({name: p.wait(timeout=60) for name, p in procs.items() if name != "canary"})
         if any(codes.values()):
             raise AssertionError(f"binaries: SIGTERM exit codes {codes}")
     except BaseException:
@@ -3173,10 +3312,210 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
                 p.wait()
     rec["seconds"] = secs
     phases["binaries"] = time.perf_counter() - t_phase
+    log(f"binaries: canary {json.dumps(rec['canary'])}")
     log(f"binaries: {FLEET_REPORTS} reports ({FLEET_TAMPERED} tampered, rejected) through 5 processes in {jobs} jobs; "
         f"aggregate exact; upload {secs['upload']:.3f} s ({rec['uploads_per_s']:.1f}/s); first upload to collected "
         f"aggregate {secs['end_to_end']:.3f} s; startup to ready {json.dumps({k: round(v, 3) for k, v in ready.items()})} s; "
         f"statusz flushes {json.dumps(rec['statusz_flushes'])}; journal rows drained {drains:.0f}, replayed {replays:.0f}")
+    return rec
+
+
+def interop_phase(seed, phases):
+    """Phase 22: the interop binaries on the card, through nothing but the
+    ``/internal/test/*`` API over localhost HTTP.  Seven processes of
+    ``python -m janus_tpu_torch.binaries janus_interop_<role> --port P``:
+    the leader's and the helper's aggregator with no backend in the
+    environment (the card), INTEROP_CLIENTS clients and a collector.  After
+    ``ready`` on all seven, each task of INTEROP_TASKS is added to the
+    collector (for its HPKE config) and to both aggregators, in
+    time-interval mode with ``min_batch_size`` its uploads; its seeded
+    measurements go up concurrently, round-robin over the clients, then
+    ``collection_start`` and ``collection_poll`` until it succeeds within
+    INTEROP_COLLECT_S.  Raises unless each ``report_count`` and ``result``
+    is exact (Count: the sum; Histogram: every count, as strings), nvidia-smi
+    counts two more compute apps while the aggregators run, each
+    aggregator's SIGTERM line shows K1-K3 launched and no backend
+    fallback, and all seven exit 0 on SIGTERM.  On a failure it prints the
+    check, the traceback and each process's last 40 log lines.  Returns
+    the record: each process's startup-to-ready, each task's uploads/s and
+    seconds from its first upload to its collected aggregate, and the
+    phase's seconds."""
+    import asyncio
+    import base64
+    import os
+    import signal
+    import tempfile
+    import traceback
+
+    import aiohttp
+
+    t_phase = time.perf_counter()
+    b64 = lambda b: base64.urlsafe_b64encode(b).rstrip(b"=").decode()  # noqa: E731
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="janus-interop-")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JANUS_TPU_TORCH_VDAF_")}
+    env["TMPDIR"] = work  # the aggregators' SQLite files
+    if DEVICE != "cuda":
+        env["JANUS_TPU_TORCH_VDAF_DEVICE"] = DEVICE
+    roles = {"leader": "aggregator", "helper": "aggregator",
+             **{f"client{i}": "client" for i in range(INTEROP_CLIENTS)}, "collector": "collector"}
+    clients = [n for n, r in roles.items() if r == "client"]
+    ports = {name: free_port() for name in roles}
+    base = {name: f"http://127.0.0.1:{port}/internal/test/" for name, port in ports.items()}
+    logs = {name: os.path.join(work, f"{name}.log") for name in roles}
+    rng = np.random.default_rng([seed, 22])
+    procs, rec = {}, {"tasks": {}}
+    precision = 3600
+
+    async def drive():
+        async with aiohttp.ClientSession() as session:
+            async def call(name, path, body):
+                async with session.post(base[name] + path, json=body) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"interop: {name} {path} answered {r.status}: {await r.text()}")
+                    doc = await r.json()
+                if doc.get("status") not in ("success", "in progress"):
+                    raise AssertionError(f"interop: {name} {path}: {doc}")
+                return doc
+
+            # -- ready on all seven
+            ready, deadline = {}, time.perf_counter() + INTEROP_READY_S
+            while len(ready) < len(roles):
+                for name in roles:
+                    if name in ready:
+                        continue
+                    if procs[name].poll() is not None:
+                        raise AssertionError(f"interop: the {name} exited {procs[name].returncode} before ready")
+                    try:
+                        async with session.post(base[name] + "ready", json={}) as r:
+                            if r.status == 200:
+                                ready[name] = time.perf_counter() - t_boot[name]
+                    except (aiohttp.ClientError, OSError):
+                        pass
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"interop: not ready after {INTEROP_READY_S} s: ready {sorted(ready)}")
+                await asyncio.sleep(0.1)
+            rec["startup_to_ready_s"] = ready
+            dap = {side: base[side].split("/internal/")[0] + (await call(side, "endpoint_for_task", {}))["endpoint"]
+                   for side in ("leader", "helper")}
+
+            # -- the tasks: the collector first, for its HPKE config
+            tasks = []
+            for name, vdaf, uploads in INTEROP_TASKS:
+                task_id = b64(rng.integers(0, 256, 32, dtype=np.uint8).tobytes())
+                doc = await call("collector", "add_task", {"task_id": task_id, "leader": dap["leader"], "vdaf": vdaf,
+                                                           "collector_authentication_token": "interop-col",
+                                                           "query_type": 1})
+                common = {"task_id": task_id, "leader": dap["leader"], "helper": dap["helper"], "vdaf": vdaf,
+                          "leader_authentication_token": "interop-agg",
+                          "vdaf_verify_key": b64(rng.integers(0, 256, 16, dtype=np.uint8).tobytes()),
+                          "min_batch_size": uploads, "time_precision": precision, "query_type": 1,
+                          "collector_hpke_config": doc["collector_hpke_config"]}
+                await call("leader", "add_task", {**common, "role": "Leader",
+                                                  "collector_authentication_token": "interop-col"})
+                await call("helper", "add_task", {**common, "role": "Helper"})
+                top = 2 if vdaf["type"] == "Prio3Count" else int(vdaf["length"])
+                tasks.append((name, vdaf, task_id, rng.integers(0, top, uploads).tolist()))
+
+            async def run_task(name, vdaf, task_id, meas, uploaded):
+                flight = asyncio.Semaphore(INTEROP_IN_FLIGHT)
+
+                async def upload(i, m):
+                    async with flight:
+                        await call(clients[i % len(clients)], "upload",
+                                   {"task_id": task_id, "leader": dap["leader"], "helper": dap["helper"],
+                                    "vdaf": vdaf, "measurement": str(m), "time_precision": precision})
+
+                t_first = time.time()
+                t0 = time.perf_counter()
+                await asyncio.gather(*[upload(i, m) for i, m in enumerate(meas)])
+                upload_s = time.perf_counter() - t0
+                uploaded.set()
+                start = int(t_first) // precision * precision
+                doc = await call("collector", "collection_start", {
+                    "task_id": task_id, "agg_param": "",
+                    "query": {"type": 1, "batch_interval_start": start, "batch_interval_duration": 2 * precision}})
+                while True:
+                    result = await call("collector", "collection_poll", {"handle": doc["handle"]})
+                    if result["status"] == "success":
+                        break
+                    if time.perf_counter() - t0 > upload_s + INTEROP_COLLECT_S:
+                        raise AssertionError(f"interop: {name} not collected {INTEROP_COLLECT_S} s after its uploads")
+                    await asyncio.sleep(0.25)
+                e2e = time.perf_counter() - t0
+                want = (str(sum(meas)) if vdaf["type"] == "Prio3Count"
+                        else [str(c) for c in np.bincount(meas, minlength=int(vdaf["length"]))])
+                if result["report_count"] != len(meas) or result["result"] != want:
+                    raise AssertionError(f"interop: {name} collected {result['report_count']} reports and a result "
+                                         f"other than the plain aggregate of its {len(meas)} measurements")
+                rec["tasks"][name] = {"vdaf": vdaf, "uploads": len(meas), "upload_s": upload_s,
+                                      "uploads_per_s": len(meas) / upload_s, "first_upload_to_collected_s": e2e}
+
+            # the tasks upload one after the other; a task's collection
+            # runs while the next one uploads
+            gates = [asyncio.Event() for _ in tasks]
+            async def after(i, task):
+                if i:
+                    await gates[i - 1].wait()
+                await run_task(*task, gates[i])
+
+            await asyncio.gather(*[after(i, t) for i, t in enumerate(tasks)])
+
+    try:
+        apps_before = compute_app_pids() if DEVICE == "cuda" else []
+        t_boot = {}
+        for name, role in roles.items():
+            t_boot[name] = time.perf_counter()
+            with open(logs[name], "w") as out:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "janus_tpu_torch.binaries", f"janus_interop_{role}", "--port",
+                     str(ports[name])], cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        asyncio.run(drive())
+        if DEVICE == "cuda":
+            apps = compute_app_pids()
+            rec["compute_apps"] = {"before": len(apps_before), "running": len(apps)}
+            if len(apps) - len(apps_before) < 2:
+                raise AssertionError(f"interop: nvidia-smi lists {len(apps)} compute apps, not 2 more than the "
+                                     f"{len(apps_before)} before the aggregators started")
+
+        # -- SIGTERM stops all seven with exit 0; each aggregator prints its
+        # launch line as it stops
+        for p in procs.values():
+            p.send_signal(signal.SIGTERM)
+        codes = {name: p.wait(timeout=60) for name, p in procs.items()}
+        if any(codes.values()):
+            raise AssertionError(f"interop: SIGTERM exit codes {codes}")
+        rec["launches"] = {}
+        for side in ("leader", "helper"):
+            with open(logs[side]) as f:
+                lines = [json.loads(x)["interop_aggregator"] for x in f if x.startswith('{"interop_aggregator"')]
+            if len(lines) != 1:
+                raise AssertionError(f"interop: the {side} printed {len(lines)} launch lines")
+            line = lines[0]
+            launches = {STATUSZ_KERNELS[k]: v for k, v in line["kernel_launches"].items()}
+            PATH_LAUNCHES[f"interop {side}"] = rec["launches"][side] = launches
+            log(f"interop {side} launches: {json.dumps(launches)}")
+            missing = [k for k in KERNEL_NAMES[:3] if launches.get(k, 0) <= 0]
+            if line["vdaf_backend"] != "cuda" or (missing and DEVICE == "cuda"):
+                raise AssertionError(f"interop: the {side} ran {line['vdaf_backend']} and never launched {missing}")
+            if line["janus_vdaf_backend_fallback_total"]:
+                raise AssertionError(f"interop: the {side} counted {line['janus_vdaf_backend_fallback_total']} "
+                                     f"backend fallbacks")
+    except BaseException:
+        log(f"interop: phase failed:\n{traceback.format_exc()}")
+        for name, path in logs.items():
+            if os.path.exists(path):
+                with open(path, errors="replace") as f:
+                    tail = f.read().splitlines()[-40:]
+                log(f"--- the {name} process's log, last {len(tail)} lines:\n" + "\n".join(tail))
+        raise
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    phases["interop"] = rec["seconds"] = time.perf_counter() - t_phase
+    log(f"interop: {json.dumps(rec)}")
     return rec
 
 
@@ -4006,6 +4345,8 @@ def main() -> int:
     path_shapes.update(mxu_shapes)
     torch.cuda.empty_cache()
     mesh = mesh_phase(hist_vdaf, verify_key, hist_batch, meas, sv_served, hist_shards, rng, phases)
+    torch.cuda.empty_cache()
+    interop = interop_phase(args.seed, phases)
     for k in kernels:
         # a process that never loaded a kernel's wrapper (a binary that
         # never ran the mxu layout) launched it no time
@@ -4030,7 +4371,7 @@ def main() -> int:
                                    "sumvec_executor": sumvec_executor, "fixedpoint": fixedpoint,
                                    "multiproof": multiproof, "pair": pair, "poplar1": poplar1,
                                    "poplar1_pair": poplar1_pair, "binaries": binaries, "canonical": canonical,
-                                   "mxu": mxu, "mesh": mesh}}))
+                                   "mxu": mxu, "mesh": mesh, "interop": interop}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

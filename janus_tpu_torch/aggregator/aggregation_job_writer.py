@@ -180,9 +180,9 @@ class AggregationJobWriter:
         if backend is not None and hasattr(backend, "aggregate_batch") and len(shares) > 1:
             import numpy as np
 
-            jf = backend.bp.jf
-            limbs = jf.to_limbs([x for sh in shares for x in sh]).reshape(
-                len(shares), -1, jf.n
+            tf = backend.bp.f  # the prepare's TField: host ints <-> u32 limbs
+            limbs = tf.to_limbs([x for sh in shares for x in sh]).reshape(
+                len(shares), -1, tf.n
             )
             return backend.aggregate_batch(limbs, np.ones(len(shares), dtype=bool))
         acc: Optional[List[int]] = None

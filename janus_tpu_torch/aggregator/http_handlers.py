@@ -20,10 +20,12 @@ def aggregator_app(aggregator: Aggregator) -> web.Application:
     aggregator_handler)."""
 
     async def handle(request: web.Request) -> web.Response:
+        # the path below the app's mount point: the interop aggregator
+        # serves this app under /dap/
         status, body, headers = await dispatch(
             aggregator,
             request.method,
-            request.path,
+            "/" + request.match_info["tail"],
             dict(request.query),
             request.headers,
             await request.read(),

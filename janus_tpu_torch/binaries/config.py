@@ -18,7 +18,7 @@ silently ignored — a ``distributed_coordinator`` (the multi-process mesh,
 not ported yet: ROADMAP queue 1, the multi-device mesh across
 processes), ``poplar_backend`` and a non-zero
 ``warmup_wait_s`` (options the port removed), and a ``vdaf_backend`` other
-than ``cuda``, ``mesh`` or ``oracle``.  The canary's sections come with the canary plane.  A config
+than ``cuda``, ``mesh`` or ``oracle``.  A config
 file whose name ends in ``.json`` is read as JSON (a subset of YAML).
 """
 
@@ -476,6 +476,58 @@ class IngestConfig:
 
 
 @dataclass
+class CanaryConfig:
+    """The canary plane's prober (core/canary.py): black-box
+    known-plaintext probes through the real upload -> aggregate ->
+    collect path, one auto-provisioned task per VDAF family.
+
+        canary:
+          leader_endpoint: "http://127.0.0.1:8080"
+          helper_endpoint: "http://127.0.0.1:8081"
+          leader_task_api: "http://127.0.0.1:9080"
+          helper_task_api: "http://127.0.0.1:9081"
+          task_api_auth_token: "admin-token"
+          families: [prio3_sum, prio3_histogram]
+          probe_interval_s: 30
+          trace_globs: ["/tmp/traces/*.trace"]
+    """
+
+    #: DAP endpoints the probes travel through (the real front doors)
+    leader_endpoint: str = ""
+    helper_endpoint: str = ""
+    #: management APIs (aggregator task_api_listen_address) the prober
+    #: provisions its canary tasks against
+    leader_task_api: str = ""
+    helper_task_api: str = ""
+    task_api_auth_token: str = ""
+    #: VDAF families to probe (each gets its own canary task); names
+    #: resolve through core/canary.py FAMILIES
+    families: List[str] = field(default_factory=lambda: ["prio3_sum", "prio3_histogram"])
+    #: probe cadence and collection-poll budget
+    probe_interval_s: float = 30.0
+    poll_interval_s: float = 0.5
+    collect_timeout_s: float = 60.0
+    #: consecutive probe failures before a family's verdict is "failing"
+    #: (one failure = "degraded")
+    fail_threshold: int = 2
+    #: consecutive 503-shed suppressions before the next shed counts as a
+    #: loud upload failure — a front door that never reopens must page
+    shed_escalate_after: int = 3
+    #: canary-task time precision; each probe cycle aggregates its own
+    #: already-closed bucket, walking backward so batches never overlap
+    time_precision_s: int = 3600
+    #: chrome-trace globs (the replicas' trace files) for per-stage
+    #: commit/first-prepare attribution; empty = prober-clock stages only
+    trace_globs: List[str] = field(default_factory=list)
+
+
+@dataclass
+class CanaryBinaryConfig:
+    common: CommonConfig = field(default_factory=CommonConfig)
+    canary: CanaryConfig = field(default_factory=CanaryConfig)
+
+
+@dataclass
 class AggregatorConfig:
     common: CommonConfig = field(default_factory=CommonConfig)
     listen_address: str = "0.0.0.0:8080"
@@ -612,6 +664,7 @@ def _merge_dataclass(cls, data: dict):
             FleetConfig,
             DatastoreHealthConfig,
             IngestConfig,
+            CanaryConfig,
         )
     }
     kwargs = {}

@@ -3,13 +3,15 @@
 Copy of ``janus_tpu/binaries/main.py`` for the PyTorch port.  The analog
 of the reference's single multi-call binary (reference:
 aggregator/src/main.rs:93, binary_utils.rs:249 janus_main): one entry
-dispatches by subcommand to the four long-running daemons and the ops
-CLIs:
+dispatches by subcommand to the four long-running daemons, the canary
+prober, the interop test API binaries and the ops CLIs:
 
     python -m janus_tpu_torch.binaries aggregator --config-file cfg.yaml
     python -m janus_tpu_torch.binaries aggregation_job_creator ...
     python -m janus_tpu_torch.binaries aggregation_job_driver ...
     python -m janus_tpu_torch.binaries collection_job_driver ...
+    python -m janus_tpu_torch.binaries canary --config-file canary.yaml
+    python -m janus_tpu_torch.binaries janus_interop_{client,aggregator,collector} --port P
     python -m janus_tpu_torch.binaries janus_cli <subcommand> ...
     python -m janus_tpu_torch.binaries collect <subcommand> ...
 
@@ -21,8 +23,8 @@ executor: a binary whose ``device_executor`` is enabled builds one
 builds (and to ``/statusz``).  A binary that prepares with
 ``vdaf_backend: cuda`` (or ``mesh``: every card of the process) checks its
 device at startup: with no card it fails with the backend's ``VdafError``
-and never serves on the oracle.
-``canary`` and ``janus_interop_*`` are not ported yet.
+and never serves on the oracle (the interop aggregator reads its backend
+and device from the environment: ``interop.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..datastore import Crypter, Datastore
 from ..messages import Duration
 from .config import (
     AggregatorConfig,
+    CanaryBinaryConfig,
     ConfigError,
     JobCreatorConfig,
     JobDriverBinaryConfig,
@@ -48,12 +51,6 @@ from .config import (
 )
 
 logger = logging.getLogger("janus_tpu_torch.binaries")
-
-#: what ``canary`` and ``janus_interop_*`` answer until they are ported
-NOT_PORTED = (
-    "{binary}: not ported yet (ROADMAP queue 1: the canary plane and the "
-    "interop binaries come next)"
-)
 
 
 def _bootstrap(config_common):
@@ -644,6 +641,70 @@ def run_aggregator(config_path: Optional[str]) -> None:
     asyncio.run(main())
 
 
+def run_canary(config_path: Optional[str]) -> None:
+    """The canary plane's prober (core/canary.py): continuous
+    black-box end-to-end probes against a live fleet.  Deliberately
+    datastore-free — the canary judges the fleet exactly the way a
+    client + collector pair would, through the front doors only."""
+    cfg = load_config(CanaryBinaryConfig, config_path)
+
+    from ..core.trace import TraceConfiguration, install_trace_subscriber
+
+    install_trace_subscriber(TraceConfiguration(level=cfg.common.log_level))
+    if getattr(cfg.common, "slos", None):
+        from ..core.slo import configure_slos
+
+        evaluator = configure_slos(cfg.common.slos)
+        logger.info(
+            "slo evaluator armed: %s",
+            ", ".join(t.name for t in evaluator.targets),
+        )
+    from ..core.canary import configure_canary
+
+    plane = configure_canary(cfg.canary)
+
+    async def main():
+        import aiohttp
+
+        from ..core.slo import evaluate_tick
+
+        loop = asyncio.get_running_loop()
+        stop = _stop_event_on_signals(loop)
+        health = await _serve_health(cfg.common.health_check_listen_address)
+        logger.info(
+            "canary probing %s every %.1fs (families: %s)",
+            cfg.canary.leader_endpoint,
+            cfg.canary.probe_interval_s,
+            ", ".join(cfg.canary.families),
+        )
+        session = aiohttp.ClientSession()
+        try:
+            while not stop.is_set():
+                # provisioning retries inside the cycle: a fleet that is
+                # still coming up just delays the first verdict
+                try:
+                    await plane.ensure_provisioned(session)
+                    await plane.probe_once(session)
+                except Exception:
+                    logger.exception("canary probe cycle failed")
+                try:
+                    evaluate_tick()
+                except Exception:
+                    logger.exception("slo evaluation tick failed")
+                try:
+                    await asyncio.wait_for(
+                        stop.wait(), timeout=max(0.1, cfg.canary.probe_interval_s)
+                    )
+                except asyncio.TimeoutError:
+                    pass
+        finally:
+            await session.close()
+        await health.cleanup()
+        _close_tracing()
+
+    asyncio.run(main())
+
+
 def run_aggregation_job_creator(config_path: Optional[str]) -> None:
     """reference: binaries/aggregation_job_creator.rs"""
     cfg = load_config(JobCreatorConfig, config_path)
@@ -884,7 +945,8 @@ def main(argv=None) -> int:
         print(
             "usage: python -m janus_tpu_torch.binaries "
             "{aggregator|aggregation_job_creator|aggregation_job_driver|"
-            "collection_job_driver|janus_cli|collect} [--config-file F] ...",
+            "collection_job_driver|canary|janus_interop_{client|aggregator|"
+            "collector}|janus_cli|collect} [--config-file F] ...",
             file=sys.stderr,
         )
         return 2
@@ -901,9 +963,8 @@ def main(argv=None) -> int:
         _run_job_driver_binary(config_path, "aggregation")
     elif binary == "collection_job_driver":
         _run_job_driver_binary(config_path, "collection")
-    elif binary == "canary" or binary.startswith("janus_interop_"):
-        print(NOT_PORTED.format(binary=binary), file=sys.stderr)
-        return 2
+    elif binary == "canary":
+        run_canary(config_path)
     elif binary == "janus_cli":
         from .janus_cli import cli
 
@@ -912,6 +973,17 @@ def main(argv=None) -> int:
         from .collect import collect
 
         collect.main(args=argv, standalone_mode=True, obj={})
+    elif binary.startswith("janus_interop_"):
+        from ..interop import run_interop_binary
+
+        port = 8080
+        for i, arg in enumerate(argv):
+            if arg == "--port":
+                if i + 1 >= len(argv):
+                    print("--port requires a value", file=sys.stderr)
+                    return 2
+                port = int(argv[i + 1])
+        run_interop_binary(binary[len("janus_interop_") :], port)
     else:
         print(f"unknown binary {binary!r}", file=sys.stderr)
         return 2

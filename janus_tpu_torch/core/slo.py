@@ -1,8 +1,7 @@
 """Declarative SLO evaluation plane: the fleet judges its own freshness.
 
-Copy of ``janus_tpu/core/slo.py`` for the PyTorch port, without the
-canary plane's two signals (the canary is not ported yet: ROADMAP queue
-1).  The fleet's freshness histograms (report commit age, job age at
+Copy of ``janus_tpu/core/slo.py`` for the PyTorch port.  The fleet's
+freshness histograms (report commit age, job age at
 acquire, collection end-to-end) are judged here: ``common.slos`` declares
 objectives over those histograms and a burn-rate evaluator — driven by
 the same status-sampler tick that publishes the backlog gauges — computes
@@ -47,6 +46,12 @@ SIGNALS = {
     "job_age_at_acquire": "janus_job_age_at_acquire_seconds",
     "collection_e2e": "janus_collection_e2e_seconds",
     "first_flush": "janus_executor_wait_duration_seconds",
+    # Canary plane (core/canary.py): black-box probe end-to-end latency
+    # and probe success rate (the outcome histogram observes 0.0 on
+    # success / 2.0 on failure, so any threshold_s in [0.5, 2) makes
+    # good == successes under the standard histogram_totals math).
+    "canary_e2e_latency": "janus_canary_e2e_seconds",
+    "canary_success": "janus_canary_probe_outcome",
 }
 
 

@@ -18,9 +18,7 @@ allocated there, and each kernel wrapper's launches in this process).  The
 executor's ``canonicalization`` section counts the shape plans of
 ``vdaf/canonical.py``, and its ``bucket_quarantine`` section the shape
 buckets whose work is refused while they are quarantined; a mesh's circuit
-is labelled ``mesh[n]#digest``.  The canary section is left out until the
-canary plane is ported (ROADMAP queue 1: "The canary plane and the interop
-harness").
+is labelled ``mesh[n]#digest``.
 """
 
 from __future__ import annotations
@@ -125,6 +123,11 @@ def runtime_status(executor=None) -> dict:
         # recent offenders — what the operator reads when the quarantine
         # alert fires
         "quarantine": _quarantine_stats(),
+        # Canary plane: rolled-up fleet verdict, per-family
+        # probe state + failing stage, stage-latency percentiles, and
+        # counted backoffs — the one pageable signal; disabled marker on
+        # binaries that run no prober
+        "canary": _canary_stats(),
         "device": device_status(),
     }
 
@@ -205,11 +208,12 @@ def _fleet_stats() -> dict:
 
 def _upload_stats():
     """Front-door open-batcher stats (aggregator/report_writer.py);
-    failure-tolerant like every other section."""
+    failure-tolerant like every other section.  None where the process
+    never loaded the report writer (a driver, the creator, the canary): it
+    has no front door, and importing the writer would load torch."""
     try:
-        from ..aggregator.report_writer import frontdoor_stats
-
-        return frontdoor_stats()
+        writer = sys.modules.get(f"{__package__.rsplit('.', 1)[0]}.aggregator.report_writer")
+        return None if writer is None else writer.frontdoor_stats()
     except Exception:
         logger.exception("upload front-door stats unavailable")
         return {"error": "unavailable"}
@@ -236,6 +240,18 @@ def _quarantine_stats() -> dict:
         return quarantine_stats()
     except Exception:
         logger.exception("quarantine stats unavailable")
+        return {"error": "unavailable"}
+
+
+def _canary_stats() -> dict:
+    """Canary-plane verdict rollup (core/canary.py); failure-tolerant
+    like every other section."""
+    try:
+        from .canary import canary_stats
+
+        return canary_stats()
+    except Exception:
+        logger.exception("canary stats unavailable")
         return {"error": "unavailable"}
 
 

@@ -312,19 +312,27 @@ class TestCli:
         assert "CollectionReq" in result.output
 
 
-def test_collect_usage_and_unported_binaries(capsys):
-    """``collect`` refuses a query it cannot build; ``canary`` and the
-    interop binaries name what comes next and exit 2."""
+def test_collect_usage_and_unported_binaries(capsys, tmp_path):
+    """``collect`` refuses a query it cannot build; ``canary`` loads its
+    ``CanaryBinaryConfig`` (an unknown canary key fails the load); an
+    interop binary's ``--port`` without a value exits 2."""
     from janus_tpu_torch.binaries.collect import collect
+    from janus_tpu_torch.binaries.config import CanaryBinaryConfig
     from janus_tpu_torch.binaries.main import main
 
     args = ["--task-id", b64(b"\x00" * 32), "--leader", "http://127.0.0.1:1/", "--vdaf", "count",
             "--hpke-config", "AA", "--hpke-private-key", "AA", "--authorization-bearer-token", "t"]
     result = CliRunner().invoke(collect, args, obj={})
     assert result.exit_code == 2 and "exactly one of" in result.output
-    for binary in ("canary", "janus_interop_client"):
-        assert main([binary]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+    cfg = load_config(CanaryBinaryConfig, text="canary: {families: [prio3_sum], probe_interval_s: 1}")
+    assert cfg.canary.families == ["prio3_sum"] and cfg.canary.probe_interval_s == 1
+    assert load_config(CanaryBinaryConfig).canary.families == ["prio3_sum", "prio3_histogram"]
+    bad = tmp_path / "canary.yaml"
+    bad.write_text("canary: {probe_every: 1}\n")
+    with pytest.raises(ConfigError, match="unknown CanaryConfig keys"):
+        main(["canary", "--config-file", str(bad)])
+    assert main(["janus_interop_aggregator", "--port"]) == 2
+    assert "--port requires a value" in capsys.readouterr().err
     assert main([]) == 2
 
 
@@ -344,7 +352,7 @@ def test_statusz_names_the_executor_and_the_device(monkeypatch, tmp_path):
         doc = asyncio.run(statusz.statusz_snapshot(executor=ex))
         assert doc["executor"]["enabled"] and doc["executor"]["buckets"] == {}
         assert doc["device"]["devices"] and doc["device"]["torch"]
-        assert "canary" not in doc
+        assert doc["canary"] == {"enabled": False}  # no prober in this process
         assert statusz.retire_idle_executor_buckets(600.0, ex) == 0
     finally:
         ex.shutdown()
