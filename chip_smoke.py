@@ -88,7 +88,9 @@ them:
     together, and a collector collects.  The aggregate and report count
     are exact, no out share is read back or recomputed, no oracle serves a
     row, no breaker trips, every leader row is marshalled from its bytes,
-    and each family's kernels launch; upload, creator, first job, the
+    each family's kernels launch, and a task of at least 16 uploads opened
+    some of them on the card's vector pass (``core/hpke_batch.py``; the
+    opens by route go under ``hpke_open_rows``); upload, creator, first job, the
     other jobs, collection and end-to-end seconds, uploads/s and
     reports/s, flushes a side, busy seconds by layer and peak memory go
     under ``pair`` in the ``end_to_end`` line.  Two more tasks, run
@@ -148,15 +150,18 @@ them:
     profiled flush (bits 16, level 8), peak memory.  No port kernel
     launches;
 17. **The pair collects heavy hitters**: phase 13's pair with a
-    Poplar1(bits=16) task, both sides walking on the card, the leader's
-    accumulator deferred, aggregation jobs of 256; phase 16's 1,024
+    Poplar1(bits=16) task, both sides walking on the card, both sides'
+    accumulators deferred (the helper's continue steps journal their
+    vectors into level buckets that its aggregate-share barrier drains),
+    aggregation jobs of 256; phase 16's 1,024
     reports uploaded; a collection at level 7 over the 8-bit prefixes of
     the 64 values (padded to 64), then one at the leaf over the values
     under the prefixes counted at least 16 times.  Every prefix count is
     the plain count of the uploads, both sides' ``poplar_init/L7`` and
     ``/L15`` buckets flushed more jobs than flushes, no row goes to the
-    oracle, no breaker trips, the leader reads no sketch vector back and
-    no journal row is left.  Each collection job is stepped as soon as its
+    oracle, no breaker trips, the leader reads no sketch vector back, the
+    helper holds journal rows once a level's jobs are done and none after
+    its collection, and no journal row is left.  Each collection job is stepped as soon as its
     level's jobs are, with no wait for the deferred drain: the collection
     step leaves young journal rows to the drain and asks again, and no row
     may be replayed on the oracle;
@@ -168,6 +173,7 @@ them:
     by ``janus_cli``: 1,024 reports and 8 tampered ones uploaded through
     the port's client, collected by the ``collect`` binary as soon as the
     jobs are stepped.  The aggregate and report count are exact; the
+    leader's /metrics count uploads opened on the vector pass; the
     driver's and the helper's /metrics count cuda prepares of every report
     and no fallback; no journal row is replayed or left; both executor
     processes hold the card and launch K1-K3 after their warmup (their
@@ -221,7 +227,7 @@ them:
     operands and on carry-saturating ones (every element p - 1), its ms,
     bound and launches and the digit matmul's ms.  Then the pair of phase
     13 with ``Config``/``DriverConfig(field_backend="mxu")`` collects
-    Histogram(1024, 316) (512 reports, 8 tampered) and FixedPoint (18
+    Histogram(1024, 316) (phase 13's first 128 reports, 8 tampered) and FixedPoint (18
     reports, 2 norm lies) exactly, with the same gates and the digit reduce
     launched;
 21. **The prepare across cards** (``MeshBackend``): Histogram(1024, 316)
@@ -235,8 +241,8 @@ them:
     out shares resident, the aggregate exact, tampered rows rejected, no
     out-share row read back, and each kernel launched shards x phase 11's
     count.  SumVec100k at B = 1024 on a 2-shard mesh against one card, K5
-    on every shard.  Phase 13's Histogram pair task with
-    ``vdaf_backend="mesh"`` and with ``ExecutorConfig(mesh=True)``, exact,
+    on every shard.  Phase 13's Histogram pair task (its first 128
+    uploads) with ``vdaf_backend="mesh"`` and with ``ExecutorConfig(mesh=True)``, exact,
     every backend a ``MeshBackend``.  ``dryrun_multichip`` over the visible
     cards and over 4 logical shards of the first card.  With one card the
     logical shards share its SMs: their times measure the mesh's overhead,
@@ -250,9 +256,19 @@ them:
     sent concurrently round-robin over the clients, each collected in
     time-interval mode.  Each ``report_count`` and ``result`` is exact,
     nvidia-smi counts two more compute apps while the aggregators run, each
-    aggregator's SIGTERM line shows K1-K3 launched and 0 backend fallbacks,
-    and all seven exit 0 on SIGTERM.  Each process's startup-to-ready, each
-    task's uploads/s and first upload to collected aggregate are printed.
+    aggregator's SIGTERM line shows K1-K3 launched and 0 backend fallbacks
+    (the leader's, uploads opened on the vector pass), and all seven exit 0
+    on SIGTERM.  Each process's startup-to-ready, each task's uploads/s and
+    first upload to collected aggregate are printed;
+23. **The upload vector pass**: random plaintexts of the byte length of
+    one real encoded leader share of Histogram(1024, 316) and of Count,
+    sealed to one leader key, opened through ``hpke_batch.open_batch`` in
+    batches of 64 and 512 with 2 tampered rows a batch, once on the
+    vector route (the AES pass on the card, GHASH on the host) and once
+    per report.  Both routes' plaintexts are byte-equal to the sealed
+    ones, only the tampered rows are rejected, and each route's counter
+    moves by the batch's rows; each route's ms a batch, the AES pass's
+    device ms (CUDA events) and GHASH's host ms are printed.
 
 Every path runs with the kernel launch counters set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
@@ -325,6 +341,13 @@ SV8_REPORTS, SV8_WORKERS, SV8_SAMPLED = 64, 2, 4
 PAIR_COUNT_REPORTS = PAIR_SUM_REPORTS = 1024
 PAIR_HIST_REPORTS, PAIR_HIST_WORKERS = 512, 4
 PAIR_TAMPERED, PAIR_JOB_SIZE, PAIR_UPLOAD_WAVE = 8, 256, 256
+#: a pair task of at least this many uploads must open some on the vector pass
+PAIR_VECTOR_MIN = 16
+#: phases 20 and 21 run phase 13's Histogram task again (under the mxu
+#: layout, the mesh backend and the executor's mesh flag) with the first
+#: this many of its uploads: at 512, each run's uploads took 16-25 s on the
+#: vector pass, which the smoke's time limit cannot hold three more times
+PAIR_REPEAT_HIST_REPORTS = 128
 #: Phase 14: Prio3FixedPointBoundedL2VecSum as the registry builds it at
 #: the reference's BitSize16 (core/src/vdaf.rs:88-91) with 1,000 entries,
 #: the JAX package's full-size fpvec row; distinct reports sharded by
@@ -363,6 +386,9 @@ POPLAR_WIDE_BITS, POPLAR_WIDE_DISTINCT, POPLAR_WIDE_ROWS, POPLAR_WIDE_SAMPLED = 
 #: again until the drain has run).
 POPLAR_PAIR_JOB_SIZE, POPLAR_PAIR_LEVELS, POPLAR_THRESHOLD = 256, (7, 15), 16
 POPLAR_DRAIN_S = 2.0
+#: the helper's deferred-drain interval in phase 17: longer than the
+#: phase, so that its aggregate-share barrier does the drains
+POPLAR_HELPER_DRAIN_S = 3600.0
 #: Phase 17's executor flush window, seconds (a flush closes earlier once
 #: it holds every report of the level).
 POPLAR_FLUSH_WINDOW_S = 1.0
@@ -390,6 +416,11 @@ INTEROP_CLIENTS = 4
 INTEROP_TASKS = (("count", {"type": "Prio3Count"}, 1024),
                  ("histogram", {"type": "Prio3Histogram", "length": str(LENGTH), "chunk_length": str(CHUNK)}, 128))
 INTEROP_IN_FLIGHT, INTEROP_READY_S, INTEROP_COLLECT_S = 32, 120.0, 120.0
+#: Phase 23, the upload vector pass: random plaintexts of one real encoded
+#: leader share's length (Histogram(1024, 316) and Count), sealed to one
+#: leader key with UPLOAD_AAD bytes of aad, opened in batches of each of
+#: UPLOAD_BATCHES with UPLOAD_TAMPERED tampered rows a batch
+UPLOAD_BATCHES, UPLOAD_TAMPERED, UPLOAD_AAD = (64, 512), 2, 64
 #: Phase 19, canonical buckets: two Histogram tasks below their bucket's
 #: ceiling (calls 4, P = 8) that share the twin Histogram(1264, 316), each
 #: with the phase's DISTINCT reports (the second task's sharded by
@@ -1071,10 +1102,11 @@ def sumvec_checks(bp, helper_rows, launches):
     """K5 at (100000, 316, B 1024) on the real helper streams with seeded
     random coefficients, against its plain version, and again at the served
     batch (the first 128 reports of the same inputs).  K1 and K2 timed at the
-    SumVec shape, and their outputs in 8 columns spread over the batch held
-    against the plain version on the host: the plain Keccak is launch-bound
-    (about 6 ms a block on an H100, 2-3 ms on one host CPU core at 8
-    columns), so the whole batch on the card would take minutes."""
+    SumVec shape, and their outputs in HOST_CHECK_COLUMNS columns spread
+    over the batch held against the plain version on the host: the plain
+    Keccak is launch-bound (about 6 ms a block on an H100, 2-3 ms on one
+    host CPU core at 8 columns), so the whole batch on the card would take
+    minutes."""
     from janus_tpu_torch.ops import flp_kernels, keccak_kernels
     from janus_tpu_torch.vdaf.prio3 import USAGE_MEAS_SHARE, USAGE_PROOF_SHARE
 
@@ -1518,7 +1550,7 @@ def sumvec_bits_phase(verify_key, rng, shards, phases):
     )
     staged = {a: backend.stage_prep_init_multi(a, [(verify_key, rows[a])]).placed for a in (0, 1)}
     # The plain Keccak takes some milliseconds a block, so one timed round.
-    shapes = keccak_path_checks(backend.bp, staged[0], staged[1], USAGE_MEAS_SHARE, vdaf.flp.MEAS_LEN, plain_rounds=1)
+    shapes = keccak_path_checks(backend.bp, staged[0], staged[1], USAGE_MEAS_SHARE, vdaf.flp.MEAS_LEN, plain_rounds=0)
     phases["sumvec_bits8"] = time.perf_counter() - t0
     return record, shapes
 
@@ -2255,7 +2287,14 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_back
                 ds[side].cleanup()
 
     torch.cuda.reset_peak_memory_stats()
+    routes_before = {stage: hpke_batch.route_rows(stage) for stage in ("upload", "aggregate_init")}
     (result, backends, stats, circuits), launches = counted(f"pair {name}", needs, lambda: asyncio.run(run()))
+    routes = {stage: {k: v - routes_before[stage][k] for k, v in hpke_batch.route_rows(stage).items()}
+              for stage in routes_before}
+    # the leader's uploads take the card's vector pass (a batch of one
+    # AES-128-GCM body opens per report, so a task of a few reports may not)
+    if DEVICE == "cuda" and len(shards) >= PAIR_VECTOR_MIN and not routes["upload"]["vector"]:
+        raise AssertionError(f"pair {name}: no upload took the vector pass: {routes}")
     valid = [m for (m, _r), bad in zip(shards, tampered) if not bad]
     if result.report_count != len(valid) or result.aggregate_result != expect(valid):
         raise AssertionError(f"pair {name}: collected {result.report_count} reports, not the exact aggregate of the "
@@ -2299,12 +2338,12 @@ def pair_run(name, desc, shards, tampered, expect, verify_key, needs, field_back
         "device_peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
         "report_count": result.report_count, "field_backend": field_backend or "vpu",
         "vdaf_backend": vdaf_backend, "executor_mesh": mesh,
-        "mesh_devices": list(getattr(backends["leader"], "mesh_devices", ())),
+        "mesh_devices": list(getattr(backends["leader"], "mesh_devices", ())), "hpke_open_rows": routes,
     })
     served = (f"; served by the twin {json.dumps(rec['served_as'])}" if twin is not None else "; exact shape")
     log(f"pair {name}: {len(shards)} reports ({rec['tampered']} tampered, rejected) in {rec['jobs']} jobs; aggregate "
         f"exact; {flushes} prepare flushes a side; upload {secs['upload']:.3f} s ({rec['uploads_per_s']:.1f}/s, "
-        f"{rec['hpke_route']} HPKE); first job {secs['first_job']:.3f} s; end to end {secs['end_to_end']:.3f} s "
+        f"{rec['hpke_route']} HPKE, opens by route {json.dumps(routes['upload'])}); first job {secs['first_job']:.3f} s; end to end {secs['end_to_end']:.3f} s "
         f"({rec['reports_per_s']:.1f} reports/s){served}")
     return rec
 
@@ -2707,8 +2746,11 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
     async def run():
         clock = RunningClock(now)
         ds = {side: EphemeralDatastore(clock) for side in ("leader", "helper")}
+        # both sides deferred: the leader drains on its maintenance
+        # cadence, the helper's interval outlasts the run, so that its
+        # aggregate-share barrier drains the continue steps' journal rows
         acc = {"leader": AccumulatorConfig(enabled=True, drain_interval_s=POPLAR_DRAIN_S),
-               "helper": AccumulatorConfig(enabled=True)}
+               "helper": AccumulatorConfig(enabled=True, drain_interval_s=POPLAR_HELPER_DRAIN_S)}
         # a level's jobs flush together once all their rows are in (or
         # at the window's end): each side's requests arrive spread by
         # their HPKE opens and decodes
@@ -2757,8 +2799,12 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
                                   hpke_keypair=collector_keys, poll_interval=0.02, max_poll_time=600.0)
             query = Query.new_time_interval(Interval(Time(start), Duration(precision)))
 
+            def helper_rows():
+                return ds["helper"].datastore.run_tx(
+                    "helper_journal", lambda tx: tx.count_accumulator_journal_entries(task_id))
+
             async def drive(done):
-                rounds = {"job_steps": [], "drains": 0, "collection_steps": []}
+                rounds = {"job_steps": [], "drains": 0, "collection_steps": [], "helper_journal_rows": None}
                 while not done.is_set():
                     t0 = time.perf_counter()
                     leases = await ds["leader"].datastore.run_tx_async(
@@ -2767,6 +2813,10 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
                     if leases:
                         rounds["job_steps"].append([len(leases), time.perf_counter() - t0])
                         continue
+                    if rounds["job_steps"] and rounds["helper_journal_rows"] is None:
+                        # the level's jobs are done and nothing has asked
+                        # the helper for its share yet
+                        rounds["helper_journal_rows"] = helper_rows()
                     # no wait for the bucket: the maintenance pass drains
                     # it once due, and the collection step asks again
                     # until it has
@@ -2797,6 +2847,10 @@ def poplar_pair_phase(seed, verify_key, shards16, phases):
                 want = [sum(1 for m in meas if m >> (POPLAR_BITS - 1 - level) == p) for p in prefixes]
                 if result.report_count != len(meas) or result.aggregate_result != want:
                     raise AssertionError(f"poplar pair: level {level} counts are not the plain counts")
+                rounds["helper_journal_rows_after"] = helper_rows()
+                if not rounds["helper_journal_rows"] or rounds["helper_journal_rows_after"]:
+                    raise AssertionError(f"poplar pair: level {level}: {rounds['helper_journal_rows']} helper journal "
+                                         f"rows before the collection, {rounds['helper_journal_rows_after']} after")
                 levels[level] = {"prefixes": len(prefixes), "seconds": secs[f"level {level}"],
                                  "top_counts": sorted(want, reverse=True)[:8], **rounds}
                 return result.aggregate_result
@@ -3211,7 +3265,13 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
                                  f"of the {len(valid)} valid ones")
 
         # -- the gates on /metrics, /statusz, the datastores and the card
-        m = {name: metrics(name) for name in ("driver", "helper", "collection")}
+        m = {name: metrics(name) for name in ("leader", "driver", "helper", "collection")}
+        rec["hpke_open_rows"] = {
+            f"{name} {stage}": {r: metric_sum(m[name], "janus_hpke_open_rows_total", stage=stage, route=r)
+                                for r in ("vector", "aead", "inline")}
+            for name, stage in (("leader", "upload"), ("helper", "aggregate_init"))}
+        if DEVICE == "cuda" and not rec["hpke_open_rows"]["leader upload"]["vector"]:
+            raise AssertionError(f"binaries: no upload took the leader's vector pass: {rec['hpke_open_rows']}")
         for side in ("driver", "helper"):
             if metric_sum(m[side], "janus_device_prepare_launches_total", backend="cuda") <= 0:
                 raise AssertionError(f"binaries: the {side} counted no cuda prepare launch")
@@ -3314,7 +3374,8 @@ def binaries_phase(seed, verify_key, hist_shards, phases):
     phases["binaries"] = time.perf_counter() - t_phase
     log(f"binaries: canary {json.dumps(rec['canary'])}")
     log(f"binaries: {FLEET_REPORTS} reports ({FLEET_TAMPERED} tampered, rejected) through 5 processes in {jobs} jobs; "
-        f"aggregate exact; upload {secs['upload']:.3f} s ({rec['uploads_per_s']:.1f}/s); first upload to collected "
+        f"aggregate exact; upload {secs['upload']:.3f} s ({rec['uploads_per_s']:.1f}/s; HPKE opens by route "
+        f"{json.dumps(rec['hpke_open_rows'])}); first upload to collected "
         f"aggregate {secs['end_to_end']:.3f} s; startup to ready {json.dumps({k: round(v, 3) for k, v in ready.items()})} s; "
         f"statusz flushes {json.dumps(rec['statusz_flushes'])}; journal rows drained {drains:.0f}, replayed {replays:.0f}")
     return rec
@@ -3501,6 +3562,9 @@ def interop_phase(seed, phases):
             if line["janus_vdaf_backend_fallback_total"]:
                 raise AssertionError(f"interop: the {side} counted {line['janus_vdaf_backend_fallback_total']} "
                                      f"backend fallbacks")
+            rec.setdefault("hpke_open_rows", {})[side] = line["hpke_open_rows"]
+            if side == "leader" and DEVICE == "cuda" and not line["hpke_open_rows"]["upload"]["vector"]:
+                raise AssertionError(f"interop: no upload took the leader's vector pass: {line['hpke_open_rows']}")
     except BaseException:
         log(f"interop: phase failed:\n{traceback.format_exc()}")
         for name, path in logs.items():
@@ -3516,6 +3580,129 @@ def interop_phase(seed, phases):
                 p.wait()
     phases["interop"] = rec["seconds"] = time.perf_counter() - t_phase
     log(f"interop: {json.dumps(rec)}")
+    return rec
+
+
+def upload_phase(seed, hist_vdaf, hist_report, phases):
+    """Phase 23: the upload vector pass on the card.  Random plaintexts of
+    the byte length of one real encoded leader share of Histogram(1024,
+    316) (``hist_report``) and of Count, sealed with the port's
+    ``core/hpke.py`` to one leader key, are opened in batches of each
+    size in UPLOAD_BATCHES through ``hpke_batch.open_batch`` on DEVICE:
+    once on the vector route (the card's AES pass and the host GHASH, the
+    route the default rule picks on the card) and once on the per-report
+    route (``JANUS_TPU_TORCH_UPLOAD_VECTOR_GCM=0``), each batch with
+    UPLOAD_TAMPERED rows whose ciphertext has a flipped byte.  Raises
+    unless both routes' plaintexts are byte-equal to each other and to the
+    sealed ones, the tampered rows are rejected and only those, and each
+    route's counter moved by exactly the batch's rows.  Times: each
+    route's whole open a batch (host clock), the AES pass's device ms
+    (CUDA events, ``ops/aes.py`` ``encrypt_blocks_multikey`` over the
+    batch's blocks), the keystream with its copies in and out (host clock,
+    synchronised), and GHASH's host ms.  Returns the record."""
+    import os
+
+    from janus_tpu_torch.client import seal_report
+    from janus_tpu_torch.core import hpke_batch
+    from janus_tpu_torch.core.hpke import HpkeApplicationInfo, HpkeError, HpkeKeypair, Label, seal
+    from janus_tpu_torch.messages import HpkeCiphertext, ReportId, Role, TaskId, Time
+    from janus_tpu_torch.ops.aes import encrypt_blocks_multikey, expand_keys, to_device_bytes
+    from janus_tpu_torch.vdaf.instances import prio3_count
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 23])
+    keys = HpkeKeypair.generate(1)
+    info = HpkeApplicationInfo.new(Label.INPUT_SHARE, Role.CLIENT, Role.LEADER)
+    count_vdaf = prio3_count()
+    (count_report,), _m = shard_reports(count_vdaf, rng, lambda r: 1, 1)
+    bodies = {}
+    for name, vdaf, (nonce, public, shares) in (("histogram", hist_vdaf, hist_report),
+                                                ("count", count_vdaf, count_report)):
+        sealed = seal_report(vdaf, TaskId(bytes(32)), keys.config, keys.config, ReportId(nonce), Time(0), public,
+                             shares)
+        bodies[name] = len(sealed.leader_encrypted_input_share.payload) - 16  # less the tag
+    rec = {"plaintext_bytes": bodies, "aad_bytes": UPLOAD_AAD, "batches": {}}
+    saved_env = os.environ.pop(hpke_batch.VECTOR_GCM_ENV, None)
+
+    def routed(route, fn):
+        """(result, whole ms, rows counted by route) of one open; the
+        vector route as the default rule picks it on the card (forced on a
+        CPU rehearsal), the per-report route forced."""
+        force = "0" if route == "aead" else (None if DEVICE == "cuda" else "1")
+        if force is None:
+            os.environ.pop(hpke_batch.VECTOR_GCM_ENV, None)
+        else:
+            os.environ[hpke_batch.VECTOR_GCM_ENV] = force
+        before = hpke_batch.route_rows("upload")
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = hpke_batch.route_rows("upload")
+        return out, ms, {k: after[k] - before[k] for k in after}
+
+    def run():
+        # the first pass on a device builds its AES tables and checks them
+        # against FIPS-197: not part of any batch's time
+        hpke_batch._keystream([bytes(16)] * 2, [bytes(12)] * 2, 4, DEVICE)
+        for name, n in bodies.items():
+            top = max(UPLOAD_BATCHES)
+            pts = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for _ in range(top)]
+            aads = [rng.integers(0, 256, UPLOAD_AAD, dtype=np.uint8).tobytes() for _ in range(top)]
+            cts = [seal(keys.config, info, p, a) for p, a in zip(pts, aads)]
+            kmax = 2 + -(-n // 16)
+            for B in UPLOAD_BATCHES:
+                bad = set(rng.choice(B, UPLOAD_TAMPERED, replace=False).tolist())
+                requests = []
+                for i in range(B):
+                    ct = cts[i]
+                    if i in bad:
+                        ct = HpkeCiphertext(ct.config_id, ct.encapsulated_key, bytes([ct.payload[0] ^ 1]) + ct.payload[1:])
+                    requests.append((keys, info, ct, aads[i]))
+                opened, ms = {}, {}
+                for route in ("vector", "aead"):
+                    opened[route], ms[route], moved = routed(route, lambda: hpke_batch.open_batch(requests, DEVICE))
+                    if moved != {"vector": B if route == "vector" else 0, "aead": 0 if route == "vector" else B,
+                                 "inline": 0}:
+                        raise AssertionError(f"upload {name} B = {B}: the {route} route counted {moved}")
+                for i in range(B):
+                    if i in bad:
+                        if not all(isinstance(opened[r][i], HpkeError) for r in opened):
+                            raise AssertionError(f"upload {name} B = {B}: tampered row {i} was opened")
+                    elif not opened["vector"][i] == opened["aead"][i] == pts[i]:
+                        raise AssertionError(f"upload {name} B = {B}: row {i} opened to other bytes")
+                aes_keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes() for _ in range(B)]
+                nonces = [rng.integers(0, 256, 12, dtype=np.uint8).tobytes() for _ in range(B)]
+                rk = to_device_bytes(expand_keys(aes_keys), DEVICE)
+                blocks = to_device_bytes(rng.integers(0, 256, (B, kmax, 16), dtype=np.uint8), DEVICE)
+                aes_ms = cuda_time_ms(lambda: encrypt_blocks_multikey(rk, blocks), reps=2)
+                del rk, blocks
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stream = hpke_batch._keystream(aes_keys, nonces, kmax, DEVICE)
+                keystream_ms = (time.perf_counter() - t0) * 1e3
+                datas = hpke_batch._ghash_inputs(aads[:B], [c.payload[:-16] for c in cts[:B]])
+                t0 = time.perf_counter()
+                hpke_batch._ghash_batch(np.ascontiguousarray(stream[:, 0]), datas)
+                ghash_ms = (time.perf_counter() - t0) * 1e3
+                rec["batches"][f"{name} B={B}"] = {
+                    "rows": B, "tampered": len(bad), "aes_blocks": B * kmax, "ghash_steps": len(datas[0]) // 16,
+                    "vector_ms": ms["vector"], "aead_ms": ms["aead"], "aes_device_ms": aes_ms,
+                    "keystream_ms": keystream_ms, "ghash_host_ms": ghash_ms,
+                }
+                log(f"upload {name} ({n} bytes) B = {B}: vector route {ms['vector']:.2f} ms (AES on the card "
+                    f"{aes_ms:.3f} ms device, keystream with copies {keystream_ms:.2f} ms, GHASH on the host "
+                    f"{ghash_ms:.2f} ms), per-report route {ms['aead']:.2f} ms; {len(bad)} tampered rows rejected")
+
+    try:
+        _r, launches = counted("upload vector pass", (), run)
+    finally:
+        if saved_env is None:
+            os.environ.pop(hpke_batch.VECTOR_GCM_ENV, None)
+        else:
+            os.environ[hpke_batch.VECTOR_GCM_ENV] = saved_env
+    if any(launches.values()):
+        raise AssertionError(f"the upload vector pass launched port kernels: {launches}")
+    phases["upload"] = rec["seconds"] = time.perf_counter() - t_phase
     return rec
 
 
@@ -4128,7 +4315,7 @@ def mesh_phase(vdaf, verify_key, batch, meas, sv_served, hist_shards, rng, phase
     shards x phase 11's launches (every shard launches what a one-card
     flush of its size launches, on the same route).  SumVec100k at B = 1024
     on a MESH_SV_SHARDS-shard mesh (K5 on every shard) against one card.
-    Phase 13's Histogram pair task under ``vdaf_backend="mesh"`` and under
+    Phase 13's Histogram pair task (``hist_shards``) under ``vdaf_backend="mesh"`` and under
     ``ExecutorConfig(mesh=True)``, exact.  ``dryrun_multichip`` over the
     visible cards and over 4 logical shards.  Returns the record."""
     from janus_tpu_torch.dryrun import dryrun_multichip
@@ -4340,13 +4527,17 @@ def main() -> int:
                                               phases)
     kernels.append(select_entry)
     torch.cuda.empty_cache()
-    reduce_entry, mxu_shapes, mxu = mxu_phase(verify_key, rng, hist_batch, meas, sv_served, fp_done, hist_shards, phases)
+    reduce_entry, mxu_shapes, mxu = mxu_phase(verify_key, rng, hist_batch, meas, sv_served, fp_done,
+                                              hist_shards[:PAIR_REPEAT_HIST_REPORTS], phases)
     kernels.append(reduce_entry)
     path_shapes.update(mxu_shapes)
     torch.cuda.empty_cache()
-    mesh = mesh_phase(hist_vdaf, verify_key, hist_batch, meas, sv_served, hist_shards, rng, phases)
+    mesh = mesh_phase(hist_vdaf, verify_key, hist_batch, meas, sv_served, hist_shards[:PAIR_REPEAT_HIST_REPORTS], rng,
+                      phases)
     torch.cuda.empty_cache()
     interop = interop_phase(args.seed, phases)
+    torch.cuda.empty_cache()
+    upload = upload_phase(args.seed, hist_vdaf, reports[0], phases)
     for k in kernels:
         # a process that never loaded a kernel's wrapper (a binary that
         # never ran the mxu layout) launched it no time
@@ -4371,7 +4562,7 @@ def main() -> int:
                                    "sumvec_executor": sumvec_executor, "fixedpoint": fixedpoint,
                                    "multiproof": multiproof, "pair": pair, "poplar1": poplar1,
                                    "poplar1_pair": poplar1_pair, "binaries": binaries, "canonical": canonical,
-                                   "mxu": mxu, "mesh": mesh, "interop": interop}}))
+                                   "mxu": mxu, "mesh": mesh, "interop": interop, "upload": upload}}))
     log(json.dumps({"sumvec_shape_kernels": sv_shapes}))
     smi = nvidia_smi("name,power.limit")
     log(json.dumps({"kernels": kernels}))

@@ -288,6 +288,7 @@ class Aggregator:
             max_batch_delay=self.config.upload_open_batch_delay,
             max_queue=self.config.upload_queue_max,
             shed_delay_s=self.config.upload_shed_delay_s,
+            device=self.config.vdaf_device,
         )
         # Zero-copy ingest plane: in journaled mode the upload
         # write seam becomes the write-behind report journal + direct
@@ -513,6 +514,8 @@ class Aggregator:
                     from ..core.metrics import GLOBAL_METRICS
 
                     t0 = _time.monotonic()
+                    if GLOBAL_METRICS.registry is not None:
+                        GLOBAL_METRICS.hpke_open_rows.labels(stage="upload", route="inline").inc()
                     plaintext = open_(
                         keypair, info, report.leader_encrypted_input_share, aad
                     )
@@ -684,7 +687,9 @@ class Aggregator:
         # batchable shape as upload — cheap per-report validation inline,
         # then ONE core/hpke_batch.open_batch call on a worker thread
         # (per-report KEM decap + one vectorized AES-128-GCM pass), with
-        # per-report inline fallback on any batch-LEVEL error.
+        # per-report inline fallback on any other batch-LEVEL error.  A
+        # vector pass that fails as a whole answers 503 (the leader
+        # retries) and opens nothing another way.
         decoded: List[Tuple[int, tuple]] = []  # (idx, (nonce, public, share, msg))
         to_open: List[Tuple[int, object]] = []  # (idx, OpenRequest)
         for idx, pi in enumerate(req.prepare_inits):
@@ -699,12 +704,16 @@ class Aggregator:
                 to_open.append((idx, prepared))
         if to_open:
             loop = asyncio.get_running_loop()
+            from ..core.hpke_batch import VectorPassError, _open_one, open_batch
+
+            stage = "aggregate_init"
             if self.config.upload_open_backend == "batched":
-                from ..core.hpke_batch import open_batch
 
                 def run_opens():
                     try:
-                        return open_batch([r for _i, r in to_open])
+                        return open_batch([r for _i, r in to_open], self.config.vdaf_device, stage)
+                    except VectorPassError:
+                        raise
                     except Exception:
                         # batch-LEVEL failure: per-report inline opens —
                         # the batched path must never reject a report the
@@ -713,16 +722,21 @@ class Aggregator:
                             "batched aggregate-init open failed; falling "
                             "back to per-report opens"
                         )
-                        from ..core.hpke_batch import _open_one
+                        return [_open_one(*r, stage=stage) for _i, r in to_open]
 
-                        return [_open_one(*r) for _i, r in to_open]
+                try:
+                    opened = await loop.run_in_executor(None, run_opens)
+                except VectorPassError as e:
+                    from ..core.metrics import GLOBAL_METRICS
+                    from .error import ServiceUnavailable
 
-                opened = await loop.run_in_executor(None, run_opens)
+                    logger.error("aggregate-init vector pass failed: %s", e)
+                    if GLOBAL_METRICS.registry is not None:
+                        GLOBAL_METRICS.hpke_vector_pass_failures.labels(stage=stage).inc()
+                    raise ServiceUnavailable(f"report share open failed on the device; retry: {e}")
             else:
-                from ..core.hpke_batch import _open_one
-
                 opened = await loop.run_in_executor(
-                    None, lambda: [_open_one(*r) for _i, r in to_open]
+                    None, lambda: [_open_one(*r, stage=stage) for _i, r in to_open]
                 )
             for (idx, _req), plaintext in zip(to_open, opened):
                 if isinstance(plaintext, Exception) or plaintext is None:
@@ -1497,17 +1511,65 @@ class Aggregator:
         ):
             job = job.with_state(AggregationJobState.FINISHED)
 
-        writer = AggregationJobWriter(
-            task,
-            ta.vdaf,
-            batch_aggregation_shard_count=self.config.batch_aggregation_shard_count,
-            initial_write=False,
-            backend=ta.backend,
-        )
-        writer.put(job, new_ras, out_shares)
-        failures = await self.datastore.run_tx_async(
-            "agg_cont_write", lambda tx: writer.write(tx)
-        )
+        # Helper-side deferred accumulation: CONTINUE rounds of agg-param
+        # VDAFs (Poplar1's round-1 finishers) route their host vectors
+        # through the store's deferred buckets — N continue requests at one
+        # tree level merge as ONE datastore vector write, drained on the
+        # request cadence or at the aggregate-share barrier.  The journal
+        # row written in this tx is the exactly-once fence (replayable at
+        # aggregate-share time from the retained helper_prep_state), and
+        # the vectors enter their bucket only once it has committed.
+        journal_entries = None
+        pending: List[tuple] = []
+        direct_shares = out_shares
+        store = self._executor.accumulator if self._executor is not None else None
+        if (
+            store is not None
+            and store.config.deferred
+            and getattr(ta.vdaf, "REQUIRES_AGG_PARAM", False)
+            and out_shares
+        ):
+            out_shares = dict(out_shares)
+            (
+                journal_entries,
+                pending,
+                new_ras,
+            ) = await self._commit_helper_deferred_host_shares(
+                ta, job, by_id, new_ras, out_shares
+            )
+
+        from ..executor.accumulator import StaleAccumulatorDelta
+
+        def write_tx(journal_entries, out_shares):
+            writer = AggregationJobWriter(
+                task,
+                ta.vdaf,
+                batch_aggregation_shard_count=self.config.batch_aggregation_shard_count,
+                initial_write=False,
+                backend=ta.backend,
+                journal_entries=journal_entries,
+                journal_drain_interval_s=store.config.drain_interval_s if journal_entries else None,
+            )
+            writer.put(job, new_ras, out_shares)
+            return self.datastore.run_tx_async("agg_cont_write", lambda tx: writer.write(tx))
+
+        try:
+            failures = await write_tx(journal_entries, out_shares)
+        except StaleAccumulatorDelta:
+            # a journaled report failed in-tx (its batch was collected
+            # under our feet): the journal rows never committed and no
+            # vector entered a bucket; retry once merging this request's
+            # vectors directly (no deferral; still exactly-once)
+            journal_entries, pending = None, []
+            failures = await write_tx(None, direct_shares)
+        if pending:
+            await self._commit_helper_journaled(ta, job, pending)
+        if journal_entries:
+            from ..core.metrics import GLOBAL_METRICS
+
+            if GLOBAL_METRICS.registry is not None:
+                GLOBAL_METRICS.accumulator_journal_entries.inc(len(journal_entries))
+            await self._maybe_drain_helper_due(ta)
         if failures:
             resps = [
                 PrepareResp(r.report_id, PrepareStepResult.reject(failures[r.report_id.data]))
@@ -1516,6 +1578,304 @@ class Aggregator:
                 for r in resps
             ]
         return AggregationJobResp(resps)
+
+    async def _commit_helper_deferred_host_shares(
+        self, ta: TaskAggregator, job, by_id, new_ras, out_shares
+    ):
+        """The helper twin of the driver's deferred journaling: per batch
+        bucket, hand the writer a journal entry instead of this request's
+        finished vectors, whose out_shares become sentinel refs so that
+        the writer defers them.  Their FINISHED report aggregations RETAIN
+        ``helper_prep_state`` (the round-1 prepare state whose ``y_flat``
+        IS the vector): the replay window after the bucket is lost.
+        Batches already collected are left to the writer, which fails
+        their reports in-tx.  Returns (journal_entries, pending, new_ras):
+        ``pending`` lists the ``(bucket_key, field, vectors, report_ids)``
+        that :meth:`_commit_helper_journaled` sums into the buckets once
+        the write tx has committed."""
+        import dataclasses
+
+        from ..datastore import BatchAggregationState
+        from ..executor.accumulator import ResidentRef
+        from ..vdaf.backend import vdaf_shape_key
+
+        task = ta.task
+        vdaf = ta.vdaf
+        strategy = strategy_for(task)
+        shape_key = vdaf_shape_key(vdaf)
+        field = vdaf.field_for_agg_param(vdaf.decode_agg_param(job.aggregation_parameter))
+        ra_by_rid = {ra.report_id.data: ra for ra in new_ras}
+
+        def ident_for(ra):
+            if job.partial_batch_identifier is not None:
+                return job.partial_batch_identifier.get_encoded()
+            return strategy.to_batch_identifier(task, ra.time)
+
+        by_ident: Dict[bytes, List[bytes]] = {}
+        for rid in out_shares:
+            by_ident.setdefault(ident_for(ra_by_rid[rid]), []).append(rid)
+
+        # Pre-tx collected check (as the driver's): journaling a report the
+        # writer tx will fail guarantees a StaleAccumulatorDelta abort.
+        def check(tx):
+            out = set()
+            for ident in by_ident:
+                bas = tx.get_batch_aggregations_for_batch(task.task_id, ident, job.aggregation_parameter)
+                if any(ba.state != BatchAggregationState.AGGREGATING for ba in bas):
+                    out.add(ident)
+            return out
+
+        collected = await self.datastore.run_tx_async("helper_accum_collected_check", check)
+        journal_entries: Dict[bytes, frozenset] = {}
+        pending: List[tuple] = []
+        for ident, rids in by_ident.items():
+            if ident in collected:
+                continue  # the writer fails these in-tx; vectors merge nowhere
+            bucket_key = ("helper", task.task_id.data, shape_key, ident, job.aggregation_parameter)
+            pending.append((bucket_key, field, [out_shares[rid] for rid in rids], rids))
+            journal_entries[ident] = frozenset(rids)
+            for i, rid in enumerate(rids):
+                out_shares[rid] = ResidentRef(-1, i)
+        if not journal_entries:
+            return None, [], new_ras
+        journaled = set().union(*journal_entries.values())
+        new_ras = [
+            dataclasses.replace(ra, helper_prep_state=by_id[ra.report_id.data].helper_prep_state)
+            if ra.report_id.data in journaled and ra.state == ReportAggregationState.FINISHED
+            else ra
+            for ra in new_ras
+        ]
+        return journal_entries, pending, new_ras
+
+    async def _commit_helper_journaled(self, ta: TaskAggregator, job, pending) -> None:
+        """After the continue tx has written its journal rows: sum each
+        bucket's vectors into the store's host mirror.  A drain that
+        detached the bucket meanwhile makes the commit open a fresh one;
+        where the commit still fails, the bucket is discarded and its
+        rows, all journaled, replay at the aggregate-share barrier."""
+        from ..executor.accumulator import AccumulatorUnavailable
+
+        store = self._executor.accumulator
+        loop = asyncio.get_running_loop()
+        for bucket_key, field, vectors, rids in pending:
+
+            def commit(bucket_key=bucket_key, field=field, vectors=vectors, rids=rids):
+                store.commit_host_rows(
+                    bucket_key, field, vectors, job_token=job.aggregation_job_id.data, report_ids=rids
+                )
+
+            try:
+                try:
+                    await loop.run_in_executor(None, commit)
+                except AccumulatorUnavailable:
+                    await loop.run_in_executor(None, commit)
+            except Exception:
+                logger.exception(
+                    "helper deferred commit failed for bucket %r; its journal rows replay at aggregate-share time",
+                    bucket_key,
+                )
+                self._discard_helper_deferred([bucket_key])
+
+    def _discard_helper_deferred(self, keys) -> None:
+        """Drop helper deferred buckets that failed: every row they held
+        has a committed journal row, which the aggregate-share barrier
+        replays from the retained states."""
+        store = self._executor.accumulator if self._executor is not None else None
+        if store is None:
+            return
+        for key in keys:
+            journal = store.discard(key)
+            if journal:
+                logger.warning(
+                    "discarded helper bucket %r with %d journaled request(s); their journal rows "
+                    "replay at aggregate-share time",
+                    key,
+                    len(journal),
+                )
+
+    def _helper_bucket_keys(self, ta: TaskAggregator, keys) -> List[tuple]:
+        """The helper's deferred (5-element) bucket keys of this task."""
+        task_id = ta.task.task_id.data
+        return [k for k in keys if len(k) == 5 and k[0] == "helper" and k[1] == task_id]
+
+    async def _maybe_drain_helper_due(self, ta: TaskAggregator) -> int:
+        """Cadence scan for the HELPER's deferred buckets (the helper has
+        no driver loop: drains ride request completions and the
+        aggregate-share barrier): merge every due bucket's vector into
+        batch_aggregations, consuming its journal rows exactly once."""
+        store = self._executor.accumulator
+        keys = self._helper_bucket_keys(ta, store.due_buckets(store.config.drain_interval_s))
+        for key in keys:
+            try:
+                await asyncio.get_running_loop().run_in_executor(None, self._drain_helper_bucket, ta, key)
+            except Exception:
+                logger.exception("helper deferred drain failed for %r", key)
+        return len(keys)
+
+    def _drain_helper_bucket(self, ta: TaskAggregator, key: tuple) -> None:
+        from ..executor.accumulator import AccumulatorError
+
+        vdaf = ta.vdaf
+        _role, _task_id, _shape, ident, param = key
+        field = vdaf.field_for_agg_param(vdaf.decode_agg_param(param))
+        try:
+            out = self._executor.accumulator.drain_with_journal(key, field)
+        except AccumulatorError as e:
+            journal = self._executor.accumulator.discard(key)
+            logger.warning(
+                "helper deferred drain failed for bucket %r; %d journal row(s) stay persisted for the "
+                "aggregate-share replay: %s",
+                key,
+                len(journal),
+                e,
+            )
+            return
+        if out is not None:
+            vector, journal = out
+            self._merge_helper_drained(ta, field, ident, param, vector, journal)
+
+    def _merge_helper_drained(self, ta: TaskAggregator, field, ident, param, vector, journal) -> None:
+        """Merge one drained helper vector, consuming its journal rows in
+        the same tx (exactly-once: the DELETE decides the winner against
+        a concurrent aggregate-share replay)."""
+        from .aggregation_job_writer import merge_share_delta
+
+        class _RowMissing(Exception):
+            pass
+
+        task = ta.task
+
+        def tx_fn(tx):
+            for job_token, _rids in journal:
+                if not tx.delete_accumulator_journal_entry(task.task_id, ident, param, AggregationJobId(job_token)):
+                    raise _RowMissing(job_token)
+            merge_share_delta(
+                tx, task, field, ident, param, vector, shard_count=self.config.batch_aggregation_shard_count
+            )
+
+        try:
+            self.datastore.run_tx("helper_accumulator_drain", tx_fn)
+        except _RowMissing as e:
+            logger.warning(
+                "helper bucket (%r, %r) journal row %s already consumed (replayed); dropping the drained vector",
+                ident,
+                param,
+                e,
+            )
+            return
+        from ..core.metrics import GLOBAL_METRICS
+
+        if GLOBAL_METRICS.registry is not None:
+            GLOBAL_METRICS.accumulator_journal_consumed.labels(path="drain").inc(len(journal))
+
+    async def _flush_helper_deferred(self, ta: TaskAggregator, ident: bytes, param: bytes) -> None:
+        """The aggregate-share barrier: before the helper computes a
+        batch's share, (1) drain every resident deferred bucket of this
+        task, whatever its age (collection is the deadline), then (2)
+        replay the journal rows still outstanding for the collection's
+        batches (a lost store's buckets died with it; the rows name
+        FINISHED reports whose retained ``helper_prep_state`` carries the
+        vector)."""
+        store = self._executor.accumulator if self._executor is not None else None
+        task = ta.task
+        if store is not None:
+            for key in self._helper_bucket_keys(ta, store.bucket_keys()):
+                try:
+                    await asyncio.get_running_loop().run_in_executor(None, self._drain_helper_bucket, ta, key)
+                except Exception:
+                    # the rows it held stay journaled: the replay below
+                    # takes them
+                    logger.exception("helper pre-share drain failed for %r", key)
+        if not await self.datastore.run_tx_async(
+            "helper_journal_probe", lambda tx: tx.count_accumulator_journal_entries(task.task_id)
+        ):
+            return
+        strategy = strategy_for(task)
+
+        def load(tx):
+            entries = []
+            for bident in strategy.batch_identifiers_for_collection_identifier(task, ident):
+                entries.extend(
+                    e for e in tx.get_accumulator_journal_entries(task.task_id, bident)
+                    if e.aggregation_parameter == param
+                )
+            return entries
+
+        for entry in await self.datastore.run_tx_async("helper_journal_scan", load):
+            await self._replay_helper_journal_entry(ta, entry)
+
+    async def _replay_helper_journal_entry(self, ta: TaskAggregator, entry) -> None:
+        """Re-derive one outstanding helper journal row's vector from the
+        retained round-1 prepare states and merge it, deleting the row in
+        the same tx (exactly-once against any concurrent drain).  A state
+        that does not carry its vector on the host (a device-resident ref
+        whose flush is gone) fails the replay: the share must not be
+        computed without it."""
+        from ..core import costs
+
+        vdaf = ta.vdaf
+        ras = await self.datastore.run_tx_async(
+            "helper_replay_load_ras",
+            lambda tx: tx.get_report_aggregations_for_aggregation_job(ta.task.task_id, entry.aggregation_job_id),
+        )
+        by_rid = {ra.report_id.data: ra for ra in ras}
+        field = vdaf.field_for_agg_param(vdaf.decode_agg_param(entry.aggregation_parameter))
+
+        def recompute():
+            total = None
+            for rid in entry.report_ids:
+                ra = by_rid.get(rid)
+                if ra is None or ra.helper_prep_state is None:
+                    raise AggregatorError(
+                        f"helper journal entry for job {entry.aggregation_job_id} names report {rid.hex()} "
+                        "without a retained state"
+                    )
+                y = vdaf.ping_pong_decode_state(ra.helper_prep_state).y_flat
+                if not isinstance(y, list):
+                    raise AggregatorError(
+                        f"helper journal entry for job {entry.aggregation_job_id}: report {rid.hex()}'s retained "
+                        f"state holds {type(y).__name__}, not its vector"
+                    )
+                total = list(y) if total is None else field.vec_add(total, y)
+            return total
+
+        total = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: costs.run_in_task_scope(ta.task.task_id.data, recompute)
+        )
+        self._merge_replayed_helper_entry(ta, field, entry, total)
+
+    def _merge_replayed_helper_entry(self, ta: TaskAggregator, field, entry, total) -> None:
+        from .aggregation_job_writer import merge_share_delta
+
+        task = ta.task
+
+        def tx_fn(tx):
+            if not tx.delete_accumulator_journal_entry(
+                task.task_id, entry.batch_identifier, entry.aggregation_parameter, entry.aggregation_job_id
+            ):
+                return False
+            if total is not None:
+                merge_share_delta(
+                    tx,
+                    task,
+                    field,
+                    entry.batch_identifier,
+                    entry.aggregation_parameter,
+                    total,
+                    shard_count=self.config.batch_aggregation_shard_count,
+                )
+            return True
+
+        if self.datastore.run_tx("helper_journal_replay", tx_fn):
+            logger.warning(
+                "helper replayed %d report(s) of job %s from the datastore journal (its bucket was lost)",
+                len(entry.report_ids),
+                entry.aggregation_job_id,
+            )
+            from ..core.metrics import GLOBAL_METRICS
+
+            if GLOBAL_METRICS.registry is not None:
+                GLOBAL_METRICS.accumulator_journal_consumed.labels(path="replay").inc()
 
     def _helper_continue_batch(self, ta: TaskAggregator, job, req, by_id):
         """Step WaitingHelper reports with the leader's continue messages."""
@@ -1852,6 +2212,18 @@ class Aggregator:
         req = AggregateShareReq.get_decoded(body, ta.query_class)
         strategy = strategy_for(task)
         ident = req.batch_selector.batch_identifier.get_encoded()
+
+        # Deferred-drain barrier: resident helper buckets drain and
+        # outstanding journal rows replay BEFORE the share is computed.
+        if getattr(ta.vdaf, "REQUIRES_AGG_PARAM", False):
+            try:
+                await self._flush_helper_deferred(ta, ident, req.aggregation_parameter)
+            except Exception:
+                # a failed drain leaves rows journaled: the share below
+                # would under-count, so the request fails and the leader
+                # retries
+                logger.exception("helper deferred flush failed")
+                raise AggregatorError("deferred share flush failed")
 
         def tx_fn(tx):
             cached = tx.get_aggregate_share_job(

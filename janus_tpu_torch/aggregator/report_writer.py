@@ -24,13 +24,17 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import logging
 import random
 import time
 from typing import Dict, List, Optional, Tuple
 
+from ..core.hpke_batch import VectorPassError, route_rows
 from ..datastore import Datastore, LeaderStoredReport, TaskUploadCounter, TxConflict
 from ..messages import TaskId
 from .error import ReportRejection, UploadShed
+
+logger = logging.getLogger(__name__)
 
 
 class ReportWriteBatcher:
@@ -250,8 +254,11 @@ class UploadOpenBatcher:
         max_batch_delay: float = 0.005,
         max_queue: int = 1024,
         shed_delay_s: float = 2.0,
+        device=None,
     ):
         self.max_batch_size = max_batch_size
+        #: the vector pass's device (None: the process's configured one)
+        self.device = device
         self.max_batch_delay = max_batch_delay
         self.max_queue = max_queue
         self.shed_delay_s = shed_delay_s
@@ -272,6 +279,7 @@ class UploadOpenBatcher:
         self._opened = 0
         self._bisections = 0
         self._quarantined = 0
+        self._vector_pass_failures = 0
         global _FRONTDOOR
         _FRONTDOOR = self
 
@@ -368,18 +376,25 @@ class UploadOpenBatcher:
             loop = asyncio.get_running_loop()
             try:
                 results = await loop.run_in_executor(
-                    None, _open_batch_worker, requests
+                    None, _open_batch_worker, requests, self.device
                 )
+            except VectorPassError as e:
+                # the vector pass failed as a whole: no report was judged,
+                # so none is bisected or opened another way
+                results = self._vector_pass_failed(batch, e)
             except Exception:
                 # batch-LEVEL failure: bisect the cohort on the thread
                 # pool to isolate the poison row(s) — O(log B) extra
                 # passes, not B serial opens — while rejecting nothing
                 # the inline path would accept (a failing singleton
                 # falls through to the inline open, errors as values)
-                results, offenders = await loop.run_in_executor(
-                    None, _open_bisect_worker, requests
-                )
-                self._note_offenders(batch, offenders)
+                try:
+                    results, offenders = await loop.run_in_executor(
+                        None, _open_bisect_worker, requests, self.device
+                    )
+                    self._note_offenders(batch, offenders)
+                except VectorPassError as e:
+                    results = self._vector_pass_failed(batch, e)
             took = time.monotonic() - t0
             self._batches += 1
             self._opened += len(batch)
@@ -405,6 +420,18 @@ class UploadOpenBatcher:
                 fut.set_exception(result)
             else:
                 fut.set_result(result)
+
+    def _vector_pass_failed(self, batch, error) -> list:
+        """Count a failed vector pass and answer each of its uploads with
+        a retryable ServiceUnavailable (503 + Retry-After)."""
+        from ..core.metrics import GLOBAL_METRICS
+        from .error import ServiceUnavailable
+
+        logger.error("upload vector pass failed for %d upload(s): %s", len(batch), error)
+        self._vector_pass_failures += 1
+        if GLOBAL_METRICS.registry is not None:
+            GLOBAL_METRICS.hpke_vector_pass_failures.labels(stage="upload").inc()
+        return [ServiceUnavailable(f"upload open failed on the device; retry: {error}") for _ in batch]
 
     def _note_offenders(self, batch, offenders) -> None:
         """Record bisection-isolated poison rows in the quarantine ledger
@@ -445,10 +472,12 @@ class UploadOpenBatcher:
             "opened": self._opened,
             "bisections": self._bisections,
             "quarantined": self._quarantined,
+            "vector_pass_failures": self._vector_pass_failures,
+            "routes": route_rows("upload"),
         }
 
 
-def _open_batch_worker(requests):
+def _open_batch_worker(requests, device=None):
     """Thread-pool body of one open batch; the ``upload.open`` fault
     point lets chaos wedge the open stage (delay mode backs the queue up
     into sheds; error mode exercises the per-report fallback)."""
@@ -456,10 +485,10 @@ def _open_batch_worker(requests):
     from ..core.hpke_batch import open_batch
 
     faults.fire("upload.open")
-    return open_batch(requests)
+    return open_batch(requests, device)
 
 
-def _open_bisect_worker(requests):
+def _open_bisect_worker(requests, device=None):
     """Batch-level failure fallback: bisect the cohort to isolate the
     poison row(s) instead of re-running the FULL batch inline serially (a
     healthy 499-report cohort must not pay 499 serial opens for one
@@ -468,11 +497,26 @@ def _open_bisect_worker(requests):
     full-cohort retry, not quarantine healthy reports.  A singleton that
     still fails the batch path gets the per-report inline open (errors as
     values), so nothing the inline path would accept is ever rejected.
+    A vector pass that fails as a whole is no poison row: it stops the
+    bisection and is raised, so that no report is opened another way.
     Returns (results, offenders) where offenders is [(index, error)]."""
     from ..core.hpke_batch import _open_one, open_batch
     from ..core.quarantine import bisect_batch
 
-    outcome = bisect_batch(requests, open_batch)
+    vector_fault: List[VectorPassError] = []
+
+    def attempt(subset):
+        if vector_fault:
+            raise vector_fault[0]
+        try:
+            return open_batch(subset, device)
+        except VectorPassError as e:
+            vector_fault.append(e)
+            raise
+
+    outcome = bisect_batch(requests, attempt)
+    if vector_fault:
+        raise vector_fault[0]
     results = [None] * len(requests)
     for i, r in outcome.results.items():
         results[i] = r

@@ -725,6 +725,23 @@ class Metrics:
             "Front-door uploads pending in the batched HPKE-open queue",
             registry=self.registry,
         )
+        # HPKE opens by stage (upload|aggregate_init) and route: vector (an
+        # AES-128-GCM body of core/hpke_batch.py's vector pass), aead (a
+        # body opened per report with its batch-derived key), inline (a
+        # whole per-report open); and the vector passes that failed as a
+        # whole, each answered with a retryable 503
+        self.hpke_open_rows = Counter(
+            "janus_hpke_open_rows_total",
+            "HPKE opens by stage (upload|aggregate_init) and route (vector|aead|inline)",
+            ["stage", "route"],
+            registry=self.registry,
+        )
+        self.hpke_vector_pass_failures = Counter(
+            "janus_hpke_vector_pass_failures_total",
+            "AES-128-GCM vector passes that failed as a whole, answered 503 (upload|aggregate_init)",
+            ["stage"],
+            registry=self.registry,
+        )
         # -- zero-copy ingest plane (core/ingest.py) -----------
         # The write-behind report journal: reports waiting on their
         # durability-ACK journal flush (staged + in-flight — the bound the

@@ -312,7 +312,9 @@ def interop_collector_app() -> web.Application:
 def launch_line(backend: str, device: Optional[str]) -> dict:
     """What the interop aggregator prints as it stops: its backend and
     device, each kernel wrapper's launches in this process (as ``/statusz``'s
-    ``device`` section counts them) and its backend fallbacks."""
+    ``device`` section counts them), its backend fallbacks and its HPKE
+    opens by stage and route."""
+    from .core.hpke_batch import route_rows
     from .core.metrics import GLOBAL_METRICS
     from .core.statusz import device_status
 
@@ -328,6 +330,7 @@ def launch_line(backend: str, device: Optional[str]) -> dict:
             "vdaf_device": device,
             "kernel_launches": device_status()["kernel_launches"],
             name: fallbacks,
+            "hpke_open_rows": {stage: route_rows(stage) for stage in ("upload", "aggregate_init")},
         }
     }
 
